@@ -1,0 +1,405 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
+each against its plain PyTorch version on the card, then drives the paper's
+Algorithm 1 through the port's public entry points, at the paper's size and
+at full width, and fails loudly: there is no CPU fallback and no caught
+phase.  Every phase prints its seconds.
+
+Phases:
+  1. device      the card's name, count, power limit
+  2. build       nvcc for sm_90a, one process per source, all at once
+  3. prelude     full-width data, assignment, stragglers; host recovery
+                 solve, shard packing and host-to-device copy, timed apart
+  4. kernels     each kernel against its plain version at the shapes of the
+                 runs below, plus edge cases
+  5. paper size  the twin of examples/quickstart.py; the p_a=0.2 run is
+                 also held against the plain path
+  6. full width  centralized k-median and Algorithm 1 at the shape of SIFT1M
+                 (1,000,000 x 128 f32), k=256, s=10, t=3, p_a=0.2; launch
+                 counts are read from each of the two runs apart, and the
+                 kernel line reports Algorithm 1's
+  7. profile     Algorithm 1 once more under torch.profiler: kernel time by
+                 name against the wall time
+  8. timing      each kernel, its plain version and one library call
+
+The last two lines are the card's name and power limit and
+{"ok": true, "device": {...}}; the line before them lists the kernels.
+
+Run:  python3 chip_smoke.py [--seed N]
+Needs one CUDA card and the CUDA toolkit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+PEAK_FP32_FLOPS = 67e12  # H100 SXM, non-tensor-core fp32 (NVIDIA data sheet)
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 tensor cores, for a later PR
+PEAK_BYTES = 3.35e12      # H100 SXM HBM3
+
+
+@contextlib.contextmanager
+def phase(name: str):
+    print(f"=== phase {name}", flush=True)
+    t0 = time.perf_counter()
+    yield
+    print(f"[seconds] {name}: {time.perf_counter() - t0:.3f}", flush=True)
+
+
+def smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    sys.stdout.reconfigure(line_buffering=True)  # each line reaches a log even if the run is cut
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
+        return 2
+
+    import numpy as np
+
+    from repro_torch import quickstart
+    from repro_torch.core import (
+        ResilienceSession,
+        bernoulli_assignment,
+        fixed_count_stragglers,
+        lloyd,
+        resilient_kmedian,
+    )
+    from repro_torch.data.synthetic import franti_s1_like, gaussian_mixture
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels.pairwise_dist import ops as pd_ops
+    from repro_torch.kernels.pairwise_dist import ref as pd_ref
+    from repro_torch.kernels.weighted_segsum import ops as ss_ops
+
+    # The plain side runs in full fp32: no TF32 in matmuls or convolutions.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    errs: dict[str, float] = {"assign_min": 0.0, "weighted_segsum": 0.0}
+
+    with phase("device"):
+        kind = torch.cuda.get_device_name(0)
+        print(f"device: {kind}  count={torch.cuda.device_count()}  torch={torch.__version__} "
+              f"cuda={torch.version.cuda}")
+        print(f"nvidia-smi: {smi()}")
+
+    with phase("build"):
+        t0 = time.perf_counter()
+        for name, rep in _build.build().items():
+            print(f"built {name}: {rep.library.name}  nvcc {rep.seconds:.1f} s")
+            for line in rep.ptxas:
+                print(f"  {line}")
+        print(f"build seconds (parallel): {time.perf_counter() - t0:.3f}")
+
+    # ------------------------------------------------------------- checks
+
+    def check_assign(tag, x, c, k_valid=None):
+        k = c.shape[-2]
+        kv = k if k_valid is None else k_valid
+        idx_k, dist_k = pd_ops.assign_min(x, c, k_valid=k_valid)
+        idx_r, dist_r = pd_ops.assign_min(x, c, k_valid=k_valid, impl="torch_ref")
+        sync()
+        if idx_k.shape != idx_r.shape or dist_k.dtype != torch.float32:
+            raise AssertionError(f"assign_min {tag}: shape or dtype differs from the plain version")
+        scale = float(dist_r.max())
+        err = (dist_k - dist_r).abs()
+        bad = err > 1e-5 * dist_r.abs() + 1e-4 * scale
+        if bool(bad.any()):
+            raise AssertionError(f"assign_min {tag}: {int(bad.sum())} distances outside "
+                                 f"rtol 1e-5 / atol 1e-4*max, max err {float(err.max()):.3e}")
+        # idx must agree wherever the two nearest distances differ by more
+        # than 1e-5 relative to |x|^2 + d^2, the magnitude whose rounding the
+        # decomposition carries; rows closer than that are near ties (exact
+        # duplicate centers among them).
+        ties = 0
+        if kv >= 2:
+            d2 = pd_ref.pairwise_sqdist_ref(x, c)[..., :kv]
+            top2 = torch.topk(d2, 2, dim=-1, largest=False).values
+            del d2
+            x2 = torch.sum(x.float() ** 2, dim=-1)
+            decided = (top2[..., 1] - top2[..., 0]) > 1e-5 * (x2 + top2[..., 1])
+            ties = int((~decided).sum())
+            wrong = decided & (idx_k != idx_r)
+            if bool(wrong.any()):
+                raise AssertionError(f"assign_min {tag}: {int(wrong.sum())} rows pick "
+                                     "another center than the plain version")
+        if bool((idx_k < 0).any() or (idx_k >= max(kv, 1)).any()):
+            raise AssertionError(f"assign_min {tag}: index outside [0, k_valid)")
+        errs["assign_min"] = max(errs["assign_min"], float(err.max()))
+        print(f"assign_min {tag}: x {tuple(x.shape)} c {tuple(c.shape)} k_valid={kv} "
+              f"max_abs_err={float(err.max()):.3e} near_ties={ties}")
+        return idx_k
+
+    def check_segsum(tag, x, w, idx, k):
+        s1, t1 = ss_ops.weighted_segsum(x, w, idx, k)
+        s2, t2 = ss_ops.weighted_segsum(x, w, idx, k)
+        sr, tr = ss_ops.weighted_segsum(x, w, idx, k, impl="torch_ref")
+        sa, ta = ss_ops.weighted_segsum(x.abs(), w.abs(), idx, k, impl="torch_ref")
+        sync()
+        if not (torch.equal(s1, s2) and torch.equal(t1, t2)):
+            raise AssertionError(f"weighted_segsum {tag}: two runs differ bitwise")
+        es, et = (s1 - sr).abs(), (t1 - tr).abs()
+        if bool((es > 1e-5 * sa).any() or (et > 1e-5 * ta).any()):
+            raise AssertionError(
+                f"weighted_segsum {tag}: error beyond 1e-5 of sum|w*x|: "
+                f"sums {float((es / sa.clamp_min(1e-30)).max()):.3e} "
+                f"totals {float((et / ta.clamp_min(1e-30)).max()):.3e}")
+        err = max(float(es.max()), float(et.max()))
+        rel = max(float((es / sa.clamp_min(1e-30)).max()), float((et / ta.clamp_min(1e-30)).max()))
+        errs["weighted_segsum"] = max(errs["weighted_segsum"], err)
+        print(f"weighted_segsum {tag}: x {tuple(x.shape)} k={k} max_abs_err={err:.3e} "
+              f"max_err/sum|w*x|={rel:.2e} bitwise-reproducible")
+
+    def rows_of(x, k):
+        """k random rows of each batch of x, as centers (B, k, d)."""
+        pick = torch.randint(0, x.shape[1], (x.shape[0], k), generator=gen, device=dev)
+        return torch.gather(x, 1, pick.unsqueeze(-1).expand(-1, -1, x.shape[2])).contiguous()
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    # -------------------------------------------------------------- prelude
+
+    n_full, d_full, k_full, s, t = 1_000_000, 128, 256, 10, 3
+    with phase("prelude"):
+        t0 = time.perf_counter()
+        pts, _, _ = gaussian_mixture(n_full, k_full, d_full, rng=np.random.default_rng(args.seed))
+        a = bernoulli_assignment(n_full, s, ell=0.2 * s, rng=np.random.default_rng(args.seed + 1))
+        alive = fixed_count_stragglers(s, t, np.random.default_rng(args.seed + 2))
+        print(f"data + assignment (host): {time.perf_counter() - t0:.3f} s; "
+              f"stragglers {sorted(np.flatnonzero(~alive).tolist())}")
+        session = ResilienceSession(a)
+        t0 = time.perf_counter()
+        rec = session.recovery(alive)
+        print(f"recovery solve (host, {rec.method}): {time.perf_counter() - t0:.3f} s  "
+              f"delta={rec.delta:.3f} feasible={rec.feasible} uncovered={len(rec.uncovered)}")
+        t0 = time.perf_counter()
+        _, _, _, _, xs_np, _ = session.prepare(pts, alive)
+        print(f"pack (host): {time.perf_counter() - t0:.3f} s  shards {xs_np.shape}")
+        t0 = time.perf_counter()
+        pts_d, xs_d, ws_d = session.device_shards(dev)
+        sync()
+        print(f"host-to-device copy: {time.perf_counter() - t0:.3f} s  "
+              f"({(pts_d.numel() + xs_d.numel() + ws_d.numel()) * 4 / 1e9:.2f} GB)")
+
+    with phase("kernels"):
+        # Edges: d=2 with k=15 (no block multiple), odd d, duplicate centers,
+        # masked columns, zero-weight rows, empty clusters, k over one tile.
+        x = rand(3, 1000, 2)
+        check_assign("edge d=2 k=15", x, rows_of(x, 15))
+        x = rand(2, 777, 13) - 0.5
+        check_assign("edge d=13 k=70", x, rows_of(x, 70))
+        c = rows_of(x, 20).repeat_interleave(2, dim=1)
+        idx = check_assign("edge duplicate centers", x, c.contiguous())
+        if bool((idx % 2 != 0).any()):
+            raise AssertionError("assign_min: a tie did not resolve to the earlier duplicate")
+        c = torch.cat([rows_of(x, 13), torch.zeros(2, 7, 13, device=dev)], dim=1)
+        check_assign("edge k_valid=13 of 20", x, c, k_valid=13)
+        w = rand(2, 777) * (rand(2, 777) > 0.5)
+        idx = torch.randint(-2, 40, (2, 777), generator=gen, device=dev, dtype=torch.int32)
+        check_segsum("edge zero weights, empty clusters, idx outside [0,k)", x, w, idx, 50)
+        x = rand(1, 5000, 5)
+        idx = torch.randint(0, 1000, (1, 5000), generator=gen, device=dev, dtype=torch.int32)
+        check_segsum("edge k=1000 (tiled k)", x, rand(1, 5000), idx, 1000)
+
+        # Paper size: local shards (s, m, 2), coordinator (1, s*k, 2), full cost.
+        p_pts, _, _ = franti_s1_like(5000)
+        p_a = bernoulli_assignment(5000, s, ell=2.0, rng=np.random.default_rng(1))
+        _, _, _, _, p_xs, p_ws = ResilienceSession(p_a).prepare(p_pts, alive)
+        px = torch.from_numpy(p_xs).to(dev)
+        idx = check_assign("paper local", px, rows_of(px, 15))
+        check_segsum("paper local", px, torch.from_numpy(p_ws).to(dev) * rand(*p_ws.shape), idx, 15)
+        py = rand(1, s * 15, 2)
+        idx = check_assign("paper coordinator", py, rows_of(py, 15))
+        check_segsum("paper coordinator", py, rand(1, s * 15), idx, 15)
+        pp = torch.from_numpy(p_pts).to(dev)[None]
+        check_assign("paper full cost", pp, rows_of(pp, 15))
+
+        # Full width: local solves (10, m, 128), coordinator, full cost.
+        idx = check_assign("full local", xs_d, rows_of(xs_d, k_full))
+        check_segsum("full local", xs_d, ws_d * rand(*ws_d.shape), idx, k_full)
+        fy = rows_of(xs_d, k_full).reshape(1, s * k_full, d_full)
+        idx = check_assign("full coordinator", fy, rows_of(fy, k_full))
+        check_segsum("full coordinator", fy, rand(1, s * k_full) * (rand(1, s * k_full) > 0.3), idx, k_full)
+        check_assign("full cost", pts_d[None], rows_of(pts_d[None], k_full))
+        del fy, idx
+
+    with phase("paper size"):
+        dispatch.reset_launch_counts()
+        ratios = quickstart.run(dev)
+        print(f"paper-size ratios: {json.dumps(ratios)}  launches {dispatch.launch_counts()}")
+        if not all(np.isfinite(r) and r > 0 for r in ratios.values()):
+            raise AssertionError(f"paper-size ratios not finite: {ratios}")
+        # The same run through the kernels and through the plain versions.
+        kw = dict(local_iters=15, coord_iters=30, device=dev)
+        out_k = resilient_kmedian(p_pts, 15, p_a, alive, **kw)
+        out_r = resilient_kmedian(p_pts, 15, p_a, alive, impl="torch_ref", **kw)
+        rel = abs(out_k.cost - out_r.cost) / out_r.cost
+        print(f"paper p_a=0.2 cost: kernels {out_k.cost:.4f}  plain {out_r.cost:.4f}  rel {rel:.2e}")
+        if rel > 1e-3:
+            raise AssertionError("paper-size run through the kernels disagrees with the plain path")
+
+    def run_alg1():
+        return resilient_kmedian(
+            pts, k_full, a, alive, local_iters=15, coord_iters=30, seed=args.seed,
+            session=session, device=dev,
+        )
+
+    with phase("full width"):
+        torch.cuda.reset_peak_memory_stats()
+        sync()
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        central = lloyd(pts_d, k_full, iters=40, median=True,
+                        generator=torch.Generator(device=dev).manual_seed(args.seed))
+        central_cost = float(central.cost)
+        central_counts = dispatch.launch_counts()
+        dispatch.reset_launch_counts()
+        t1 = time.perf_counter()
+        out = run_alg1()
+        sync()
+        t2 = time.perf_counter()
+        counts = dispatch.launch_counts()  # Algorithm 1's own launches
+        t3 = time.perf_counter()
+        session.prepare(pts, alive)  # what the run spent on the host before the device work
+        host = time.perf_counter() - t3
+        print(f"centralized lloyd (device): {t1 - t0:.3f} s  cost={central_cost:.2f}")
+        print(f"Algorithm 1: {t2 - t1:.3f} s  cost={out.cost:.2f}; of which host prepare with "
+              f"cached solve and pack (content fingerprint) {host:.3f} s, device {t2 - t1 - host:.3f} s")
+        print(f"full-width cost ratio (Algorithm 1 / centralized): {out.cost / central_cost:.6f}")
+        print(f"max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        print(f"launches: centralized {central_counts}  Algorithm 1 {counts}  "
+              f"session {session.stats.as_dict()}")
+        for tag, got in (("centralized", central_counts), ("Algorithm 1", counts)):
+            if not all(got.get(name, 0) > 0 for name in ("assign_min", "weighted_segsum")):
+                raise AssertionError(f"{tag}: a kernel of the path was never launched: {got}")
+        if out.centers.shape != (k_full, d_full) or not np.isfinite(out.centers).all():
+            raise AssertionError("Algorithm 1 centers are not finite (k, d)")
+        if not (np.isfinite(out.cost) and np.isfinite(central_cost) and out.cost > 0):
+            raise AssertionError("full-width costs are not finite")
+        # Lemma 3 on the summary: Σ_i b_i·|P_i| = Σ_j a_j exactly.
+        mass, want = float(out.summary_weights.sum()), float(rec.a.sum())
+        print(f"summary weight mass {mass:.1f} vs sum(a) {want:.1f}")
+        if abs(mass - want) > 1e-4 * want:
+            raise AssertionError("summary weights do not carry the recovery mass")
+
+    with phase("profile"):
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        sync()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run_alg1()
+            sync()
+        wall = time.perf_counter() - t0
+
+        def dev_us(e):
+            return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+        # Kernels only: an aten op's entry repeats the time of its kernels.
+        kernels = sorted(
+            (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+            key=dev_us, reverse=True,
+        )
+        busy = sum(dev_us(e) for e in kernels) / 1e6
+        print(f"Algorithm 1 under the profiler: wall {wall:.3f} s, kernels {busy:.3f} s "
+              f"({100 * busy / wall:.1f}% of the profiled wall, which the profiler inflates)")
+        for e in kernels[:12]:
+            print(f"  {dev_us(e) / 1e3:10.1f} ms  {e.count:7d} launches  {e.key[:90]}")
+
+    with phase("timing"):
+        def cuda_ms(fn, reps):
+            fn()
+            sync()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(reps):
+                fn()
+            e1.record()
+            e1.synchronize()
+            return e0.elapsed_time(e1) / reps
+
+        B, m, d = xs_d.shape
+        c = rows_of(xs_d, k_full)
+        idx, _ = pd_ops.assign_min(xs_d, c)
+        w = ws_d * rand(B, m)
+        a_flops = 2.0 * B * m * k_full * d
+        a_bytes = 4.0 * (B * m * d + B * k_full * d) + 8.0 * B * m
+        s_flops = 2.0 * B * m * (d + 1)
+        s_bytes = 4.0 * B * m * (d + 2) + 4.0 * B * k_full * (d + 1)
+        wx1 = torch.cat([w.unsqueeze(-1) * xs_d, w.unsqueeze(-1)], dim=-1).reshape(B * m, d + 1)
+        flat = (idx.long() + k_full * torch.arange(B, device=dev)[:, None]).reshape(-1)
+        acc = torch.zeros(B * k_full, d + 1, device=dev)
+
+        def bound(flops, nbytes):
+            tf, tb = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+            return 1e3 * max(tf, tb), ("operations" if tf >= tb else "bytes")
+
+        a_bound, a_by = bound(a_flops, a_bytes)
+        s_bound, s_by = bound(s_flops, s_bytes)
+        rows = [
+            {
+                "name": "assign_min", "route": "cuda",
+                "source": "src/repro_torch/csrc/assign_min.cu",
+                "replaces": "src/repro/kernels/pairwise_dist/kernel.py:71",
+                "launches": counts["assign_min"], "max_abs_err": errs["assign_min"],
+                "ms": cuda_ms(lambda: pd_ops.assign_min(xs_d, c), 20),
+                "plain_ms": cuda_ms(lambda: pd_ops.assign_min(xs_d, c, impl="torch_ref"), 5),
+                "bound_ms": a_bound, "bound_by": a_by,
+                "library_ms": cuda_ms(lambda: torch.cdist(xs_d, c).min(-1), 5),
+                "library_call": "torch.cdist(x, c).min(-1) (two calls)",
+                "tf32_bound_ms": 1e3 * a_flops / PEAK_TF32_FLOPS,
+                "shape": [B, m, k_full, d],
+            },
+            {
+                "name": "weighted_segsum", "route": "cuda",
+                "source": "src/repro_torch/csrc/weighted_segsum.cu",
+                "replaces": "src/repro/kernels/weighted_segsum/kernel.py:24",
+                "launches": counts["weighted_segsum"], "max_abs_err": errs["weighted_segsum"],
+                "ms": cuda_ms(lambda: ss_ops.weighted_segsum(xs_d, w, idx, k_full), 20),
+                "plain_ms": cuda_ms(
+                    lambda: ss_ops.weighted_segsum(xs_d, w, idx, k_full, impl="torch_ref"), 5),
+                "bound_ms": s_bound, "bound_by": s_by,
+                "library_ms": cuda_ms(lambda: acc.index_add_(0, flat, wx1), 20),
+                "library_call": "index_add_ of the (B*n, d+1) rows [w*x, w] (atomics)",
+                "shape": [B, m, k_full, d],
+            },
+        ]
+        for r in rows:
+            print(f"{r['name']}: {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
+                  f"library {r['library_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+
+    print(json.dumps({"kernels": rows}))
+    print(smi())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

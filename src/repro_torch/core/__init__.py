@@ -1,0 +1,48 @@
+"""Core of the paper, ported: redundant data assignment, recovery vectors,
+and the straggler-resilient k-median of Algorithm 1."""
+
+from .assignment import (  # noqa: F401
+    Assignment,
+    bernoulli_assignment,
+    cyclic_assignment,
+    fractional_repetition_assignment,
+    make_assignment,
+    min_cover_after_stragglers,
+    node_loads,
+    satisfies_property1,
+    shard_replication,
+    singleton_assignment,
+    theorem6_ell,
+)
+from .recovery import (  # noqa: F401
+    RecoveryResult,
+    expand_to_all_nodes,
+    lp_recovery,
+    nnls_recovery,
+    solve_recovery,
+    uniform_recovery,
+)
+from .stragglers import (  # noqa: F401
+    adversarial_stragglers,
+    fixed_count_stragglers,
+    make_scenario,
+    random_stragglers,
+)
+from .aggregation import mom_combine, resilient_sum, weighted_union  # noqa: F401
+from .executor import Executor, LocalExecutor, get_executor  # noqa: F401
+from .kmeans import (  # noqa: F401
+    ClusteringResult,
+    clustering_cost,
+    lloyd,
+    plusplus_init,
+    resilient_cost,
+)
+from .resilience import ResilienceSession, SessionStats  # noqa: F401
+from .kmedian import (  # noqa: F401
+    ResilientClusteringOutput,
+    ignore_stragglers_kmedian,
+    local_cluster_batch,
+    pack_local_shards,
+    prepare_resilient_run,
+    resilient_kmedian,
+)

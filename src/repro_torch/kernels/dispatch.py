@@ -1,0 +1,87 @@
+"""Kernel dispatch: a registry of named implementations and a resolver.
+
+Each op registers two implementations:
+
+* ``cuda``      — the hand-written Hopper kernel (``csrc/``), CUDA tensors only;
+* ``torch_ref`` — the plain PyTorch version, the kernel's oracle.
+
+``impl="auto"`` follows the tensors: a CUDA tensor gets the kernel, a CPU
+tensor the plain version.  There is no fallback: a CUDA tensor either
+launches the kernel or raises.  ``impl="torch_ref"`` on a CUDA tensor is for
+explicit comparison against the kernel only.  Measured selection
+(autotuning) is not ported yet.
+
+Every kernel wrapper owns a :class:`LaunchCounter` that it bumps where it
+launches its kernel, so a run can show that its main path went through the
+kernels (:func:`launch_counts`, :func:`reset_launch_counts`).
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+__all__ = [
+    "IMPLS",
+    "LaunchCounter",
+    "impl_names",
+    "launch_counts",
+    "register_impl",
+    "reset_launch_counts",
+    "resolve",
+]
+
+IMPLS = ("cuda", "torch_ref")
+
+_REGISTRY: Dict[str, Dict[str, Callable]] = {}
+_COUNTERS: Dict[str, "LaunchCounter"] = {}
+
+
+class LaunchCounter:
+    """Number of kernel launches of one wrapper since the last reset."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+        _COUNTERS[name] = self
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: c.count for name, c in _COUNTERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for c in _COUNTERS.values():
+        c.count = 0
+
+
+def register_impl(op: str, name: str, fn: Callable) -> Callable:
+    if name not in IMPLS:
+        raise ValueError(f"unknown impl {name!r}; expected one of {IMPLS}")
+    _REGISTRY.setdefault(op, {})[name] = fn
+    return fn
+
+
+def impl_names(op: str) -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY.get(op, {})))
+
+
+def resolve(op: str, impl: str, *tensors: torch.Tensor) -> tuple[str, Callable]:
+    """``(name, fn)`` for ``op`` on these tensors; raises on anything else."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{op}: all tensors must lie on one device, got {sorted(map(str, devices))}")
+    (device,) = devices
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{op}: unsupported device {device}")
+    if impl == "auto":
+        name = "cuda" if device.type == "cuda" else "torch_ref"
+    else:
+        name = impl
+    impls = _REGISTRY.get(op, {})
+    if name not in impls:
+        raise ValueError(f"{op}: unknown impl {impl!r}; registered: {impl_names(op)}")
+    if name == "cuda" and device.type != "cuda":
+        raise ValueError(f"{op}: impl='cuda' needs CUDA tensors, got {device}")
+    return name, impls[name]
