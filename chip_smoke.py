@@ -4,8 +4,10 @@
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, then drives the paper's
 Algorithm 1 through the port's public entry points, at the paper's size and
-at full width, and fails loudly: there is no CPU fallback and no caught
-phase.  Every phase prints its seconds.
+at full width, and serves qwen3-4b at full width and depth (prefill and
+greedy decode), and fails loudly: there is no CPU fallback and no caught
+phase.  Every phase prints its seconds beside the card's name and power
+limit.
 
 Phases:
   1. device      the card's name, count, power limit
@@ -13,7 +15,10 @@ Phases:
   3. prelude     full-width data, assignment, stragglers; host recovery
                  solve, shard packing and host-to-device copy, timed apart
   4. kernels     each kernel against its plain version at the shapes of the
-                 runs below, plus edge cases
+                 runs below, plus edge cases; flash attention in bf16 at
+                 (B, T, S, H, KV, dh) = (2, 100, 100, 8, 2, 64), the T < S
+                 case (1, 16, 32, 4, 2, 16) and the prefill shape
+                 (4, 2048, 2048, 32, 8, 128)
   5. paper size  the twin of examples/quickstart.py; the p_a=0.2 run is
                  also held against the plain path
   6. full width  centralized k-median and Algorithm 1 at the shape of SIFT1M
@@ -22,7 +27,16 @@ Phases:
                  kernel line reports Algorithm 1's
   7. profile     Algorithm 1 once more under torch.profiler: kernel time by
                  name against the wall time
-  8. timing      each kernel, its plain version and one library call
+  8. serve       qwen3-4b (36 layers, d_model 2560, 32 heads over 8 KV
+                 heads, vocab 151936), random weights from --seed drawn on
+                 the card, cast once to bf16: (a) prefill of 4 x 2048
+                 tokens through the kernel, exactly 36 flash launches;
+                 (b) the same prefill through the plain attention, the
+                 last-position logits within 2e-2; (c) greedy_generate,
+                 batch 4, prompt 16, gen 32, no flash launch; then one
+                 prefill and 8 decode steps under torch.profiler (kernel
+                 time by name, device idle share)
+  9. timing      each kernel, its plain version and one library call
 
 The last two lines are the card's name and power limit and
 {"ok": true, "device": {...}}; the line before them lists the kernels.
@@ -45,8 +59,12 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, non-tensor-core fp32 (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 tensor cores, for a later PR
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
+
+
+CARD = {"smi": ""}  # the card's name and power limit, printed beside every time
 
 
 @contextlib.contextmanager
@@ -54,7 +72,7 @@ def phase(name: str):
     print(f"=== phase {name}", flush=True)
     t0 = time.perf_counter()
     yield
-    print(f"[seconds] {name}: {time.perf_counter() - t0:.3f}", flush=True)
+    print(f"[seconds] {name}: {time.perf_counter() - t0:.3f}  [{CARD['smi']}]", flush=True)
 
 
 def smi() -> str:
@@ -89,6 +107,10 @@ def main() -> int:
     )
     from repro_torch.data.synthetic import franti_s1_like, gaussian_mixture
     from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    from repro_torch.serve import decode as D
     from repro_torch.kernels.pairwise_dist import ops as pd_ops
     from repro_torch.kernels.pairwise_dist import ref as pd_ref
     from repro_torch.kernels.weighted_segsum import ops as ss_ops
@@ -99,13 +121,14 @@ def main() -> int:
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    errs: dict[str, float] = {"assign_min": 0.0, "weighted_segsum": 0.0}
+    errs: dict[str, float] = {"assign_min": 0.0, "weighted_segsum": 0.0, "flash_attention": 0.0}
 
     with phase("device"):
         kind = torch.cuda.get_device_name(0)
         print(f"device: {kind}  count={torch.cuda.device_count()}  torch={torch.__version__} "
               f"cuda={torch.version.cuda}")
-        print(f"nvidia-smi: {smi()}")
+        card = CARD["smi"] = smi()
+        print(f"nvidia-smi: {card}")
 
     with phase("build"):
         t0 = time.perf_counter()
@@ -173,6 +196,28 @@ def main() -> int:
         errs["weighted_segsum"] = max(errs["weighted_segsum"], err)
         print(f"weighted_segsum {tag}: x {tuple(x.shape)} k={k} max_abs_err={err:.3e} "
               f"max_err/sum|w*x|={rel:.2e} bitwise-reproducible")
+
+    def check_flash(tag, B, Tq, S, H, KV, dh, dtype=torch.bfloat16):
+        """The kernel against the plain version on random inputs: rtol 2^-7,
+        atol 1e-3 in bf16 (both round the output to bf16 after f32 sums in
+        other orders); rtol 1e-5, atol 1e-5 in f32."""
+        q = torch.randn((B, Tq, H, dh), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, S, KV, dh), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, S, KV, dh), generator=gen, device=dev).to(dtype)
+        got = fa_ops.flash_attention(q, k, v)
+        want = fa_ops.flash_attention(q, k, v, impl="torch_ref")
+        sync()
+        rtol, atol = (2.0 ** -7, 1e-3) if dtype == torch.bfloat16 else (1e-5, 1e-5)
+        if got.shape != want.shape or got.dtype != dtype:
+            raise AssertionError(f"flash_attention {tag}: shape or dtype differs from the plain version")
+        err = (got.float() - want.float()).abs()
+        bad = err > atol + rtol * want.float().abs()
+        if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"flash_attention {tag}: {int(bad.sum())} outputs outside rtol {rtol:.3g} / "
+                                 f"atol {atol:g}, max err {float(err.max()):.3e}")
+        errs["flash_attention"] = max(errs["flash_attention"], float(err.max()))
+        print(f"flash_attention {tag}: (B,T,S,H,KV,dh)={(B, Tq, S, H, KV, dh)} {str(dtype)[6:]} "
+              f"max_abs_err={float(err.max()):.3e}")
 
     def rows_of(x, k):
         """k random rows of each batch of x, as centers (B, k, d)."""
@@ -248,6 +293,13 @@ def main() -> int:
         check_assign("full cost", pts_d[None], rows_of(pts_d[None], k_full))
         del fy, idx
 
+        # Flash attention: ragged T = S, T < S (the decode alignment), and
+        # the prefill shape of the serve phase; f32 once.
+        check_flash("ragged", 2, 100, 100, 8, 2, 64)
+        check_flash("T<S", 1, 16, 32, 4, 2, 16)
+        check_flash("prefill", 4, 2048, 2048, 32, 8, 128)
+        check_flash("ragged f32", 2, 100, 100, 8, 2, 64, dtype=torch.float32)
+
     with phase("paper size"):
         dispatch.reset_launch_counts()
         ratios = quickstart.run(dev)
@@ -307,14 +359,16 @@ def main() -> int:
         if abs(mass - want) > 1e-4 * want:
             raise AssertionError("summary weights do not carry the recovery mass")
 
-    with phase("profile"):
+    def profiled(tag, fn, top=12):
+        """Run fn under torch.profiler; print kernel time by name.  Returns
+        the seconds of kernel time (device busy)."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         sync()
         t0 = time.perf_counter()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run_alg1()
+            fn()
             sync()
         wall = time.perf_counter() - t0
 
@@ -327,10 +381,108 @@ def main() -> int:
             key=dev_us, reverse=True,
         )
         busy = sum(dev_us(e) for e in kernels) / 1e6
-        print(f"Algorithm 1 under the profiler: wall {wall:.3f} s, kernels {busy:.3f} s "
+        print(f"{tag} under the profiler: wall {wall:.3f} s, kernels {busy:.3f} s "
               f"({100 * busy / wall:.1f}% of the profiled wall, which the profiler inflates)")
-        for e in kernels[:12]:
+        for e in kernels[:top]:
             print(f"  {dev_us(e) / 1e3:10.1f} ms  {e.count:7d} launches  {e.key[:90]}")
+        return busy
+
+    with phase("profile"):
+        profiled("Algorithm 1", run_alg1)
+
+    with phase("serve"):
+        cfg = get_config("qwen3-4b")
+        B_s, T_s, prompt_len, gen_len = 4, 2048, 16, 32
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = T.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(args.seed))
+        sync()
+        t1 = time.perf_counter()
+        served = T.cast_params(model, cfg)  # the bf16 weights, made once
+        sync()
+        print(f"qwen3-4b: {T.param_count(model) / 1e9:.3f} B parameters; init on the card "
+              f"{t1 - t0:.3f} s, bf16 copy {time.perf_counter() - t1:.3f} s")
+        tokens = torch.randint(0, cfg.vocab, (B_s, T_s), generator=gen, device=dev)
+        prefill = D.make_prefill_fn(cfg, T.ModelContext())
+        prefill_ref = D.make_prefill_fn(cfg, T.ModelContext(attn_impl="torch_ref"))
+        prefill(served, {"tokens": tokens[:, :64]})  # warm-up: cuBLAS handles, library load
+        sync()
+
+        # (a) prefill through the kernel, launches counted just around it
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill(served, {"tokens": tokens})
+        sync()
+        prefill_s = time.perf_counter() - t0
+        serve_counts = dispatch.launch_counts()
+        print(f"(a) prefill {B_s} x {T_s} tokens: {prefill_s:.3f} s  "
+              f"({B_s * T_s / prefill_s:.0f} tokens/s)  launches {serve_counts}  [{card}]")
+        if serve_counts.get("flash_attention") != cfg.n_layers:
+            raise AssertionError(f"prefill launched flash_attention {serve_counts.get('flash_attention')} "
+                                 f"times, expected {cfg.n_layers}")
+        if logits.shape != (B_s, 1, cfg.vocab) or len(cache) != cfg.n_layers:
+            raise AssertionError(f"prefill returned logits {tuple(logits.shape)} and {len(cache)} cache layers")
+        if cache[-1]["k"].shape != (B_s, T_s, cfg.n_kv_heads, cfg.head_dim):
+            raise AssertionError(f"prefill cache of shape {tuple(cache[-1]['k'].shape)}")
+        cache_a = cache
+
+        # (b) the same prefill through the plain attention
+        t0 = time.perf_counter()
+        logits_ref, cache = prefill_ref(served, {"tokens": tokens})
+        sync()
+        ref_s = time.perf_counter() - t0
+        # How the two part with depth: k of layer l depends on l attentions.
+        k_gap = {li: round(float(torch.linalg.vector_norm(cache_a[li]["k"].float() - cache[li]["k"].float())
+                                 / torch.linalg.vector_norm(cache[li]["k"].float())), 5)
+                 for li in (0, 1, 2, 4, 8, 16, 35)}
+        print(f"relative gap of the K cache by layer, kernel vs plain prefill: {k_gap}")
+        del cache, cache_a
+        la, lb = logits.float()[:, 0], logits_ref.float()[:, 0]
+        if not (bool(torch.isfinite(la).all()) and bool(torch.isfinite(lb).all())):
+            raise AssertionError("prefill logits are not finite")
+        gap = float((la - lb).abs().max() / lb.abs().max())
+        fro = float(torch.linalg.vector_norm(la - lb) / torch.linalg.vector_norm(lb))
+        agree = (la.argmax(-1) == lb.argmax(-1)).tolist()
+        print(f"(b) plain-attention prefill: {ref_s:.3f} s; last-position logits max|a-b|/max|b| "
+              f"{gap:.3e}, |a-b|/|b| {fro:.3e}, argmax agrees per request {agree}")
+        if gap > 2e-2:
+            raise AssertionError(f"kernel and plain prefill logits differ by {gap:.3e} of their scale (> 2e-2)")
+
+        # (c) greedy decode, the launcher's defaults at temperature 0
+        prompt = tokens[:, :prompt_len].contiguous()
+        dispatch.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        out = D.greedy_generate(served, cfg, prompt, steps=gen_len)
+        sync()
+        dec_s = time.perf_counter() - t0
+        dec_counts = dispatch.launch_counts()
+        steps = prompt_len + gen_len
+        print(f"(c) greedy_generate batch {B_s}, prompt {prompt_len}, gen {gen_len}: {dec_s:.3f} s, "
+              f"{B_s * gen_len / dec_s:.1f} generated tokens/s, {B_s * steps / dec_s:.1f} tokens/s over "
+              f"all {steps} steps ({1e3 * dec_s / steps:.2f} ms/step)  launches {dec_counts}  [{card}]")
+        if dec_counts.get("flash_attention", 0) != 0:
+            raise AssertionError("greedy decode launched the flash kernel")
+        if out.shape != (B_s, gen_len) or bool((out < 0).any() or (out >= cfg.vocab).any()):
+            raise AssertionError(f"greedy_generate returned {tuple(out.shape)} or ids outside the vocab")
+        short, _ = prefill(served, {"tokens": prompt})
+        first = (short[:, 0].argmax(-1) == out[:, 0]).tolist()
+        if not bool(torch.isfinite(short).all()):
+            raise AssertionError("prefill logits of the prompt are not finite")
+        print(f"first generated token equals the argmax of the prompt's prefill: {first}")
+        print(f"row 0: {out[0].tolist()}")
+
+        # Where the time goes: kernel time against the unprofiled wall above.
+        busy = profiled(f"prefill {B_s} x {T_s}", lambda: prefill(served, {"tokens": tokens}), top=8)
+        print(f"prefill device busy {busy:.3f} s of {prefill_s:.3f} s unprofiled "
+              f"(idle share {1 - busy / prefill_s:.3f})")
+        busy = profiled("greedy_generate, prompt 4, gen 4 (8 steps)",
+                        lambda: D.greedy_generate(served, cfg, prompt[:, :4], steps=4), top=8)
+        print(f"decode device busy {1e3 * busy / 8:.3f} ms per step of {1e3 * dec_s / steps:.3f} ms "
+              f"unprofiled (idle share {1 - busy / 8 / (dec_s / steps):.3f})")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        print(f"max_memory_allocated (f32 weights + bf16 copy + activations): {peak:.3f} GiB")
+        del model, served
 
     with phase("timing"):
         def cuda_ms(fn, reps):
@@ -390,9 +542,35 @@ def main() -> int:
                 "shape": [B, m, k_full, d],
             },
         ]
+
+        # Flash attention at the prefill shape, bf16: causal pairs t, s <= t.
+        fB, fT, fH, fKV, fdh = 4, 2048, 32, 8, 128
+        fq = torch.randn((fB, fT, fH, fdh), generator=gen, device=dev).bfloat16()
+        fk = torch.randn((fB, fT, fKV, fdh), generator=gen, device=dev).bfloat16()
+        fv = torch.randn((fB, fT, fKV, fdh), generator=gen, device=dev).bfloat16()
+        f_flops = 4.0 * fB * fH * fdh * (fT * (fT + 1) / 2)
+        f_bytes = 2.0 * (2 * fB * fT * fH * fdh + 2 * fB * fT * fKV * fdh)
+        f_bound, f_by = (1e3 * max(f_flops / PEAK_BF16_FLOPS, f_bytes / PEAK_BYTES),
+                         "operations" if f_flops / PEAK_BF16_FLOPS >= f_bytes / PEAK_BYTES else "bytes")
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (fq, fk, fv))  # (B, heads, T, dh)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        rows.append({
+            "name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:29",
+            "launches": serve_counts["flash_attention"], "max_abs_err": errs["flash_attention"],
+            "ms": cuda_ms(lambda: fa_ops.flash_attention(fq, fk, fv), 20),
+            "plain_ms": cuda_ms(lambda: fa_ops.flash_attention(fq, fk, fv, impl="torch_ref"), 3),
+            "bound_ms": f_bound, "bound_by": f_by,
+            "library_ms": cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True), 20),
+            "library_call": "scaled_dot_product_attention(is_causal=True, enable_gqa=True) on (B, H, T, dh)",
+            "fp32_bound_ms": 1e3 * f_flops / PEAK_FP32_FLOPS,
+            "bytes_bound_ms": 1e3 * f_bytes / PEAK_BYTES,
+            "shape": [fB, fT, fT, fH, fKV, fdh],
+        })
         for r in rows:
             print(f"{r['name']}: {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
-                  f"library {r['library_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms ({r['bound_by']})")
+                  f"library {r['library_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms ({r['bound_by']})  [{card}]")
 
     print(json.dumps({"kernels": rows}))
     print(smi())

@@ -5,7 +5,10 @@ objects passes their numpy fields here:
 
 * an assignment's ``matrix``, ``scheme`` and ``params`` → :class:`Assignment`;
 * a recovery result's fields → :class:`RecoveryResult`;
-* centers, shards or any array → a tensor on the chosen device.
+* centers, shards or any array → a tensor on the chosen device;
+* a transformer's params pytree → the port's ``state_dict``
+  (:func:`transformer_params_from_jax`), and its K/V cache both ways
+  (:func:`cache_from_jax`, :func:`cache_to_jax`).
 """
 
 from __future__ import annotations
@@ -16,7 +19,14 @@ import torch
 from .core.assignment import Assignment
 from .core.recovery import RecoveryResult
 
-__all__ = ["to_assignment", "to_recovery", "to_tensor"]
+__all__ = [
+    "cache_from_jax",
+    "cache_to_jax",
+    "to_assignment",
+    "to_recovery",
+    "to_tensor",
+    "transformer_params_from_jax",
+]
 
 
 def to_assignment(matrix, scheme: str, params: dict) -> Assignment:
@@ -40,3 +50,63 @@ def to_recovery(
 def to_tensor(array, device, dtype=torch.float32) -> torch.Tensor:
     """A copy of a numpy array as a tensor on ``device``."""
     return torch.as_tensor(np.array(array), dtype=dtype, device=torch.device(device))
+
+
+def _tensor(a) -> torch.Tensor:
+    """A numpy array (bfloat16 from ml_dtypes included) as a CPU tensor of
+    the same dtype."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.asarray(a, dtype=np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def _flatten(tree, prefix=""):
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            yield from _flatten(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def transformer_params_from_jax(tree) -> dict[str, torch.Tensor]:
+    """The reference's params pytree (leaves as numpy arrays) → the state
+    dict of :class:`repro_torch.models.transformer.Transformer` (CPU tensors).
+
+    The leaves of ``tree["unit"]["slot<i>"]`` carry a leading ``reps`` axis;
+    layer ``r·len(unit) + i`` is rep ``r`` of slot ``i``.
+    """
+    if "tail" in tree:
+        raise NotImplementedError("transformer_params_from_jax: tail blocks are not ported yet")
+    sd = {}
+    unit = tree["unit"]
+    n_slots = len(unit)
+    for si in range(n_slots):
+        for name, leaf in _flatten(unit[f"slot{si}"]):
+            leaf = np.asarray(leaf)
+            for r in range(leaf.shape[0]):
+                sd[f"blocks.{r * n_slots + si}.{name}"] = _tensor(leaf[r])
+    for name in ("embed", "final_norm", "lm_head"):
+        if name in tree:
+            sd[name] = _tensor(tree[name])
+    return sd
+
+
+def cache_from_jax(tree) -> list[dict[str, torch.Tensor]]:
+    """The reference's cache {"unit": {"slot0": {"k", "v"}}} with (reps, B,
+    S, KV, dh) leaves → the port's per-layer list of {"k", "v"} (B, S, KV, dh)."""
+    unit = tree["unit"]
+    n_slots = len(unit)
+    reps = np.asarray(unit["slot0"]["k"]).shape[0]
+    return [
+        {key: _tensor(np.asarray(unit[f"slot{li % n_slots}"][key])[li // n_slots]) for key in ("k", "v")}
+        for li in range(reps * n_slots)
+    ]
+
+
+def cache_to_jax(cache) -> dict:
+    """The port's per-layer cache → the reference's layout, as numpy f32
+    arrays (reps, B, S, KV, dh) of one slot."""
+    return {"unit": {"slot0": {
+        key: np.stack([c[key].float().cpu().numpy() for c in cache]) for key in ("k", "v")
+    }}}

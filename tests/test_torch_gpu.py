@@ -14,13 +14,23 @@ agree to a few ulps of ‖x‖²+‖c‖² (rtol 1e-5, atol 1e-5·max); indices 
 agree except at near ties (the two nearest squared distances within 1e-5 of
 ‖x‖² + d²).  Segment sums differ only in summation order: 1e-5 relative to
 Σ|w·x|.  The segment sum must give the same bits on every run.
+
+Flash attention: f32 inputs rtol 1e-5, atol 1e-5 (the kernel sums three
+bf16 pieces of each f32 value on the tensor cores, about 2^-24 of each
+product, in another order than the plain version's f32 GEMMs); bf16 inputs
+rtol 2^-7, atol 1e-3 (both sides sum exact products in f32 in other orders
+and round the output to bf16, so they may differ by one bf16 ulp).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import qwen3_4b
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import transformer as T
+from repro_torch.serve import decode as D
 from repro_torch.kernels.pairwise_dist import ops as pd_ops
 from repro_torch.kernels.pairwise_dist import ref as pd_ref
 from repro_torch.kernels.weighted_segsum import ops as ss_ops
@@ -85,6 +95,35 @@ def _check_segsum(x, w, idx, sums, tot, want_sums, want_tot):
     np.testing.assert_allclose(np.asarray(tot), np.asarray(want_tot), rtol=1e-5, atol=1e-5 * np.abs(w).sum())
 
 
+# (B, T, S, H, KV, dh): T == S at two tile-multiples and a ragged 100, and
+# T < S (a query block at the end of the key timeline)
+FLASH_CASES = [
+    pytest.param(2, t, t, 4, kv, dh, id=f"T{t}-KV{kv}-dh{dh}")
+    for t in (8, 64, 100) for kv in (1, 2, 4) for dh in (16, 64)
+] + [
+    pytest.param(2, 16, 32, 4, kv, dh, id=f"T16-S32-KV{kv}-dh{dh}")
+    for kv in (1, 2, 4) for dh in (16, 64)
+]
+
+FLASH_TOL = {
+    torch.float32: dict(rtol=1e-5, atol=1e-5),
+    torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-3),
+}
+
+
+def _flash_inputs(B, T, S, H, KV, dh, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, T, H, dh)).astype(np.float32)
+    k = rng.normal(size=(B, S, KV, dh)).astype(np.float32)
+    v = rng.normal(size=(B, S, KV, dh)).astype(np.float32)
+    return q, k, v
+
+
+def _check_flash(got, want, dtype):
+    assert got.dtype == dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float().cpu(), want.float().cpu(), **FLASH_TOL[dtype])
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -119,3 +158,53 @@ def test_weighted_segsum_kernel_matches_plain_on_card(cuda_device, n, k, d, batc
     want_s, want_t = ss_ops.weighted_segsum(x, w, idx, k, impl="torch_ref")
     torch.cuda.synchronize()
     _check_segsum(x.cpu().numpy(), w.cpu().numpy(), idx.cpu().numpy(), s1.cpu(), t1.cpu(), want_s.cpu(), want_t.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize(
+    "B,T,S,H,KV,dh",
+    FLASH_CASES + [pytest.param(4, 2048, 2048, 32, 8, 128, id="prefill-T2048-H32-KV8-dh128")],
+)
+def test_flash_attention_kernel_matches_plain_on_card(cuda_device, B, T, S, H, KV, dh, dtype):
+    q, k, v = (torch.from_numpy(a).to(cuda_device, dtype) for a in _flash_inputs(B, T, S, H, KV, dh, seed=17))
+    before = dispatch.launch_counts()["flash_attention"]
+    got = fa_ops.flash_attention(q, k, v)
+    assert dispatch.launch_counts()["flash_attention"] == before + 1
+    want = fa_ops.flash_attention(q, k, v, impl="torch_ref")
+    torch.cuda.synchronize()
+    _check_flash(got, want, dtype)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_reads_strided_views_and_refuses_other_widths(cuda_device):
+    # q, k and v as head slices of one fused (B, T, H + 2·KV, dh) tensor:
+    # the kernel reads them in place from their strides.
+    B, T, H, KV, dh = 2, 80, 4, 2, 64
+    fused = torch.from_numpy(np.random.default_rng(19).normal(size=(B, T, H + 2 * KV, dh)).astype(np.float32))
+    fused = fused.to(cuda_device, torch.bfloat16)
+    q, k, v = fused[:, :, :H], fused[:, :, H : H + KV], fused[:, :, H + KV :]
+    assert not q.is_contiguous()
+    got = fa_ops.flash_attention(q, k, v)
+    want = fa_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), impl="torch_ref")
+    torch.cuda.synchronize()
+    _check_flash(got, want, torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 24"):
+        fa_ops.flash_attention(q[..., :24], k[..., :24], v[..., :24])
+
+
+@pytest.mark.gpu
+def test_serving_on_card_prefills_through_the_kernel_and_decodes_without_it(cuda_device):
+    cfg = qwen3_4b.smoke_config()
+    model = T.init_params(cfg, generator=torch.Generator(device=cuda_device).manual_seed(0))
+    model = T.cast_params(model, cfg)
+    tokens = torch.randint(0, cfg.vocab, (2, 100), device=cuda_device,
+                           generator=torch.Generator(device=cuda_device).manual_seed(1))
+    before = dispatch.launch_counts()["flash_attention"]
+    logits, cache = D.make_prefill_fn(cfg, T.ModelContext())(model, {"tokens": tokens})
+    assert dispatch.launch_counts()["flash_attention"] == before + cfg.n_layers
+    want, _ = D.make_prefill_fn(cfg, T.ModelContext(attn_impl="torch_ref"))(model, {"tokens": tokens})
+    torch.testing.assert_close(logits.float(), want.float(), rtol=2e-2, atol=2e-2)  # the bf16 band
+    out = D.greedy_generate(model, cfg, tokens[:, :8], steps=4)
+    assert dispatch.launch_counts()["flash_attention"] == before + cfg.n_layers  # decode: plain attention
+    assert out.shape == (2, 4) and out.device.type == "cuda"

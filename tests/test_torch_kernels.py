@@ -130,7 +130,9 @@ def test_plain_runs_on_cpu_do_not_count_as_launches():
     x = torch.rand(20, 3)
     idx, _ = pd_ops.assign_min(x, x[:4])
     ss_ops.weighted_segsum(x, torch.ones(20), idx, 4)
-    assert dispatch.launch_counts() == {"assign_min": 0, "weighted_segsum": 0}
+    counts = dispatch.launch_counts()  # every registered kernel, flash_attention's too
+    assert counts["assign_min"] == 0 and counts["weighted_segsum"] == 0
+    assert set(counts.values()) == {0}
 
 
 def test_kernel_sources_build_for_sm90a_with_a_c_entry_point():
