@@ -3,11 +3,11 @@
 
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, then drives the paper's
-Algorithm 1 through the port's public entry points, at the paper's size and
-at full width, and serves qwen3-4b at full width and depth (prefill and
-greedy decode), and fails loudly: there is no CPU fallback and no caught
-phase.  Every phase prints its seconds beside the card's name and power
-limit.
+Algorithms 1, 2 and 3 through the port's public entry points, at the
+paper's size and at full width, and serves qwen3-4b at full width and depth
+(prefill and greedy decode), and fails loudly: there is no CPU fallback and
+no caught phase.  Every phase prints its seconds beside the card's name and
+power limit.
 
 Phases:
   1. device      the card's name, count, power limit
@@ -18,16 +18,30 @@ Phases:
                  runs below, plus edge cases; flash attention in bf16 at
                  (B, T, S, H, KV, dh) = (2, 100, 100, 8, 2, 64), the T < S
                  case (1, 16, 32, 4, 2, 16) and the prefill shape
-                 (4, 2048, 2048, 32, 8, 128)
+                 (4, 2048, 2048, 32, 8, 128); pairwise_sqdist at its edges
+                 and at (1,000,000 x 128) x (256 x 128), the op's own path:
+                 launch counts are read just around that call
   5. paper size  the twin of examples/quickstart.py; the p_a=0.2 run is
-                 also held against the plain path
+                 also held against the plain path; then the twin of
+                 examples/distributed_pca.py (Algorithm 3)
   6. full width  centralized k-median and Algorithm 1 at the shape of SIFT1M
                  (1,000,000 x 128 f32), k=256, s=10, t=3, p_a=0.2; launch
                  counts are read from each of the two runs apart, and the
                  kernel line reports Algorithm 1's
   7. profile     Algorithm 1 once more under torch.profiler: kernel time by
                  name against the wall time
-  8. serve       qwen3-4b (36 layers, d_model 2560, 32 heads over 8 KV
+  8. alg3 full width  Algorithm 3 (resilient_pca) at the shape of SIFT1M:
+                 planted_subspaces(1M, 1, 128, 8, noise 0.05), centred;
+                 s=10, Bernoulli ell=8, t=3, r=8, delta=0.25; host prelude,
+                 sketch SVDs, coordinator SVD and cost timed apart;
+                 centralized_pca on all rows; the ratio must lie within
+                 the Theorem-5 band 1 + 4 max(delta, achieved) times 1.05
+  9. alg2 full width  Algorithm 2 (resilient_subspace_clustering) on
+                 planted_subspaces(1M, 16, 128, 8, noise 0.05) with the same
+                 s, ell, t and stragglers; k=16, r=8, coreset_size=4096;
+                 steps timed apart; a centralized lloyd_subspace on all
+                 rows; the cost must lie within max(5 central, central + 2)
+  10. serve      qwen3-4b (36 layers, d_model 2560, 32 heads over 8 KV
                  heads, vocab 151936), random weights from --seed drawn on
                  the card, cast once to bf16: (a) prefill of 4 x 2048
                  tokens through the kernel, exactly 36 flash launches;
@@ -36,7 +50,7 @@ Phases:
                  batch 4, prompt 16, gen 32, no flash launch; then one
                  prefill and 8 decode steps under torch.profiler (kernel
                  time by name, device idle share)
-  9. timing      each kernel, its plain version and one library call
+  11. timing     each kernel, its plain version and one library call
 
 The last two lines are the card's name and power limit and
 {"ok": true, "device": {...}}; the line before them lists the kernels.
@@ -83,6 +97,40 @@ def smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@contextlib.contextmanager
+def timed_steps(module, names, sync, log: list):
+    """While the block runs, time every outermost call of the named
+    functions of ``module`` (the card synchronised before and after each)
+    into ``log`` as (name, seconds); a call made inside another timed call
+    is part of that one.  The functions are restored afterwards."""
+    saved = {name: getattr(module, name) for name in names}
+    depth = [0]
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            if depth[0]:
+                return fn(*args, **kw)
+            sync()
+            t0 = time.perf_counter()
+            depth[0] += 1
+            try:
+                out = fn(*args, **kw)
+            finally:
+                depth[0] -= 1
+            sync()
+            log.append((name, time.perf_counter() - t0))
+            return out
+        return call
+
+    for name, fn in saved.items():
+        setattr(module, name, timed(name, fn))
+    try:
+        yield log
+    finally:
+        for name, fn in saved.items():
+            setattr(module, name, fn)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--seed", type=int, default=0)
@@ -97,7 +145,7 @@ def main() -> int:
 
     import numpy as np
 
-    from repro_torch import quickstart
+    from repro_torch import distributed_pca, quickstart
     from repro_torch.core import (
         ResilienceSession,
         bernoulli_assignment,
@@ -105,7 +153,9 @@ def main() -> int:
         lloyd,
         resilient_kmedian,
     )
-    from repro_torch.data.synthetic import franti_s1_like, gaussian_mixture
+    from repro_torch.core import pca as pca_mod
+    from repro_torch.core import subspace as sub_mod
+    from repro_torch.data.synthetic import franti_s1_like, gaussian_mixture, planted_subspaces
     from repro_torch.kernels import _build, dispatch
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import transformer as T
@@ -121,7 +171,8 @@ def main() -> int:
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    errs: dict[str, float] = {"assign_min": 0.0, "weighted_segsum": 0.0, "flash_attention": 0.0}
+    errs: dict[str, float] = {
+        "assign_min": 0.0, "weighted_segsum": 0.0, "flash_attention": 0.0, "pairwise_sqdist": 0.0}
 
     with phase("device"):
         kind = torch.cuda.get_device_name(0)
@@ -219,6 +270,32 @@ def main() -> int:
         print(f"flash_attention {tag}: (B,T,S,H,KV,dh)={(B, Tq, S, H, KV, dh)} {str(dtype)[6:]} "
               f"max_abs_err={float(err.max()):.3e}")
 
+    def check_sqdist(tag, x, c):
+        """The kernel against the plain version: |d| <= 1e-5 (|x_i|^2 + |c_j|^2)
+        + 1e-6 per element, nothing negative, one launch per call (none for
+        an empty output).  Returns the kernel's output."""
+        before = dispatch.launch_counts()["pairwise_sqdist"]
+        got = pd_ops.pairwise_sqdist(x, c)
+        launched = dispatch.launch_counts()["pairwise_sqdist"] - before
+        want = pd_ops.pairwise_sqdist(x, c, impl="torch_ref")
+        sync()
+        if launched != (1 if got.numel() else 0):
+            raise AssertionError(f"pairwise_sqdist {tag}: {launched} launches for one call")
+        if got.shape != want.shape or got.dtype != torch.float32:
+            raise AssertionError(f"pairwise_sqdist {tag}: shape or dtype differs from the plain version")
+        err = (got - want).abs()
+        allowed = 1e-5 * (torch.sum(x * x, 1)[:, None] + torch.sum(c * c, 1)[None, :]) + 1e-6
+        bad = int((err > allowed).sum()) + int((got < 0).sum())
+        worst = float(err.max()) if err.numel() else 0.0
+        if bad or not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"pairwise_sqdist {tag}: {bad} outputs negative or outside "
+                                 f"1e-5 (|x|^2 + |c|^2) + 1e-6, max err {worst:.3e}")
+        errs["pairwise_sqdist"] = max(errs["pairwise_sqdist"], worst)
+        rel = float((err / (allowed - 1e-6).clamp_min(1e-30)).max()) * 1e-5 if err.numel() else 0.0
+        print(f"pairwise_sqdist {tag}: x {tuple(x.shape)} c {tuple(c.shape)} max_abs_err={worst:.3e} "
+              f"max_err/(|x|^2+|c|^2)={rel:.2e}")
+        return got
+
     def rows_of(x, k):
         """k random rows of each batch of x, as centers (B, k, d)."""
         pick = torch.randint(0, x.shape[1], (x.shape[0], k), generator=gen, device=dev)
@@ -300,6 +377,28 @@ def main() -> int:
         check_flash("prefill", 4, 2048, 2048, 32, 8, 128)
         check_flash("ragged f32", 2, 100, 100, 8, 2, 64, dtype=torch.float32)
 
+        # pairwise_sqdist: ragged n and k, odd d, k = 1, k over one tile,
+        # duplicate rows, n = 0; then the op's own path at full width, its
+        # launch count read just around the call.
+        x = rand(1000, 13) - 0.5
+        check_sqdist("edge n=1000 k=15 d=13", x, x[:15].contiguous())
+        check_sqdist("edge k=1", x, x[7:8].contiguous())
+        check_sqdist("edge k=300 over tiles d=2", rand(777, 2), rand(300, 2))
+        xd = x[:40].repeat_interleave(2, dim=0)
+        check_sqdist("edge duplicate rows", xd, xd[:70].contiguous())
+        check_sqdist("edge n=0", x[:0], x[:5].contiguous())
+        sq_c = rows_of(pts_d[None], k_full)[0]
+        dispatch.reset_launch_counts()
+        sq_out = pd_ops.pairwise_sqdist(pts_d, sq_c)
+        sync()
+        sq_counts = dispatch.launch_counts()
+        print(f"pairwise_sqdist at full width: launches {sq_counts}")
+        if sq_counts["pairwise_sqdist"] != 1 or sum(sq_counts.values()) != 1:
+            raise AssertionError(f"pairwise_sqdist path: expected one launch of its kernel, got {sq_counts}")
+        if not torch.equal(check_sqdist("full x (1M, 128) c (256, 128)", pts_d, sq_c), sq_out):
+            raise AssertionError("pairwise_sqdist: two calls on the same inputs differ")
+        del sq_out
+
     with phase("paper size"):
         dispatch.reset_launch_counts()
         ratios = quickstart.run(dev)
@@ -314,6 +413,10 @@ def main() -> int:
         print(f"paper p_a=0.2 cost: kernels {out_k.cost:.4f}  plain {out_r.cost:.4f}  rel {rel:.2e}")
         if rel > 1e-3:
             raise AssertionError("paper-size run through the kernels disagrees with the plain path")
+        rows3 = distributed_pca.run(dev)
+        for row in rows3:
+            if not (np.isfinite(row["cost"]) and row["factor"] <= row["bound"] * 1.05):
+                raise AssertionError(f"paper-size Algorithm 3 outside the Theorem-5 band: {row}")
 
     def run_alg1():
         return resilient_kmedian(
@@ -389,6 +492,120 @@ def main() -> int:
 
     with phase("profile"):
         profiled("Algorithm 1", run_alg1)
+
+    def step_seconds(log, wall):
+        total = sum(t for _, t in log)
+        for name, t in log:
+            print(f"  {name}: {t:.3f} s")
+        print(f"  rest of the call (host work and copies between the steps): {wall - total:.3f} s")
+
+    def run_alg3():
+        """Algorithm 3 at full width, the regime of test_algorithm3_pca_theorem5_band."""
+        r3, delta3 = 8, 0.25
+        t0 = time.perf_counter()
+        X3, _ = planted_subspaces(n_full, 1, d_full, r3, noise=0.05, rng=np.random.default_rng(args.seed + 3))
+        X3 -= X3.mean(0, keepdims=True)
+        a3 = bernoulli_assignment(n_full, s, ell=8.0, rng=np.random.default_rng(args.seed + 4))
+        print(f"data + assignment (host): {time.perf_counter() - t0:.3f} s")
+        session3 = ResilienceSession(a3)
+        t0 = time.perf_counter()
+        rec3 = session3.recovery(alive)
+        print(f"host prelude: recovery solve ({rec3.method}) {time.perf_counter() - t0:.3f} s  "
+              f"delta={rec3.delta:.3f} feasible={rec3.feasible} uncovered={len(rec3.uncovered)}")
+        t0 = time.perf_counter()
+        _, _, _, _, xs3, _ = session3.prepare(X3, alive)
+        print(f"host prelude: pack {time.perf_counter() - t0:.3f} s  shards {xs3.shape} "
+              f"({xs3.nbytes / 1e9:.2f} GB)")
+        t0 = time.perf_counter()
+        x3_d, _, _ = session3.device_shards(dev)
+        sync()
+        print(f"host prelude: host-to-device copy {time.perf_counter() - t0:.3f} s")
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launch_counts()
+        steps: list = []
+        with timed_steps(pca_mod, ("local_relaxed_coresets", "centralized_pca", "pca_cost"), sync, steps):
+            t0 = time.perf_counter()
+            out3 = pca_mod.resilient_pca(X3, r3, delta3, a3, alive, session=session3, device=dev)
+            sync()
+            wall = time.perf_counter() - t0
+        print(f"resilient_pca: {wall:.3f} s (sketch SVDs = local_relaxed_coresets, coordinator SVD = "
+              f"centralized_pca of the {out3.sketch_rows} sketch rows, full-data cost = pca_cost)  "
+              f"launches {dispatch.launch_counts()}  [{card}]")
+        step_seconds(steps, wall)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        opt_basis = pca_mod.centralized_pca(x3_d, r3)
+        sync()
+        central_s = time.perf_counter() - t0
+        opt = float(pca_mod.pca_cost(x3_d, opt_basis))
+        band = 1.0 + 4.0 * max(delta3, rec3.delta)
+        ratio = out3.cost / opt
+        print(f"centralized_pca on {n_full} rows: {central_s:.3f} s  OPT={opt:.2f}")
+        print(f"Algorithm 3 cost {out3.cost:.2f}, r1={out3.r1}; ratio to OPT {ratio:.6f} against the "
+              f"Theorem-5 band {band:.3f} (x 1.05 = {band * 1.05:.3f})")
+        print(f"max_memory_allocated (shards resident): {peak:.3f} GiB")
+        if out3.basis.shape != (d_full, r3) or not np.isfinite(out3.basis).all():
+            raise AssertionError("Algorithm 3 basis is not a finite (d, r) matrix")
+        if not (np.isfinite(out3.cost) and out3.cost > 0 and ratio <= band * 1.05):
+            raise AssertionError(f"Algorithm 3 outside the Theorem-5 band: ratio {ratio}, band {band}")
+        return a3
+
+    def run_alg2(a2):
+        """Algorithm 2 at full width, the regime of test_algorithm2_subspace_clustering_quality."""
+        k2, r2 = 16, 8
+        t0 = time.perf_counter()
+        X2, _ = planted_subspaces(n_full, k2, d_full, r2, noise=0.05, rng=np.random.default_rng(args.seed + 5))
+        print(f"data (host): {time.perf_counter() - t0:.3f} s; the assignment and stragglers of alg3")
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launch_counts()
+        steps: list = []
+        with timed_steps(sub_mod, ("solve_recovery", "pack_local_shards", "sensitivity_coreset",
+                                   "weighted_union", "lloyd_subspace", "subspace_cost"), sync, steps):
+            t0 = time.perf_counter()
+            out2 = sub_mod.resilient_subspace_clustering(
+                X2, r2, k2, a2, alive, coreset_size=4096, seed=args.seed, device=dev)
+            sync()
+            wall = time.perf_counter() - t0
+        counts2 = dispatch.launch_counts()
+        print(f"resilient_subspace_clustering: {wall:.3f} s (host prelude = solve_recovery + "
+              f"pack_local_shards; coreset = sensitivity_coreset; coordinator = lloyd_subspace on "
+              f"{len(out2.coreset_weights)} rows; full cost = subspace_cost)  launches {counts2}  [{card}]")
+        step_seconds(steps, wall)
+        print(f"max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        if not all(counts2.get(name, 0) > 0 for name in ("assign_min", "weighted_segsum")):
+            raise AssertionError(f"Algorithm 2: a kernel of the path was never launched: {counts2}")
+        x2_d = torch.from_numpy(X2).to(dev)
+        est = float(sub_mod.subspace_cost(
+            torch.from_numpy(out2.coreset_points).to(dev), torch.from_numpy(out2.bases).to(dev),
+            torch.from_numpy(out2.means).to(dev),
+            weights=torch.as_tensor(out2.coreset_weights, dtype=torch.float32, device=dev)))
+        print(f"coreset estimate of the returned solution's cost {est:.2f} vs its full cost "
+              f"{out2.cost:.2f}: relative error {abs(est - out2.cost) / out2.cost:.4f} (0.35 is the "
+              f"band of the single-coreset test; Lemma 3 allows the union up to 1 + delta over)")
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        central2 = sub_mod.lloyd_subspace(x2_d, k2, r2, generator=torch.Generator(device=dev).manual_seed(args.seed))
+        central_cost = float(central2.cost)
+        print(f"centralized lloyd_subspace on {n_full} rows: {time.perf_counter() - t0:.3f} s  "
+              f"cost={central_cost:.2f}  launches {dispatch.launch_counts()}  "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        band = max(5.0 * central_cost, central_cost + 2.0)
+        print(f"Algorithm 2 cost {out2.cost:.2f}; ratio to the centralized run {out2.cost / central_cost:.6f}; "
+              f"band max(5 central, central + 2) = {band:.2f}")
+        if out2.bases.shape != (k2, d_full, r2) or not np.isfinite(out2.bases).all():
+            raise AssertionError("Algorithm 2 bases are not finite (k, d, r)")
+        if not (np.isfinite(out2.cost) and np.isfinite(central_cost) and out2.cost <= band):
+            raise AssertionError(f"Algorithm 2 outside the band: cost {out2.cost}, band {band}")
+
+    with phase("alg3 full width"):
+        a_sub = run_alg3()
+        torch.cuda.empty_cache()
+
+    with phase("alg2 full width"):
+        run_alg2(a_sub)
+        del a_sub
+        torch.cuda.empty_cache()
 
     with phase("serve"):
         cfg = get_config("qwen3-4b")
@@ -567,6 +784,24 @@ def main() -> int:
             "fp32_bound_ms": 1e3 * f_flops / PEAK_FP32_FLOPS,
             "bytes_bound_ms": 1e3 * f_bytes / PEAK_BYTES,
             "shape": [fB, fT, fT, fH, fKV, fdh],
+        })
+        # pairwise_sqdist at its full-width path shape: the full (n, k) output.
+        n_q, k_q = pts_d.shape[0], k_full
+        q_flops = 2.0 * n_q * k_q * d_full
+        q_bytes = 4.0 * (n_q * d_full + k_q * d_full + n_q * k_q)
+        q_bound, q_by = bound(q_flops, q_bytes)
+        rows.append({
+            "name": "pairwise_sqdist", "route": "cuda",
+            "source": "src/repro_torch/csrc/pairwise_sqdist.cu",
+            "replaces": "src/repro/kernels/pairwise_dist/kernel.py:48",
+            "launches": sq_counts["pairwise_sqdist"], "max_abs_err": errs["pairwise_sqdist"],
+            "ms": cuda_ms(lambda: pd_ops.pairwise_sqdist(pts_d, sq_c), 20),
+            "plain_ms": cuda_ms(lambda: pd_ops.pairwise_sqdist(pts_d, sq_c, impl="torch_ref"), 5),
+            "bound_ms": q_bound, "bound_by": q_by,
+            "library_ms": cuda_ms(lambda: torch.cdist(pts_d, sq_c).pow(2), 5),
+            "library_call": "torch.cdist(x, c).pow(2) (two calls)",
+            "tf32_bound_ms": 1e3 * max(q_flops / PEAK_TF32_FLOPS, q_bytes / PEAK_BYTES),
+            "shape": [n_q, k_q, d_full],
         })
         for r in rows:
             print(f"{r['name']}: {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "

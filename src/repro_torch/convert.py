@@ -6,6 +6,9 @@ objects passes their numpy fields here:
 * an assignment's ``matrix``, ``scheme`` and ``params`` → :class:`Assignment`;
 * a recovery result's fields → :class:`RecoveryResult`;
 * centers, shards or any array → a tensor on the chosen device;
+* a coreset's points and weights → :class:`Coreset` (:func:`coreset_from_jax`),
+  and a subspace clustering's bases and means → (bases, means) tensors
+  (:func:`subspace_from_jax`);
 * a transformer's params pytree → the port's ``state_dict``
   (:func:`transformer_params_from_jax`), and its K/V cache both ways
   (:func:`cache_from_jax`, :func:`cache_to_jax`).
@@ -17,10 +20,13 @@ import numpy as np
 import torch
 
 from .core.assignment import Assignment
+from .core.coreset import Coreset
 from .core.recovery import RecoveryResult
 
 __all__ = [
     "cache_from_jax",
+    "coreset_from_jax",
+    "subspace_from_jax",
     "cache_to_jax",
     "to_assignment",
     "to_recovery",
@@ -50,6 +56,25 @@ def to_recovery(
 def to_tensor(array, device, dtype=torch.float32) -> torch.Tensor:
     """A copy of a numpy array as a tensor on ``device``."""
     return torch.as_tensor(np.array(array), dtype=dtype, device=torch.device(device))
+
+
+def coreset_from_jax(points, weights) -> Coreset:
+    """A reference coreset's ``points`` (m, d) and ``weights`` (m,) → the
+    port's :class:`Coreset` of f32 CPU tensors."""
+    return Coreset(
+        points=torch.tensor(np.asarray(points), dtype=torch.float32),
+        weights=torch.tensor(np.asarray(weights), dtype=torch.float32),
+    )
+
+
+def subspace_from_jax(bases, means) -> tuple[torch.Tensor, torch.Tensor]:
+    """A reference subspace clustering's ``bases`` (k, d, r) and ``means``
+    (k, d) → f32 CPU tensors, as :func:`~repro_torch.core.subspace.subspace_cost`
+    takes them."""
+    return (
+        torch.tensor(np.asarray(bases), dtype=torch.float32),
+        torch.tensor(np.asarray(means), dtype=torch.float32),
+    )
 
 
 def _tensor(a) -> torch.Tensor:

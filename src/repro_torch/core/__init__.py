@@ -1,5 +1,6 @@
 """Core of the paper, ported: redundant data assignment, recovery vectors,
-and the straggler-resilient k-median of Algorithm 1."""
+the straggler-resilient k-median of Algorithm 1, and the coresets,
+subspace clustering and PCA of Algorithms 2 and 3."""
 
 from .assignment import (  # noqa: F401
     Assignment,
@@ -45,4 +46,24 @@ from .kmedian import (  # noqa: F401
     pack_local_shards,
     prepare_resilient_run,
     resilient_kmedian,
+)
+from .coreset import (  # noqa: F401
+    Coreset,
+    merge_coresets,
+    resilient_coreset,
+    sensitivity_coreset,
+    uniform_coreset,
+)
+from .subspace import (  # noqa: F401
+    ResilientSubspaceOutput,
+    lloyd_subspace,
+    resilient_subspace_clustering,
+    subspace_cost,
+)
+from .pca import (  # noqa: F401
+    ResilientPCAOutput,
+    centralized_pca,
+    pca_cost,
+    relaxed_coreset_rank,
+    resilient_pca,
 )

@@ -1,16 +1,21 @@
-"""Wrapper of the CUDA nearest-center kernel (``csrc/assign_min.cu``).
+"""Wrappers of the two CUDA pairwise-distance kernels.
 
-Replaces the Pallas TPU kernel ``_assign_kernel`` / ``assign_min_kernel_call``
-of ``src/repro/kernels/pairwise_dist/kernel.py``.  Bound on an H100: the
-2·B·n·k·d fp32 operations against the 67 TFLOP/s non-tensor-core peak; the
-kernel keeps the dot products in fp32 FMA (no TF32), tiles 64 rows × 64
-centers per block, sums the norms from its staged tiles and never writes
-the (n, k) matrix.  See the source's
-header for the tie rule.
+* ``assign_min_cuda`` launches the nearest-center kernel
+  (``csrc/assign_min.cu``), which replaces the Pallas TPU kernel
+  ``_assign_kernel`` / ``assign_min_kernel_call`` of
+  ``src/repro/kernels/pairwise_dist/kernel.py``.  Bound on an H100: the
+  2·B·n·k·d fp32 operations against the 67 TFLOP/s non-tensor-core peak; the
+  kernel keeps the dot products in fp32 FMA (no TF32), tiles 64 rows × 64
+  centers per block, sums the norms from its staged tiles and never writes
+  the (n, k) matrix.  See the source's header for the tie rule.
+* ``pairwise_sqdist_cuda`` launches the full squared-distance kernel
+  (``csrc/pairwise_sqdist.cu``), which replaces ``_sqdist_kernel`` /
+  ``pairwise_sqdist_kernel_call`` of the same file.  Same tiles and
+  arithmetic; it writes each clamped 64 × 64 tile of the (n, k) output.
 
-The wrapper checks shapes, dtype, device and contiguity, allocates the
-outputs, launches on the current stream without
-synchronising, and raises if the launch failed.
+Each wrapper checks shapes, dtype, device and contiguity, allocates the
+outputs, launches on the current stream without synchronising, raises if
+the launch failed, and counts its launches in its own ``LaunchCounter``.
 """
 
 from __future__ import annotations
@@ -22,9 +27,10 @@ import torch
 from .. import _build
 from ..dispatch import LaunchCounter
 
-__all__ = ["assign_min_cuda", "counter"]
+__all__ = ["assign_min_cuda", "counter", "pairwise_sqdist_cuda", "sqdist_counter"]
 
 counter = LaunchCounter("assign_min")
+sqdist_counter = LaunchCounter("pairwise_sqdist")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -73,3 +79,39 @@ def assign_min_cuda(
         raise RuntimeError(f"assign_min kernel launch failed: CUDA error {err}")
     counter.count += 1
     return idx, dist
+
+
+def _sqdist_lib():
+    lib = _build.load("pairwise_sqdist")
+    fn = lib.pairwise_sqdist_launch
+    fn.argtypes = [_P, _P, _P, _I, _I, _I, _P]
+    fn.restype = _I
+    return fn
+
+
+def pairwise_sqdist_cuda(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """x (n, d), c (k, d) fp32 contiguous CUDA tensors → (n, k) f32."""
+    if x.device.type != "cuda" or c.device != x.device:
+        raise ValueError(f"pairwise_sqdist_cuda: x and c must share one CUDA device, got {x.device}, {c.device}")
+    if x.dtype != torch.float32 or c.dtype != torch.float32:
+        raise TypeError(f"pairwise_sqdist_cuda: expected float32, got {x.dtype}, {c.dtype}")
+    if x.dim() != 2 or c.dim() != 2 or x.shape[1] != c.shape[1]:
+        raise ValueError(f"pairwise_sqdist_cuda: bad shapes x {tuple(x.shape)}, c {tuple(c.shape)}")
+    if not (x.is_contiguous() and c.is_contiguous()):
+        raise ValueError("pairwise_sqdist_cuda: x and c must be contiguous")
+    n, d = x.shape
+    k = c.shape[0]
+    if d == 0:
+        raise ValueError("pairwise_sqdist_cuda: d must be positive")
+    if max(n, k, d) >= 2**31 or -(-k // 64) > 65535:
+        raise ValueError(f"pairwise_sqdist_cuda: shape {(n, k, d)} exceeds the launch limits")
+    out = torch.empty((n, k), dtype=torch.float32, device=x.device)
+    if n == 0 or k == 0:
+        return out
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _sqdist_lib()(x.data_ptr(), c.data_ptr(), out.data_ptr(), n, k, d, stream)
+    if err != 0:
+        raise RuntimeError(f"pairwise_sqdist kernel launch failed: CUDA error {err}")
+    sqdist_counter.count += 1
+    return out

@@ -1,4 +1,5 @@
-"""Public nearest-center assignment: ``assign_min``.
+"""Public pairwise-distance ops: ``assign_min`` (nearest center) and
+``pairwise_sqdist`` (the full squared-distance matrix).
 
 Implementations (see :mod:`repro_torch.kernels.dispatch`): ``cuda``, the
 hand-written kernel, for CUDA tensors; ``torch_ref``, the plain version, for
@@ -15,10 +16,12 @@ from .. import dispatch
 from . import kernel as _kernel
 from . import ref as _ref
 
-__all__ = ["assign_min"]
+__all__ = ["assign_min", "pairwise_sqdist"]
 
 dispatch.register_impl("assign_min", "cuda", _kernel.assign_min_cuda)
 dispatch.register_impl("assign_min", "torch_ref", _ref.assign_min_ref)
+dispatch.register_impl("pairwise_sqdist", "cuda", _kernel.pairwise_sqdist_cuda)
+dispatch.register_impl("pairwise_sqdist", "torch_ref", _ref.pairwise_sqdist_ref)
 
 
 def assign_min(
@@ -46,3 +49,17 @@ def assign_min(
         xb, cb = xb.unsqueeze(0), cb.unsqueeze(0)
     idx, dist = fn(xb, cb, kv)
     return (idx[0], dist[0]) if single else (idx, dist)
+
+
+def pairwise_sqdist(x: torch.Tensor, c: torch.Tensor, *, impl: str = "auto") -> torch.Tensor:
+    """Squared Euclidean distance matrix (n, k) f32, clamped at 0:
+    ‖x‖² + ‖c‖² − 2·x·cᵀ for ``x`` (n, d) and ``c`` (k, d), both float32
+    with d > 0.  On a CUDA device both must be contiguous."""
+    if x.dim() != 2 or c.dim() != 2 or x.shape[1] != c.shape[1]:
+        raise ValueError(f"pairwise_sqdist: expected (n, d) and (k, d), got {tuple(x.shape)}, {tuple(c.shape)}")
+    if x.shape[1] == 0:
+        raise ValueError("pairwise_sqdist: d must be positive")
+    if x.dtype != torch.float32 or c.dtype != torch.float32:
+        raise TypeError(f"pairwise_sqdist: expected float32, got {x.dtype}, {c.dtype}")
+    _, fn = dispatch.resolve("pairwise_sqdist", impl, x, c)
+    return fn(x, c)

@@ -15,6 +15,11 @@ agree except at near ties (the two nearest squared distances within 1e-5 of
 ‖x‖² + d²).  Segment sums differ only in summation order: 1e-5 relative to
 Σ|w·x|.  The segment sum must give the same bits on every run.
 
+Full squared distances (``pairwise_sqdist``): both sides sum the same
+products of fp32 values in other orders, so an element may differ by a few
+ulps of ‖x_i‖² + ‖c_j‖²: |Δ| ≤ 1e-5·(‖x_i‖² + ‖c_j‖²) + 1e-6, and no output
+is negative.
+
 Flash attention: f32 inputs rtol 1e-5, atol 1e-5 (the kernel sums three
 bf16 pieces of each f32 value on the tensor cores, about 2^-24 of each
 product, in another order than the plain version's f32 GEMMs); bf16 inputs
@@ -42,6 +47,17 @@ ASSIGN_CASES = [
     pytest.param(40, 20, 13, 13, False, id="k_valid-masking"),
     pytest.param(33, 12, 2, None, True, id="duplicate-center-ties"),
     pytest.param(64, 70, 2, None, False, id="k70-over-one-tile"),
+]
+
+# (n, k, d, duplicate rows): ragged n and k, d in {2, 13, 64}, k over one
+# 64-wide tile, k = 1, and exact duplicates among the rows and centers
+SQDIST_CASES = [
+    pytest.param(37, 15, 2, False, id="n37-k15-d2"),
+    pytest.param(50, 13, 13, False, id="n50-k13-d13"),
+    pytest.param(130, 70, 64, False, id="k70-over-one-tile-d64"),
+    pytest.param(65, 1, 13, False, id="k1-d13"),
+    pytest.param(33, 12, 2, True, id="duplicate-rows-d2"),
+    pytest.param(40, 20, 64, True, id="duplicate-rows-d64"),
 ]
 
 # (n, k, d, batch)
@@ -76,6 +92,26 @@ def _check_assign(x, c, kv, idx, dist, want_idx, want_dist):
     ok = _decided(x, c, kv)
     np.testing.assert_array_equal(np.asarray(idx)[ok], np.asarray(want_idx)[ok])
 
+
+
+def _sqdist_inputs(n, k, d, dup, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, d)).astype(np.float32)
+    c = rng.normal(size=(k, d)).astype(np.float32)
+    if dup:  # duplicate rows, and centers equal to rows: distances of exactly 0
+        x[1::2] = x[0::2][: x[1::2].shape[0]]
+        c[: min(k, n) : 2] = x[: min(k, n) : 2]
+    return x, c
+
+
+def _check_sqdist_on_card(x, c, got, want):
+    """The kernel's bound against the plain version (see the module doc)."""
+    x2 = (x.double() ** 2).sum(1)[:, None]
+    c2 = (c.double() ** 2).sum(1)[None, :]
+    err = (got.double() - want.double()).abs()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool((got >= 0).all())
+    assert bool((err <= 1e-5 * (x2 + c2) + 1e-6).all()), float(err.max())
 
 
 def _segsum_inputs(n, k, d, batch, seed):
@@ -146,6 +182,53 @@ def test_assign_min_kernel_matches_plain_on_card(cuda_device, n, k, d, k_valid, 
     _check_assign(x, c, kv, idx.cpu(), dist.cpu(), want_idx.cpu(), want_dist.cpu())
     if dup:
         assert (idx.cpu() % 2 == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "n,k,d,dup",
+    SQDIST_CASES + [pytest.param(5000, 256, 128, False, id="d128-k256"),
+                    pytest.param(3, 300, 7, False, id="n3-k300")],
+)
+def test_pairwise_sqdist_kernel_matches_plain_on_card(cuda_device, n, k, d, dup):
+    x, c = (torch.from_numpy(a).to(cuda_device) for a in _sqdist_inputs(n, k, d, dup, seed=23))
+    before = dispatch.launch_counts()["pairwise_sqdist"]
+    got = pd_ops.pairwise_sqdist(x, c)
+    assert dispatch.launch_counts()["pairwise_sqdist"] == before + 1
+    want = pd_ops.pairwise_sqdist(x, c, impl="torch_ref")
+    torch.cuda.synchronize()
+    _check_sqdist_on_card(x.cpu(), c.cpu(), got.cpu(), want.cpu())
+
+
+@pytest.mark.gpu
+def test_pairwise_sqdist_kernel_edges_on_card(cuda_device):
+    x = torch.rand(10, 4, device=cuda_device)
+    before = dispatch.launch_counts()["pairwise_sqdist"]
+    assert pd_ops.pairwise_sqdist(x[:0], x).shape == (0, 10)  # n = 0: no launch
+    assert dispatch.launch_counts()["pairwise_sqdist"] == before
+    with pytest.raises(ValueError, match="d must be positive"):
+        pd_ops.pairwise_sqdist(x[:, :0], x[:, :0])
+    with pytest.raises(TypeError, match="float32"):
+        pd_ops.pairwise_sqdist(x.double(), x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        pd_ops.pairwise_sqdist(x.T.contiguous().T, x)
+    with pytest.raises(ValueError, match="one device"):
+        pd_ops.pairwise_sqdist(x, x.cpu())
+
+
+@pytest.mark.gpu
+def test_resilient_pca_on_card_matches_cpu(cuda_device):
+    from repro_torch.core import bernoulli_assignment, fixed_count_stragglers, resilient_pca
+    from repro_torch.data.synthetic import planted_subspaces
+
+    pts, _ = planted_subspaces(800, 1, 24, 4, noise=0.05, rng=np.random.default_rng(11))
+    pts = pts - pts.mean(0, keepdims=True)
+    a = bernoulli_assignment(len(pts), 10, ell=8.0, rng=np.random.default_rng(12))
+    alive = fixed_count_stragglers(10, 3, np.random.default_rng(13))
+    on_card = resilient_pca(pts, 4, 0.25, a, alive, device=cuda_device)
+    on_cpu = resilient_pca(pts, 4, 0.25, a, alive, device="cpu")
+    assert on_card.cost == pytest.approx(on_cpu.cost, rel=1e-3)
+    assert (on_card.r1, on_card.sketch_rows) == (on_cpu.r1, on_cpu.sketch_rows)
 
 
 @pytest.mark.gpu

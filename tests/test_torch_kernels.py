@@ -20,13 +20,16 @@ from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.pairwise_dist import ops as pd_ops
 from repro_torch.kernels.pairwise_dist import ref as pd_ref
 from repro_torch.kernels.weighted_segsum import ops as ss_ops
+from repro.kernels.pairwise_dist import ops as j_pd_ops
 from tests.test_torch_gpu import (
     ASSIGN_CASES,
     SEGSUM_CASES,
+    SQDIST_CASES,
     _assign_inputs,
     _check_assign,
     _check_segsum,
     _segsum_inputs,
+    _sqdist_inputs,
 )
 
 def _pad_rows(a, m, value=0.0):
@@ -108,10 +111,34 @@ def test_weighted_segsum_plain_matches_jnp_ref(n, k, d, batch):
         _check_segsum(x[b], w[b], idx[b], sums, tot, j_sums, j_tot)
 
 
+@pytest.mark.parametrize("j_impl", ["xla_ref", "pallas_interpret"])
+@pytest.mark.parametrize("n,k,d,dup", SQDIST_CASES)
+def test_pairwise_sqdist_plain_matches_reference(n, k, d, dup, j_impl):
+    x, c = _sqdist_inputs(n, k, d, dup, seed=5 * n + k + d)
+    got = pd_ops.pairwise_sqdist(torch.from_numpy(x), torch.from_numpy(c))
+    want = np.asarray(j_pd_ops.pairwise_sqdist(jnp.asarray(x), jnp.asarray(c), impl=j_impl))
+    assert got.dtype == torch.float32 and got.shape == (n, k)
+    assert bool((got >= 0).all())
+    np.testing.assert_allclose(np.asarray(got), want, rtol=1e-5, atol=1e-4 * want.max())
+
+
+def test_pairwise_sqdist_refuses_what_the_kernel_refuses():
+    x = torch.rand(6, 3)
+    assert pd_ops.pairwise_sqdist(x[:0], x).shape == (0, 6)
+    with pytest.raises(ValueError, match="d must be positive"):
+        pd_ops.pairwise_sqdist(x[:, :0], x[:, :0])
+    with pytest.raises(TypeError, match="float32"):
+        pd_ops.pairwise_sqdist(x.double(), x.double())
+    with pytest.raises(ValueError, match=r"expected \(n, d\)"):
+        pd_ops.pairwise_sqdist(x[None], x)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        pd_ops.pairwise_sqdist(x, x, impl="cuda")
+
+
 # ------------------------------------------------------------- dispatch
 
 
-@pytest.mark.parametrize("op", ["assign_min", "weighted_segsum"])
+@pytest.mark.parametrize("op", ["assign_min", "weighted_segsum", "pairwise_sqdist"])
 def test_dispatch_cpu_tensor_gets_plain_version(op):
     t = torch.zeros(3, 2)
     name, _ = dispatch.resolve(op, "auto", t)
@@ -130,8 +157,10 @@ def test_plain_runs_on_cpu_do_not_count_as_launches():
     x = torch.rand(20, 3)
     idx, _ = pd_ops.assign_min(x, x[:4])
     ss_ops.weighted_segsum(x, torch.ones(20), idx, 4)
+    pd_ops.pairwise_sqdist(x, x[:4])
     counts = dispatch.launch_counts()  # every registered kernel, flash_attention's too
     assert counts["assign_min"] == 0 and counts["weighted_segsum"] == 0
+    assert counts["pairwise_sqdist"] == 0
     assert set(counts.values()) == {0}
 
 
