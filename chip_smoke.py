@@ -16,9 +16,11 @@ Phases:
                  solve, shard packing and host-to-device copy, timed apart
   4. kernels     each kernel against its plain version at the shapes of the
                  runs below, plus edge cases; flash attention in bf16 at
-                 (B, T, S, H, KV, dh) = (2, 100, 100, 8, 2, 64), the T < S
-                 case (1, 16, 32, 4, 2, 16) and the prefill shape
-                 (4, 2048, 2048, 32, 8, 128); pairwise_sqdist at its edges
+                 (B, T, S, H, KV, dh) = (2, 100, 100, 8, 2, 64), the ragged
+                 T < S case (2, 300, 337, 8, 2, 128) and the prefill shape
+                 (4, 2048, 2048, 32, 8, 128) (the tma-wgmma kernel), the
+                 T < S case (1, 16, 32, 4, 2, 16) and f32 (the mma-sync
+                 one); pairwise_sqdist at its edges
                  and at (1,000,000 x 128) x (256 x 128), the op's own path:
                  launch counts are read just around that call
   5. paper size  the twin of examples/quickstart.py; the p_a=0.2 run is
@@ -50,7 +52,14 @@ Phases:
                  batch 4, prompt 16, gen 32, no flash launch; then one
                  prefill and 8 decode steps under torch.profiler (kernel
                  time by name, device idle share)
-  11. timing     each kernel, its plain version and one library call
+  11. timing     each kernel, its plain version and one library call; the
+                 bound of rows assign_min and pairwise_sqdist is three TF32
+                 passes (3xTF32, the least this card needs for fp32-accurate
+                 distances; one fp32 CUDA-core pass beside it), the flash
+                 row adds the floor of its split p (1.5 x its bound); these
+                 computed figures and the shapes go on the printed timing
+                 lines, the kernels line holds the measured numbers and
+                 bound_ms
 
 The last two lines are the card's name and power limit and
 {"ok": true, "device": {...}}; the line before them lists the kernels.
@@ -74,7 +83,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 PEAK_FP32_FLOPS = 67e12  # H100 SXM, non-tensor-core fp32 (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
-PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 tensor cores, for a later PR
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, dense TF32 tensor cores
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3
 
 
@@ -157,6 +166,7 @@ def main() -> int:
     from repro_torch.core import subspace as sub_mod
     from repro_torch.data.synthetic import franti_s1_like, gaussian_mixture, planted_subspaces
     from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import transformer as T
     from repro_torch.models.registry import get_config
@@ -268,7 +278,7 @@ def main() -> int:
                                  f"atol {atol:g}, max err {float(err.max()):.3e}")
         errs["flash_attention"] = max(errs["flash_attention"], float(err.max()))
         print(f"flash_attention {tag}: (B,T,S,H,KV,dh)={(B, Tq, S, H, KV, dh)} {str(dtype)[6:]} "
-              f"max_abs_err={float(err.max()):.3e}")
+              f"{fa_kernel.route(dtype, dh)} max_abs_err={float(err.max()):.3e}")
 
     def check_sqdist(tag, x, c):
         """The kernel against the plain version: |d| <= 1e-5 (|x_i|^2 + |c_j|^2)
@@ -371,8 +381,10 @@ def main() -> int:
         del fy, idx
 
         # Flash attention: ragged T = S, T < S (the decode alignment), and
-        # the prefill shape of the serve phase; f32 once.
+        # the prefill shape of the serve phase (bf16 at dh 64 and 128 takes
+        # the tma-wgmma kernel, dh 16 and f32 the mma-sync one); f32 once.
         check_flash("ragged", 2, 100, 100, 8, 2, 64)
+        check_flash("ragged T<S dh128", 2, 300, 337, 8, 2, 128)
         check_flash("T<S", 1, 16, 32, 4, 2, 16)
         check_flash("prefill", 4, 2048, 2048, 32, 8, 128)
         check_flash("ragged f32", 2, 100, 100, 8, 2, 64, dtype=torch.float32)
@@ -619,7 +631,10 @@ def main() -> int:
         sync()
         print(f"qwen3-4b: {T.param_count(model) / 1e9:.3f} B parameters; init on the card "
               f"{t1 - t0:.3f} s, bf16 copy {time.perf_counter() - t1:.3f} s")
-        tokens = torch.randint(0, cfg.vocab, (B_s, T_s), generator=gen, device=dev)
+        # Tokens from a generator of their own: checks added before serve
+        # leave them as they are.
+        tokens = torch.randint(0, cfg.vocab, (B_s, T_s), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(args.seed))
         prefill = D.make_prefill_fn(cfg, T.ModelContext())
         prefill_ref = D.make_prefill_fn(cfg, T.ModelContext(attn_impl="torch_ref"))
         prefill(served, {"tokens": tokens[:, :64]})  # warm-up: cuBLAS handles, library load
@@ -725,11 +740,13 @@ def main() -> int:
         flat = (idx.long() + k_full * torch.arange(B, device=dev)[:, None]).reshape(-1)
         acc = torch.zeros(B * k_full, d + 1, device=dev)
 
-        def bound(flops, nbytes):
-            tf, tb = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+        def bound(flops, nbytes, peak=PEAK_FP32_FLOPS):
+            tf, tb = flops / peak, nbytes / PEAK_BYTES
             return 1e3 * max(tf, tb), ("operations" if tf >= tb else "bytes")
 
-        a_bound, a_by = bound(a_flops, a_bytes)
+        # fp32-accurate distances: three TF32 tensor-core passes (3xTF32) are
+        # the least this card needs; one fp32 CUDA-core pass is kept beside.
+        a_bound, a_by = bound(3 * a_flops, a_bytes, PEAK_TF32_FLOPS)
         s_bound, s_by = bound(s_flops, s_bytes)
         rows = [
             {
@@ -742,8 +759,7 @@ def main() -> int:
                 "bound_ms": a_bound, "bound_by": a_by,
                 "library_ms": cuda_ms(lambda: torch.cdist(xs_d, c).min(-1), 5),
                 "library_call": "torch.cdist(x, c).min(-1) (two calls)",
-                "tf32_bound_ms": 1e3 * a_flops / PEAK_TF32_FLOPS,
-                "shape": [B, m, k_full, d],
+                "design": "3xtf32-wgmma",
             },
             {
                 "name": "weighted_segsum", "route": "cuda",
@@ -756,9 +772,15 @@ def main() -> int:
                 "bound_ms": s_bound, "bound_by": s_by,
                 "library_ms": cuda_ms(lambda: acc.index_add_(0, flat, wx1), 20),
                 "library_call": "index_add_ of the (B*n, d+1) rows [w*x, w] (atomics)",
-                "shape": [B, m, k_full, d],
+                "design": "fp32-cuda-cores",
             },
         ]
+        # Computed figures beside each row, printed on its timing line only.
+        beside = {
+            "assign_min": {"shape": [B, m, k_full, d],
+                           "fp32_bound_ms": 1e3 * max(a_flops / PEAK_FP32_FLOPS, a_bytes / PEAK_BYTES)},
+            "weighted_segsum": {"shape": [B, m, k_full, d]},
+        }
 
         # Flash attention at the prefill shape, bf16: causal pairs t, s <= t.
         fB, fT, fH, fKV, fdh = 4, 2048, 32, 8, 128
@@ -781,15 +803,20 @@ def main() -> int:
             "bound_ms": f_bound, "bound_by": f_by,
             "library_ms": cuda_ms(lambda: sdpa(qh, kh, vh, is_causal=True, enable_gqa=True), 20),
             "library_call": "scaled_dot_product_attention(is_causal=True, enable_gqa=True) on (B, H, T, dh)",
+            "design": fa_kernel.route(torch.bfloat16, fdh),
+        })
+        beside["flash_attention"] = {
+            "shape": [fB, fT, fT, fH, fKV, fdh],
+            # p.v runs twice (p split into hi + lo bf16 pieces): 1.5 x the products
+            "split_floor_ms": 1.5 * f_bound,
             "fp32_bound_ms": 1e3 * f_flops / PEAK_FP32_FLOPS,
             "bytes_bound_ms": 1e3 * f_bytes / PEAK_BYTES,
-            "shape": [fB, fT, fT, fH, fKV, fdh],
-        })
+        }
         # pairwise_sqdist at its full-width path shape: the full (n, k) output.
         n_q, k_q = pts_d.shape[0], k_full
         q_flops = 2.0 * n_q * k_q * d_full
         q_bytes = 4.0 * (n_q * d_full + k_q * d_full + n_q * k_q)
-        q_bound, q_by = bound(q_flops, q_bytes)
+        q_bound, q_by = bound(3 * q_flops, q_bytes, PEAK_TF32_FLOPS)  # as assign_min's
         rows.append({
             "name": "pairwise_sqdist", "route": "cuda",
             "source": "src/repro_torch/csrc/pairwise_sqdist.cu",
@@ -800,12 +827,16 @@ def main() -> int:
             "bound_ms": q_bound, "bound_by": q_by,
             "library_ms": cuda_ms(lambda: torch.cdist(pts_d, sq_c).pow(2), 5),
             "library_call": "torch.cdist(x, c).pow(2) (two calls)",
-            "tf32_bound_ms": 1e3 * max(q_flops / PEAK_TF32_FLOPS, q_bytes / PEAK_BYTES),
-            "shape": [n_q, k_q, d_full],
+            "design": "fp32-cuda-cores",
         })
+        beside["pairwise_sqdist"] = {
+            "shape": [n_q, k_q, d_full],
+            "fp32_bound_ms": 1e3 * max(q_flops / PEAK_FP32_FLOPS, q_bytes / PEAK_BYTES),
+        }
         for r in rows:
-            print(f"{r['name']}: {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
-                  f"library {r['library_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms ({r['bound_by']})  [{card}]")
+            print(f"{r['name']} ({r['design']}): {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
+                  f"library {r['library_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
+                  f"share {r['bound_ms'] / r['ms']:.1%})  {beside[r['name']]}  [{card}]")
 
     print(json.dumps({"kernels": rows}))
     print(smi())

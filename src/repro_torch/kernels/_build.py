@@ -41,7 +41,7 @@ class BuildReport:
     name: str
     library: Path
     seconds: float          # 0.0 when the library was already built
-    ptxas: tuple[str, ...]  # register / shared-memory / spill lines of -Xptxas -v
+    ptxas: tuple[str, ...]  # register / shared-memory / spill / warning lines of -Xptxas -v
 
 
 def build_dir() -> Path:
@@ -98,7 +98,7 @@ def build(names=SOURCES) -> dict[str, BuildReport]:
         os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
         ptxas = tuple(
             l.strip() for l in out.splitlines()
-            if "registers" in l or "spill" in l or "Compiling entry" in l
+            if "registers" in l or "spill" in l or "Compiling entry" in l or "warning" in l
         )
         reports[name] = BuildReport(name, lib, seconds, ptxas)
     if failed:

@@ -3,15 +3,23 @@
 * ``assign_min_cuda`` launches the nearest-center kernel
   (``csrc/assign_min.cu``), which replaces the Pallas TPU kernel
   ``_assign_kernel`` / ``assign_min_kernel_call`` of
-  ``src/repro/kernels/pairwise_dist/kernel.py``.  Bound on an H100: the
-  2·B·n·k·d fp32 operations against the 67 TFLOP/s non-tensor-core peak; the
-  kernel keeps the dot products in fp32 FMA (no TF32), tiles 64 rows × 64
-  centers per block, sums the norms from its staged tiles and never writes
-  the (n, k) matrix.  See the source's header for the tie rule.
+  ``src/repro/kernels/pairwise_dist/kernel.py``.  It runs x·cᵀ on the TF32
+  tensor cores as 3xTF32 (each fp32 operand split once into two TF32
+  pieces as it is staged, three ``wgmma`` products summed in fp32), so
+  distances keep fp32 accuracy; 128 rows × 256 centers per block where
+  k_valid > 128 (128 centers otherwise), d staged in 32-column chunks
+  through two shared-memory buffers while the products of the previous
+  chunk run, norms summed in fp32 from the staged values, and the (n, k)
+  matrix never written.  Bound on an H100: the three passes of
+  2·B·n·k·d operations against the 495 TFLOP/s TF32 peak (0.84 ms at
+  Algorithm 1's local-solve shape; one fp32 CUDA-core pass would need
+  2.07 ms).  See the source's header for the tie rule.
 * ``pairwise_sqdist_cuda`` launches the full squared-distance kernel
   (``csrc/pairwise_sqdist.cu``), which replaces ``_sqdist_kernel`` /
-  ``pairwise_sqdist_kernel_call`` of the same file.  Same tiles and
-  arithmetic; it writes each clamped 64 × 64 tile of the (n, k) output.
+  ``pairwise_sqdist_kernel_call`` of the same file.  fp32 FMA on the CUDA
+  cores in 64 × 64 tiles; it writes each clamped tile of the (n, k) output.
+  Bound: the bytes of that output (0.46 ms at 1M × 256), above the 3xTF32
+  operations (0.40 ms).
 
 Each wrapper checks shapes, dtype, device and contiguity, allocates the
 outputs, launches on the current stream without synchronising, raises if

@@ -20,6 +20,11 @@ products of fp32 values in other orders, so an element may differ by a few
 ulps of ‖x_i‖² + ‖c_j‖²: |Δ| ≤ 1e-5·(‖x_i‖² + ‖c_j‖²) + 1e-6, and no output
 is negative.
 
+3xTF32 ``assign_min`` (``TF32_ASSIGN_CASES``): the kernel's dot products run
+on the TF32 tensor cores with each fp32 operand split into two TF32 pieces,
+which keeps them within about 2^-22 of |x||c|; the same tolerances hold, and
+two runs give the same bits.
+
 Flash attention: f32 inputs rtol 1e-5, atol 1e-5 (the kernel sums three
 bf16 pieces of each f32 value on the tensor cores, about 2^-24 of each
 product, in another order than the plain version's f32 GEMMs); bf16 inputs
@@ -33,6 +38,7 @@ import torch
 
 from repro_torch.configs import qwen3_4b
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.models import transformer as T
 from repro_torch.serve import decode as D
@@ -47,6 +53,14 @@ ASSIGN_CASES = [
     pytest.param(40, 20, 13, 13, False, id="k_valid-masking"),
     pytest.param(33, 12, 2, None, True, id="duplicate-center-ties"),
     pytest.param(64, 70, 2, None, False, id="k70-over-one-tile"),
+]
+
+# 3xTF32 tiles of 128 rows x 128 centers, with d staged in chunks of 32:
+# ragged n, k of 1, 7, one tile and one more, two tiles; d = 2 and 13 (the
+# 4-byte copies), 64 and 128 (16-byte copies), 130 (a ragged last chunk)
+TF32_ASSIGN_CASES = [
+    pytest.param(n, k, d, id=f"n{n}-k{k}-d{d}")
+    for n in (127, 129) for k in (1, 7, 129, 256) for d in (2, 13, 64, 128, 130)
 ]
 
 # (n, k, d, duplicate rows): ragged n and k, d in {2, 13, 64}, k over one
@@ -82,6 +96,8 @@ def _assign_inputs(n, k, d, k_valid, dup, seed):
 def _decided(x, c, kv):
     """Rows whose two nearest centers are more than 1e-5 apart relative to
     ‖x‖² + d², the magnitude whose rounding the decomposition carries."""
+    if kv < 2:  # one candidate: nothing to decide between
+        return np.ones(x.shape[0], dtype=bool)
     d2 = np.sort(np.asarray(pd_ref.pairwise_sqdist_ref(torch.from_numpy(x), torch.from_numpy(c)))[:, :kv], axis=1)
     return (d2[:, 1] - d2[:, 0]) > 1e-5 * ((x.astype(np.float64) ** 2).sum(1) + d2[:, 1])
 
@@ -132,13 +148,27 @@ def _check_segsum(x, w, idx, sums, tot, want_sums, want_tot):
 
 
 # (B, T, S, H, KV, dh): T == S at two tile-multiples and a ragged 100, and
-# T < S (a query block at the end of the key timeline)
+# T < S (a query block at the end of the key timeline); dh 16 takes the
+# mma-sync kernel in bf16, dh 64 the tma-wgmma one
 FLASH_CASES = [
     pytest.param(2, t, t, 4, kv, dh, id=f"T{t}-KV{kv}-dh{dh}")
     for t in (8, 64, 100) for kv in (1, 2, 4) for dh in (16, 64)
 ] + [
     pytest.param(2, 16, 32, 4, kv, dh, id=f"T16-S32-KV{kv}-dh{dh}")
     for kv in (1, 2, 4) for dh in (16, 64)
+]
+
+# bf16 at dh 64 and 128 (the tma-wgmma kernel): T = S at the edges of its
+# 128-row query tile and 128-key tile, T < S with S - T = 37, KV of 1 (one kv
+# head for all) and 8 (one each); causal unless the id says otherwise
+WGMMA_FLASH_CASES = [
+    pytest.param(1, t, t, 8, kv, dh, True, id=f"T{t}-KV{kv}-dh{dh}")
+    for t in (127, 128, 129, 300) for kv in (1, 8) for dh in (64, 128)
+] + [
+    pytest.param(2, t, t + 37, 8, kv, dh, True, id=f"T{t}-S{t + 37}-KV{kv}-dh{dh}")
+    for t in (100, 263) for kv in (1, 8) for dh in (64, 128)
+] + [
+    pytest.param(1, 129, 129, 8, 2, dh, False, id=f"T129-noncausal-dh{dh}") for dh in (64, 128)
 ]
 
 FLASH_TOL = {
@@ -182,6 +212,45 @@ def test_assign_min_kernel_matches_plain_on_card(cuda_device, n, k, d, k_valid, 
     _check_assign(x, c, kv, idx.cpu(), dist.cpu(), want_idx.cpu(), want_dist.cpu())
     if dup:
         assert (idx.cpu() % 2 == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,d", TF32_ASSIGN_CASES)
+def test_assign_min_tf32_tiles_match_plain_on_card(cuda_device, n, k, d):
+    x, c = _assign_inputs(n, k, d, None, False, seed=n + 7 * k + d)
+    xt, ct = torch.from_numpy(x).to(cuda_device), torch.from_numpy(c).to(cuda_device)
+    before = dispatch.launch_counts()["assign_min"]
+    idx, dist = pd_ops.assign_min(xt, ct)
+    idx2, dist2 = pd_ops.assign_min(xt, ct)
+    assert dispatch.launch_counts()["assign_min"] == before + 2
+    assert torch.equal(idx, idx2) and torch.equal(dist, dist2)  # same bits on every run
+    want_idx, want_dist = pd_ops.assign_min(xt, ct, impl="torch_ref")
+    torch.cuda.synchronize()
+    _check_assign(x, c, k, idx.cpu(), dist.cpu(), want_idx.cpu(), want_dist.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k_valid", [None, 200], ids=["all-valid", "k_valid200"])
+def test_assign_min_tf32_batched_duplicates_on_card(cuda_device, k_valid):
+    # B = 10 nodes, two center tiles, every center duplicated (pairs 2j, 2j+1
+    # lie in one 8-column fragment, pairs j, j+128 in two tiles)
+    rng = np.random.default_rng(29)
+    x = rng.normal(size=(10, 129, 128)).astype(np.float32)
+    c = rng.normal(size=(10, 256, 128)).astype(np.float32)
+    c[:, 1:128:2] = c[:, 0:128:2]
+    c[:, 128:] = c[:, :128]
+    kv = 256 if k_valid is None else k_valid
+    xt, ct = torch.from_numpy(x).to(cuda_device), torch.from_numpy(c).to(cuda_device)
+    idx, dist = pd_ops.assign_min(xt, ct, k_valid=k_valid)
+    idx2, dist2 = pd_ops.assign_min(xt, ct, k_valid=k_valid)
+    assert torch.equal(idx, idx2) and torch.equal(dist, dist2)
+    want_idx, want_dist = pd_ops.assign_min(xt, ct, k_valid=k_valid, impl="torch_ref")
+    torch.cuda.synchronize()
+    idx, dist = idx.cpu().numpy(), dist.cpu().numpy()
+    assert ((idx % 2) == 0).all() and (idx < 128).all()  # the first of every set of equal centers
+    assert (idx < kv).all()
+    for b in range(10):
+        _check_assign(x[b], c[b], kv, idx[b], dist[b], want_idx[b].cpu(), want_dist[b].cpu())
 
 
 @pytest.mark.gpu
@@ -257,6 +326,39 @@ def test_flash_attention_kernel_matches_plain_on_card(cuda_device, B, T, S, H, K
     want = fa_ops.flash_attention(q, k, v, impl="torch_ref")
     torch.cuda.synchronize()
     _check_flash(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,S,H,KV,dh,causal", WGMMA_FLASH_CASES)
+def test_flash_attention_tma_wgmma_matches_plain_on_card(cuda_device, B, T, S, H, KV, dh, causal):
+    assert fa_kernel.route(torch.bfloat16, dh) == "tma-wgmma"
+    q, k, v = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+               for a in _flash_inputs(B, T, S, H, KV, dh, seed=T + S + dh))
+    before = dispatch.launch_counts()["flash_attention"]
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    assert dispatch.launch_counts()["flash_attention"] == before + 1
+    want = fa_ops.flash_attention(q, k, v, causal=causal, impl="torch_ref")
+    torch.cuda.synchronize()
+    _check_flash(got, want, torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_attention_tma_wgmma_reads_strided_views_on_card(cuda_device, dh):
+    # q, k and v as head slices of one fused (B, T, H + 2·KV, dh) tensor, and
+    # that tensor a slice of a wider one: row strides that are not H·dh
+    B, T, H, KV = 2, 200, 8, 2
+    wide = np.random.default_rng(31).normal(size=(B, T, H + 2 * KV + 3, dh)).astype(np.float32)
+    fused = torch.from_numpy(wide).to(cuda_device, torch.bfloat16)[:, :, 1 : 1 + H + 2 * KV]
+    q, k, v = fused[:, :, :H], fused[:, :, H : H + KV], fused[:, :, H + KV :]
+    assert q.stride(1) != H * dh and k.stride(1) != KV * dh
+    before = dispatch.launch_counts()["flash_attention"]
+    got = fa_ops.flash_attention(q, k, v)
+    assert dispatch.launch_counts()["flash_attention"] == before + 1
+    want = fa_ops.flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), impl="torch_ref")
+    torch.cuda.synchronize()
+    assert got.is_contiguous()
+    _check_flash(got, want, torch.bfloat16)
 
 
 @pytest.mark.gpu
