@@ -52,7 +52,9 @@ Phases:
                  batch 4, prompt 16, gen 32, no flash launch; then one
                  prefill and 8 decode steps under torch.profiler (kernel
                  time by name, device idle share)
-  11. timing     each kernel, its plain version and one library call; the
+  11. timing     each kernel, its plain version and one library call
+                 (weighted_segsum also at the coordinator's (1, 2560, 256,
+                 128), with its launches in Algorithm 1 by shape); the
                  bound of rows assign_min and pairwise_sqdist is three TF32
                  passes (3xTF32, the least this card needs for fp32-accurate
                  distances; one fp32 CUDA-core pass beside it), the flash
@@ -356,7 +358,7 @@ def main() -> int:
         check_segsum("edge zero weights, empty clusters, idx outside [0,k)", x, w, idx, 50)
         x = rand(1, 5000, 5)
         idx = torch.randint(0, 1000, (1, 5000), generator=gen, device=dev, dtype=torch.int32)
-        check_segsum("edge k=1000 (tiled k)", x, rand(1, 5000), idx, 1000)
+        check_segsum("edge k=1000 d=5 (whole k in shared memory)", x, rand(1, 5000), idx, 1000)
 
         # Paper size: local shards (s, m, 2), coordinator (1, s*k, 2), full cost.
         p_pts, _, _ = franti_s1_like(5000)
@@ -430,6 +432,22 @@ def main() -> int:
             if not (np.isfinite(row["cost"]) and row["factor"] <= row["bound"] * 1.05):
                 raise AssertionError(f"paper-size Algorithm 3 outside the Theorem-5 band: {row}")
 
+    @contextlib.contextmanager
+    def launches_by_shape(op, tally):
+        """While the block runs, count the CUDA launches of ``op`` by the
+        shape of their first argument into ``tally``."""
+        real = dispatch.resolve(op, "cuda", torch.empty(0, device=dev))[1]
+
+        def counted(x, *rest):
+            tally[tuple(x.shape)] = tally.get(tuple(x.shape), 0) + 1
+            return real(x, *rest)
+
+        dispatch.register_impl(op, "cuda", counted)
+        try:
+            yield tally
+        finally:
+            dispatch.register_impl(op, "cuda", real)
+
     def run_alg1():
         return resilient_kmedian(
             pts, k_full, a, alive, local_iters=15, coord_iters=30, seed=args.seed,
@@ -447,8 +465,9 @@ def main() -> int:
         central_counts = dispatch.launch_counts()
         dispatch.reset_launch_counts()
         t1 = time.perf_counter()
-        out = run_alg1()
-        sync()
+        with launches_by_shape("weighted_segsum", {}) as seg_shapes:
+            out = run_alg1()
+            sync()
         t2 = time.perf_counter()
         counts = dispatch.launch_counts()  # Algorithm 1's own launches
         t3 = time.perf_counter()
@@ -461,6 +480,7 @@ def main() -> int:
         print(f"max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         print(f"launches: centralized {central_counts}  Algorithm 1 {counts}  "
               f"session {session.stats.as_dict()}")
+        print(f"Algorithm 1 weighted_segsum launches by x shape: {seg_shapes}")
         for tag, got in (("centralized", central_counts), ("Algorithm 1", counts)):
             if not all(got.get(name, 0) > 0 for name in ("assign_min", "weighted_segsum")):
                 raise AssertionError(f"{tag}: a kernel of the path was never launched: {got}")
@@ -772,15 +792,32 @@ def main() -> int:
                 "bound_ms": s_bound, "bound_by": s_by,
                 "library_ms": cuda_ms(lambda: acc.index_add_(0, flat, wx1), 20),
                 "library_call": "index_add_ of the (B*n, d+1) rows [w*x, w] (atomics)",
-                "design": "fp32-cuda-cores",
+                "design": "streamed-shared-acc",
             },
         ]
         # Computed figures beside each row, printed on its timing line only.
         beside = {
             "assign_min": {"shape": [B, m, k_full, d],
                            "fp32_bound_ms": 1e3 * max(a_flops / PEAK_FP32_FLOPS, a_bytes / PEAK_BYTES)},
-            "weighted_segsum": {"shape": [B, m, k_full, d]},
+            "weighted_segsum": {"shape": [B, m, k_full, d], "launches_by_x_shape": {
+                str(list(shape)): n for shape, n in seg_shapes.items()}},
         }
+        # weighted_segsum at the coordinator's shape too: (1, s*k, 256, 128)
+        cy = rows_of(xs_d, k_full).reshape(1, s * k_full, d)
+        cidx, _ = pd_ops.assign_min(cy, rows_of(cy, k_full))
+        cw = rand(1, s * k_full)
+        c_bound, _ = bound(2.0 * s * k_full * (d + 1),
+                           4.0 * s * k_full * (d + 2) + 4.0 * k_full * (d + 1))
+        cwx1 = torch.cat([cw.unsqueeze(-1) * cy, cw.unsqueeze(-1)], dim=-1).reshape(s * k_full, d + 1)
+        cacc = torch.zeros(k_full, d + 1, device=dev)
+        beside["weighted_segsum"].update({
+            "coordinator_shape": [1, s * k_full, k_full, d],
+            "coordinator_ms": cuda_ms(lambda: ss_ops.weighted_segsum(cy, cw, cidx, k_full), 50),
+            "coordinator_plain_ms": cuda_ms(
+                lambda: ss_ops.weighted_segsum(cy, cw, cidx, k_full, impl="torch_ref"), 20),
+            "coordinator_library_ms": cuda_ms(lambda: cacc.index_add_(0, cidx[0].long(), cwx1), 50),
+            "coordinator_bound_ms": c_bound,
+        })
 
         # Flash attention at the prefill shape, bf16: causal pairs t, s <= t.
         fB, fT, fH, fKV, fdh = 4, 2048, 32, 8, 128
@@ -827,7 +864,7 @@ def main() -> int:
             "bound_ms": q_bound, "bound_by": q_by,
             "library_ms": cuda_ms(lambda: torch.cdist(pts_d, sq_c).pow(2), 5),
             "library_call": "torch.cdist(x, c).pow(2) (two calls)",
-            "design": "fp32-cuda-cores",
+            "design": "3xtf32-wgmma-tma-store",
         })
         beside["pairwise_sqdist"] = {
             "shape": [n_q, k_q, d_full],

@@ -2,10 +2,10 @@
 
 Each source ``csrc/<name>.cu`` exposes a plain C entry point and compiles
 into its own shared library for ``sm_90a``.  The library name carries a hash
-of the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded.  Building happens at first use (``load``), or for
-every kernel at once with :func:`build`, which starts one ``nvcc`` per
-source, all together.  Libraries go to ``src/repro_torch/_build/``, which
+of the source, of the headers in ``csrc/`` and of the flags, so an edited
+source or header is rebuilt and a stale library is never loaded.  Building
+happens at first use (``load``), or for every kernel at once with
+:func:`build`, which starts one ``nvcc`` per source, all together.  Libraries go to ``src/repro_torch/_build/``, which
 ``.gitignore`` lists; ``REPRO_TORCH_BUILD_DIR`` moves them.
 
 Nothing here runs at import: the CPU tests import every module, and a
@@ -62,9 +62,15 @@ def _nvcc() -> str:
 
 
 def _library(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.blake2b(src + " ".join(NVCC_FLAGS).encode(), digest_size=8).hexdigest()
-    return build_dir() / f"lib{name}-{h}.so"
+    """The library path for ``csrc/<name>.cu``: its name hashes the source,
+    every header of ``csrc/`` (a source may include any of them) and the
+    flags, so an edited header rebuilds the sources that share it."""
+    h = hashlib.blake2b(digest_size=8)
+    h.update((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir() / f"lib{name}-{h.hexdigest()}.so"
 
 
 def nvcc_command(name: str, out: Path) -> list[str]:

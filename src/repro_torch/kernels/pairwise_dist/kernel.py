@@ -16,10 +16,13 @@
   2.07 ms).  See the source's header for the tie rule.
 * ``pairwise_sqdist_cuda`` launches the full squared-distance kernel
   (``csrc/pairwise_sqdist.cu``), which replaces ``_sqdist_kernel`` /
-  ``pairwise_sqdist_kernel_call`` of the same file.  fp32 FMA on the CUDA
-  cores in 64 × 64 tiles; it writes each clamped tile of the (n, k) output.
-  Bound: the bytes of that output (0.46 ms at 1M × 256), above the 3xTF32
-  operations (0.40 ms).
+  ``pairwise_sqdist_kernel_call`` of the same file.  The 3xTF32 ``wgmma``
+  tile of ``assign_min`` (the shared helpers are in ``csrc/tf32_tile.cuh``),
+  in persistent blocks that walk the (row tile, center tile) pairs; each
+  clamped tile goes through shared memory to device memory by TMA stores
+  (16-byte-aligned rows) or coalesced 4-byte stores, the stores of one tile
+  draining while the next one multiplies.  Bound: the bytes of the (n, k)
+  output (0.46 ms at 1M × 256), above the 3xTF32 operations (0.40 ms).
 
 Each wrapper checks shapes, dtype, device and contiguity, allocates the
 outputs, launches on the current stream without synchronising, raises if

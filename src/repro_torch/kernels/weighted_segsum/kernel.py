@@ -3,8 +3,12 @@
 Replaces the Pallas TPU kernel ``_segsum_kernel`` /
 ``weighted_segsum_kernel_call`` of ``src/repro/kernels/weighted_segsum/kernel.py``.
 Bound on an H100: the B·n·(d+2)·4 bytes of the rows against 3.35 TB/s.  The
-kernel is deterministic (no float atomics): per-chunk sums in shared memory
-in row order, then a fixed-order sum over chunks.  See the source's header.
+kernel is deterministic (no float atomics): one block per chunk of rows
+keeps the whole (k, d+1) accumulator in shared memory (a slice of its
+columns where it does not fit), the rows stream in by bulk asynchronous
+copies, each (cluster, column) is summed in row order by the one thread
+that owns the column, then a fixed-order sum over chunks.  See the
+source's header.
 
 The wrapper checks shapes, dtype, device and contiguity, allocates the
 outputs and the (B, chunks, k, d+1) workspace, launches on the current
@@ -25,7 +29,9 @@ __all__ = ["ROWS_PER_CHUNK", "weighted_segsum_cuda", "counter"]
 counter = LaunchCounter("weighted_segsum")
 
 # Rows one block walks in order.  The workspace is (d+1)·k·4 bytes per chunk,
-# about an eighth of the rows' own bytes at the shapes of Algorithm 1.
+# about an eighth of the rows' own bytes at the shapes of Algorithm 1; the
+# chunks' sequential sums stay within 1e-5 of Σ|w·x| at this length
+# (tests/test_torch_segsum_order.py emulates the order).
 ROWS_PER_CHUNK = 2048
 
 _P = ctypes.c_void_p

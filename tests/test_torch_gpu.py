@@ -81,6 +81,38 @@ SEGSUM_CASES = [
     pytest.param(40, 9, 3, 3, id="batched-B3"),
 ]
 
+# The streamed weighted_segsum: row ranges of ROWS_PER_CHUNK = 2048 rows.
+# n = 2048m - 1, 2048m, 2048m + 1 at d = 128 (whole rows by one bulk copy per
+# stage, the whole (k, d+1) accumulator of k = 256 in shared memory); k =
+# 1000 at d = 128 (slices of columns: (k, d+1) exceeds the budget); k =
+# 12000 at d = 4 (not even 32 columns of all k fit: k tiles); d = 13
+# (unaligned rows: 4-byte copies); B = 10 with batch 3 all zero weights
+SEGSUM_STREAM_CASES = [
+    pytest.param(4096 + dn, 256, 128, 1, id=f"n{4096 + dn}-k256-d128") for dn in (-1, 0, 1)
+] + [
+    pytest.param(4097, 1000, 128, 1, id="k1000-d128-column-slices"),
+    pytest.param(5000, 12000, 4, 1, id="k12000-d4-k-tiles"),
+    pytest.param(4097, 256, 13, 2, id="d13-unaligned-B2"),
+    pytest.param(2049, 64, 128, 10, id="B10-one-batch-zero-weights"),
+]
+
+
+# The 3xTF32 wgmma tile of pairwise_sqdist: k = 256 (one 256-center tile),
+# 300 and 513 (ragged second and third tiles; 513 and 7 store with 4-byte
+# stores, k*4 not a multiple of 16), d = 13 (unaligned rows), n = 1 and 129
+# (ragged row tiles), n = 40000 (more row tiles than SMs: the persistent
+# blocks walk several), duplicate rows (distances clamped at 0)
+SQDIST_TILE_CASES = [
+    pytest.param(129, 256, 128, False, id="n129-k256-d128"),
+    pytest.param(1, 256, 128, False, id="n1-k256-d128"),
+    pytest.param(129, 300, 128, False, id="n129-k300-d128"),
+    pytest.param(300, 513, 64, False, id="n300-k513-d64"),
+    pytest.param(129, 513, 13, False, id="n129-k513-d13"),
+    pytest.param(1, 7, 13, False, id="n1-k7-d13"),
+    pytest.param(40000, 256, 128, False, id="n40000-k256-d128-persistent"),
+    pytest.param(258, 256, 128, True, id="duplicate-rows-k256-d128"),
+]
+
 
 def _assign_inputs(n, k, d, k_valid, dup, seed):
     rng = np.random.default_rng(seed)
@@ -257,15 +289,17 @@ def test_assign_min_tf32_batched_duplicates_on_card(cuda_device, k_valid):
 @pytest.mark.parametrize(
     "n,k,d,dup",
     SQDIST_CASES + [pytest.param(5000, 256, 128, False, id="d128-k256"),
-                    pytest.param(3, 300, 7, False, id="n3-k300")],
+                    pytest.param(3, 300, 7, False, id="n3-k300")] + SQDIST_TILE_CASES,
 )
 def test_pairwise_sqdist_kernel_matches_plain_on_card(cuda_device, n, k, d, dup):
     x, c = (torch.from_numpy(a).to(cuda_device) for a in _sqdist_inputs(n, k, d, dup, seed=23))
     before = dispatch.launch_counts()["pairwise_sqdist"]
     got = pd_ops.pairwise_sqdist(x, c)
     assert dispatch.launch_counts()["pairwise_sqdist"] == before + 1
+    again = pd_ops.pairwise_sqdist(x, c)
     want = pd_ops.pairwise_sqdist(x, c, impl="torch_ref")
     torch.cuda.synchronize()
+    assert torch.equal(got, again)  # the same bits on every run
     _check_sqdist_on_card(x.cpu(), c.cpu(), got.cpu(), want.cpu())
 
 
@@ -301,15 +335,28 @@ def test_resilient_pca_on_card_matches_cpu(cuda_device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,k,d,batch", SEGSUM_CASES + [pytest.param(9000, 1000, 5, 2, id="k1000-tiled")])
+@pytest.mark.parametrize(
+    "n,k,d,batch", SEGSUM_CASES + [pytest.param(9000, 1000, 5, 2, id="k1000-tiled")] + SEGSUM_STREAM_CASES)
 def test_weighted_segsum_kernel_matches_plain_on_card(cuda_device, n, k, d, batch):
-    x, w, idx = (torch.from_numpy(a).to(cuda_device) for a in _segsum_inputs(n, k, d, batch, seed=13))
+    x, w, idx = _segsum_inputs(n, k, d, batch, seed=13)
+    if batch == 10:
+        w[3] = 0.0  # one batch of zero weights
+    x, w, idx = (torch.from_numpy(a).to(cuda_device) for a in (x, w, idx))
+    before = dispatch.launch_counts()["weighted_segsum"]
     s1, t1 = ss_ops.weighted_segsum(x, w, idx, k)
     s2, t2 = ss_ops.weighted_segsum(x, w, idx, k)
+    assert dispatch.launch_counts()["weighted_segsum"] == before + 2
     assert torch.equal(s1, s2) and torch.equal(t1, t2)  # deterministic: same bits
     want_s, want_t = ss_ops.weighted_segsum(x, w, idx, k, impl="torch_ref")
+    sa, ta = ss_ops.weighted_segsum(x.abs(), w.abs(), idx, k, impl="torch_ref")
     torch.cuda.synchronize()
     _check_segsum(x.cpu().numpy(), w.cpu().numpy(), idx.cpu().numpy(), s1.cpu(), t1.cpu(), want_s.cpu(), want_t.cpu())
+    # 1e-5 of Σ|w·x| per (cluster, column), as chip_smoke.py holds it
+    assert bool(((s1 - want_s).abs() <= 1e-5 * sa).all()) and bool(((t1 - want_t).abs() <= 1e-5 * ta).all())
+    if batch == 10:
+        assert not bool(s1[3].any()) and not bool(t1[3].any())
+
+
 
 
 @pytest.mark.gpu

@@ -170,3 +170,27 @@ def test_kernel_sources_build_for_sm90a_with_a_c_entry_point():
         src = (_build.CSRC / f"{name}.cu").read_text()
         assert f'extern "C" int {name}_launch(' in src
         assert "atomicAdd" not in src  # deterministic: no float atomics
+
+
+def test_library_name_follows_the_shared_header(tmp_path, monkeypatch):
+    # The two tile kernels include csrc/tf32_tile.cuh: editing it renames
+    # (rebuilds) their libraries, and editing another source does not.
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    for name in ("assign_min", "pairwise_sqdist"):
+        assert '#include "tf32_tile.cuh"' in (csrc / f"{name}.cu").read_text()
+    before = {name: _build._library(name) for name in _build.SOURCES}
+    header = csrc / "tf32_tile.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _build._library(name) for name in _build.SOURCES}
+    assert after["assign_min"] != before["assign_min"]
+    assert after["pairwise_sqdist"] != before["pairwise_sqdist"]
+    src = csrc / "weighted_segsum.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    again = {name: _build._library(name) for name in _build.SOURCES}
+    assert again["weighted_segsum"] != after["weighted_segsum"]
+    for name in ("assign_min", "pairwise_sqdist", "flash_attention"):
+        assert again[name] == after[name]

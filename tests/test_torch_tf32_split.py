@@ -9,7 +9,8 @@ arithmetic on the CPU (products of TF32 values are exact in fp32; each
 8-wide step of the mma is summed exactly and rounded once to fp32) and
 holds the distances to the float64 ones within 1e-5·(‖x‖² + ‖c‖²), the
 tolerance of the kernel's tests, before the card does.  A single TF32 pass
-does not meet it.
+does not meet it.  ``csrc/pairwise_sqdist.cu`` runs the same tile and
+clamps it; its band (1e-5·(‖x‖² + ‖c‖²) + 1e-6) is held here too.
 
 No JAX here; the cases are those of ``test_torch_gpu.py``.
 """
@@ -19,7 +20,8 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
-from tests.test_torch_gpu import ASSIGN_CASES, _assign_inputs
+from repro_torch.kernels.pairwise_dist import ref as pd_ref
+from tests.test_torch_gpu import ASSIGN_CASES, _assign_inputs, _sqdist_inputs
 
 
 def _tf32(a):
@@ -94,6 +96,23 @@ def test_3xtf32_keeps_the_index_where_one_tf32_pass_does_not():
     top2 = np.sort(exact, axis=1)[:, :2]
     decided = (top2[:, 1] - top2[:, 0]) > 1e-5 * scale[np.arange(300), np.argmin(exact, axis=1)]
     np.testing.assert_array_equal(np.argmin(three, axis=1)[decided], np.argmin(exact, axis=1)[decided])
+
+
+@pytest.mark.parametrize("dup", [False, True], ids=["distinct", "duplicate-rows"])
+def test_3xtf32_sqdist_at_full_width_within_the_pairwise_sqdist_band(dup):
+    # pairwise_sqdist's tile at the full-width decomposition (d = 128, k =
+    # 256), clamp included: within 1e-5 (|x|^2 + |c|^2) + 1e-6 of float64
+    # and of the plain version, nothing negative; with duplicate rows and
+    # centers equal to rows, the exact distances of 0 among them
+    x, c = _sqdist_inputs(300, 256, 128, dup, seed=47)
+    got = _emulated_sqdist(x, c)
+    band = 1e-5 * _scale(x, c) + 1e-6
+    assert (got >= 0).all()
+    assert (np.abs(got.astype(np.float64) - _exact(x, c)) <= band).all()
+    plain = np.asarray(pd_ref.pairwise_sqdist_ref(torch.from_numpy(x), torch.from_numpy(c)))
+    assert (np.abs(got.astype(np.float64) - plain) <= band).all()
+    if dup:
+        assert (_exact(x, c) == 0).any()
 
 
 def test_tf32_rounding_is_to_nearest_ties_away():
