@@ -4,8 +4,10 @@
 Builds the hand-written CUDA kernels from ``src/repro_torch/csrc``, holds
 each against its plain PyTorch version on the card, then drives the paper's
 Algorithms 1, 2 and 3 through the port's public entry points, at the
-paper's size and at full width, and serves qwen3-4b at full width and depth
-(prefill and greedy decode), and fails loudly: there is no CPU fallback and
+paper's size and at full width, runs the elastic resilience runtime
+(ResilienceSession: on-device recovery in step_cost, elastic patching,
+placement), and serves qwen3-4b at full width and depth (prefill and greedy
+decode), and fails loudly: there is no CPU fallback and
 no caught phase.  Every phase prints its seconds beside the card's name and
 power limit.
 
@@ -27,23 +29,40 @@ Phases:
                  also held against the plain path; then the twin of
                  examples/distributed_pca.py (Algorithm 3)
   6. full width  centralized k-median and Algorithm 1 at the shape of SIFT1M
-                 (1,000,000 x 128 f32), k=256, s=10, t=3, p_a=0.2; launch
-                 counts are read from each of the two runs apart, and the
-                 kernel line reports Algorithm 1's
+                 (1,000,000 x 128 f32), k=256, s=10, t=3, p_a=0.2, which
+                 leaves shards with no alive replica (feasible and uncovered
+                 are printed beside the ratio); launch counts are read from
+                 each of the two runs apart, and the kernel line reports
+                 Algorithm 1's
   7. profile     Algorithm 1 once more under torch.profiler: kernel time by
                  name against the wall time
-  8. alg3 full width  Algorithm 3 (resilient_pca) at the shape of SIFT1M:
+  8. session full width  the elastic resilience runtime on the same points:
+                 (a) Algorithm 1 through session.kmedian on the covered
+                 cyclic_assignment(1M, 10, 4) with the same 3 stragglers:
+                 feasible=True, uncovered=0, the Lemma-3 mass within 1e-4;
+                 (b) 8 rounds of the "fixed" scenario (t=3) with
+                 ElasticPolicy(patience=2): observe, then step_cost with
+                 the recovery solved on the card (no host solve), each
+                 round's seconds split into fingerprint, host and device,
+                 every covered round inside the Lemma-3 band, one round
+                 again through the plain versions (1e-5); (c) at the
+                 paper's size (n=320, s=8, k=4) the 5 x 4 x 5 grid of
+                 schemes x scenarios x rounds, each first-round pattern's
+                 device solve held to the host LP's band, then a permanent
+                 loss and join on a session with placement; launch counts
+                 are read around (a) and each round of (b)
+  9. alg3 full width  Algorithm 3 (resilient_pca) at the shape of SIFT1M:
                  planted_subspaces(1M, 1, 128, 8, noise 0.05), centred;
                  s=10, Bernoulli ell=8, t=3, r=8, delta=0.25; host prelude,
                  sketch SVDs, coordinator SVD and cost timed apart;
                  centralized_pca on all rows; the ratio must lie within
                  the Theorem-5 band 1 + 4 max(delta, achieved) times 1.05
-  9. alg2 full width  Algorithm 2 (resilient_subspace_clustering) on
+  10. alg2 full width  Algorithm 2 (resilient_subspace_clustering) on
                  planted_subspaces(1M, 16, 128, 8, noise 0.05) with the same
                  s, ell, t and stragglers; k=16, r=8, coreset_size=4096;
                  steps timed apart; a centralized lloyd_subspace on all
                  rows; the cost must lie within max(5 central, central + 2)
-  10. serve      qwen3-4b (36 layers, d_model 2560, 32 heads over 8 KV
+  11. serve      qwen3-4b (36 layers, d_model 2560, 32 heads over 8 KV
                  heads, vocab 151936), random weights from --seed drawn on
                  the card, cast once to bf16: (a) prefill of 4 x 2048
                  tokens through the kernel, exactly 36 flash launches;
@@ -52,7 +71,7 @@ Phases:
                  batch 4, prompt 16, gen 32, no flash launch; then one
                  prefill and 8 decode steps under torch.profiler (kernel
                  time by name, device idle share)
-  11. timing     each kernel, its plain version and one library call
+  12. timing     each kernel, its plain version and one library call
                  (weighted_segsum also at the coordinator's (1, 2560, 256,
                  128), with its launches in Algorithm 1 by shape); the
                  bound of rows assign_min and pairwise_sqdist is three TF32
@@ -156,12 +175,21 @@ def main() -> int:
 
     import numpy as np
 
-    from repro_torch import distributed_pca, quickstart
+    from repro_torch import distributed_pca, quickstart, scenarios
     from repro_torch.core import (
+        ElasticPolicy,
+        LocalExecutor,
+        PlacementOptimizer,
         ResilienceSession,
         bernoulli_assignment,
+        clustering_cost,
+        cyclic_assignment,
+        device_recovery_masked,
         fixed_count_stragglers,
         lloyd,
+        lp_recovery,
+        make_assignment,
+        make_scenario,
         resilient_kmedian,
     )
     from repro_torch.core import pca as pca_mod
@@ -476,7 +504,9 @@ def main() -> int:
         print(f"centralized lloyd (device): {t1 - t0:.3f} s  cost={central_cost:.2f}")
         print(f"Algorithm 1: {t2 - t1:.3f} s  cost={out.cost:.2f}; of which host prepare with "
               f"cached solve and pack (content fingerprint) {host:.3f} s, device {t2 - t1 - host:.3f} s")
-        print(f"full-width cost ratio (Algorithm 1 / centralized): {out.cost / central_cost:.6f}")
+        print(f"full-width cost ratio (Algorithm 1 / centralized): {out.cost / central_cost:.6f}  "
+              f"feasible={out.recovery.feasible} uncovered={len(out.recovery.uncovered)} "
+              f"(Bernoulli p_a=0.2: shards with no alive replica are dropped)")
         print(f"max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         print(f"launches: centralized {central_counts}  Algorithm 1 {counts}  "
               f"session {session.stats.as_dict()}")
@@ -524,6 +554,192 @@ def main() -> int:
 
     with phase("profile"):
         profiled("Algorithm 1", run_alg1)
+
+    class EventExecutor(LocalExecutor):
+        """The local executor with CUDA events around each masked reduce:
+        the device span of the solve and the combine (from the first
+        launch to the last kernel's end), and the weights it used."""
+
+        def __init__(self):
+            self.spans, self.b = [], None
+
+        def resilient_reduce_masked(self, *a, **kw):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = super().resilient_reduce_masked(*a, **kw)
+            e1.record()
+            self.spans.append((e0, e1))
+            self.b = out[1]
+            return out
+
+    def run_session():
+        """The elastic resilience runtime at full width, then the scenario
+        grid at the paper's size."""
+        # (a) Algorithm 1 on a covered assignment: cyclic ell=4 keeps every
+        # shard under any 3 stragglers.
+        t0 = time.perf_counter()
+        ex_ev = EventExecutor()
+        sess = ResilienceSession(cyclic_assignment(n_full, s, 4), executor=ex_ev,
+                                 elastic=ElasticPolicy(enabled=True, patience=2), device=dev)
+        print(f"(a) cyclic_assignment({n_full}, {s}, 4): {time.perf_counter() - t0:.3f} s")
+        t0 = time.perf_counter()
+        rec_c = sess.recovery(alive)
+        print(f"(a) recovery solve (host, {rec_c.method}): {time.perf_counter() - t0:.3f} s  "
+              f"delta={rec_c.delta:.3f} feasible={rec_c.feasible} uncovered={len(rec_c.uncovered)}")
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        out_c = sess.kmedian(pts, k_full, alive, local_iters=15, coord_iters=30, seed=args.seed)
+        sync()
+        wall = time.perf_counter() - t0
+        counts_a = dispatch.launch_counts()
+        mass, want = float(out_c.summary_weights.sum()), float(rec_c.a.sum())
+        print(f"(a) session.kmedian: {wall:.3f} s (with the pack of shards {sess._packed[0].shape}, "
+              f"{sess._packed[0].nbytes / 1e9:.2f} GB, and its copy to the card)  cost={out_c.cost:.2f}  "
+              f"ratio to the centralized run {out_c.cost / central_cost:.6f}  "
+              f"feasible={out_c.recovery.feasible} uncovered={len(out_c.recovery.uncovered)}  "
+              f"summary mass {mass:.1f} vs sum(a) {want:.1f}  launches {counts_a}  [{card}]")
+        if not (out_c.recovery.feasible and len(out_c.recovery.uncovered) == 0):
+            raise AssertionError("the cyclic ell=4 assignment left shards uncovered under 3 stragglers")
+        if abs(mass - want) > 1e-4 * want:
+            raise AssertionError("session.kmedian: summary weights do not carry the recovery mass")
+        if not all(counts_a.get(name, 0) > 0 for name in ("assign_min", "weighted_segsum")):
+            raise AssertionError(f"session.kmedian: a kernel of the path was never launched: {counts_a}")
+        if not (np.isfinite(out_c.cost) and out_c.cost > 0 and np.isfinite(out_c.centers).all()):
+            raise AssertionError("session.kmedian: cost or centers not finite")
+
+        # (b) rounds of a straggler scenario through step_cost.
+        centers_c = out_c.centers
+        true = float(clustering_cost(pts_d, torch.from_numpy(centers_c).to(dev), median=True))
+        fp_log: list = []
+        real_fp = ResilienceSession._fingerprint
+
+        def timed_fp(points):
+            t = time.perf_counter()
+            out = real_fp(points)
+            fp_log.append(time.perf_counter() - t)
+            return out
+
+        sess._fingerprint = timed_fp  # the content hash of every step_cost, timed
+        scen = make_scenario("fixed", s, t=3, seed=args.seed + 3)
+        before = sess.stats.as_dict()
+        torch.cuda.reset_peak_memory_stats()
+        splits = []
+        for r in range(8):
+            step = next(scen)
+            fp_log.clear()
+            copies = sess.stats.device_copies
+            sync()
+            dispatch.reset_launch_counts()
+            t0 = time.perf_counter()
+            ev = sess.observe(step)
+            t_obs = time.perf_counter() - t0
+            est = sess.step_cost(pts, centers_c, step.alive, median=True)
+            wall = time.perf_counter() - t0
+            launches = dispatch.launch_counts()
+            e0, e1 = ex_ev.spans[-1]
+            dev_s, fp_s = e0.elapsed_time(e1) / 1e3, sum(fp_log)
+            b = ex_ev.b.cpu().numpy().astype(np.float64)
+            A = sess.assignment.matrix
+            ach = b @ A
+            cov = A[step.alive].sum(axis=0) > 0
+            d_dev = float(ach[cov].max() - 1.0)
+            in_band = true * (1 - 1e-4) <= est <= (1 + d_dev) * true * (1 + 1e-4)
+            splits.append((wall, fp_s, wall - fp_s - dev_s, dev_s))
+            print(f"(b) round {r}: stragglers {np.flatnonzero(~step.alive).tolist()} "
+                  f"persistent {ev['persistent']} patched={ev['patched']} moved_nodes={len(ev['moved_nodes'])} "
+                  f"uncovered={ev['uncovered']}  est={est:.2f} est/true={est / true:.6f} "
+                  f"delta_dev={d_dev:.6f} in_band={in_band}  seconds {wall:.3f} = fingerprint {fp_s:.3f} "
+                  f"+ host {wall - fp_s - dev_s:.3f} (observe {t_obs:.3f}) + device {dev_s:.3f}  "
+                  f"assign_min launches {launches['assign_min']}  full copies "
+                  f"{sess.stats.device_copies - copies}  [{card}]")
+            if launches["assign_min"] < 1:
+                raise AssertionError(f"round {r}: step_cost did not launch assign_min: {launches}")
+            if cov.all() and not in_band:
+                raise AssertionError(f"round {r}: estimate {est} outside the Lemma-3 band of {true} "
+                                     f"(delta_dev {d_dev})")
+        after = sess.stats.as_dict()
+        solves = {k: after[k] - before[k] for k in ("host_solves", "device_solves")}
+        mean = np.mean(np.asarray(splits), axis=0)
+        print(f"(b) 8 rounds: true cost {true:.2f}; solves {solves}; session {after}; mean seconds per "
+              f"round {mean[0]:.3f} = fingerprint {mean[1]:.3f} + host {mean[2]:.3f} + device {mean[3]:.3f}  "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  [{card}]")
+        if solves != {"host_solves": 0, "device_solves": 8}:
+            raise AssertionError(f"8 rounds gave {solves}, expected 0 host and 8 device solves")
+        profiled("one step_cost round (fingerprint, solve, combine)",
+                 lambda: sess.step_cost(pts, centers_c, step.alive, median=True), top=10)
+        est_ref = sess.step_cost(pts, centers_c, step.alive, median=True, impl="torch_ref")
+        rel = abs(est_ref - est) / abs(est)
+        print(f"(b) the last round through the plain versions: {est_ref:.4f} vs {est:.4f}, rel {rel:.2e}")
+        if rel > 1e-5:
+            raise AssertionError("step_cost through the kernel disagrees with the plain path")
+        del sess, ex_ev
+        torch.cuda.empty_cache()
+
+        # (c) the scenario grid at the paper's size (n=320, s=8, k=4).
+        pp, _, _ = gaussian_mixture(320, 4, 3, rng=np.random.default_rng(args.seed))
+        pp_d = torch.from_numpy(pp).to(dev)
+        pc = lloyd(pp_d, 4, iters=5, median=True,
+                   generator=torch.Generator(device=dev).manual_seed(args.seed)).centers.cpu().numpy()
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        cells = scenarios.run(pp, pc, device=dev, seed=args.seed)
+        grid_s = time.perf_counter() - t0
+        counts_g = dispatch.launch_counts()
+        n_rounds = sum(c is not None for cell in cells for c in cell["costs"])
+        host = sum(cell["stats"]["host_solves"] for cell in cells)
+        device = sum(cell["stats"]["device_solves"] for cell in cells)
+        per_round = np.median([t for cell in cells for t in cell["seconds"]])
+        print(f"(c) grid: {len(cells)} cells, {n_rounds} step_cost rounds in {grid_s:.3f} s (median round "
+              f"{1e3 * per_round:.2f} ms); host solves {host}, device solves {device}; "
+              f"patches {sum(c['stats']['elastic_patches'] for c in cells)}; launches {counts_g}  [{card}]")
+        if host != 0 or device != n_rounds or counts_g["assign_min"] != n_rounds:
+            raise AssertionError("the grid's step_cost rounds did not each solve on the card and launch "
+                                 "assign_min once")
+        for cell in cells:
+            a_g, al = cell["assignment"], cell["alive"][0]
+            b = device_recovery_masked(a_g.matrix.astype(np.float32), al, device=dev).cpu().numpy()
+            lp = lp_recovery(a_g, al)
+            ach = b.astype(np.float64) @ a_g.matrix
+            cov = a_g.matrix[al].sum(axis=0) > 0
+            ok = bool((b[~al] == 0).all() and np.isfinite(b).all() and ach[cov].min() >= 1 - 1e-3
+                      and (ach[~cov] == 0).all())
+            if lp.feasible:
+                ok = ok and ach[cov].max() <= 4.0 * (1.0 + lp.delta)
+            print(f"(c) {cell['scheme']:>9s} x {cell['scenario']:<11s} first pattern: device a in "
+                  f"[{ach[cov].min():.6f}, {ach[cov].max():.4f}], LP delta {lp.delta:.4f} "
+                  f"feasible={lp.feasible} uncovered={len(lp.uncovered)}  band {'ok' if ok else 'FAILED'}")
+            if not ok:
+                raise AssertionError(f"device recovery outside the LP band: {cell['scheme']} x {cell['scenario']}")
+        true_p = float(clustering_cost(pp_d, torch.from_numpy(pc).to(dev), median=True))
+        sess_h = ResilienceSession(make_assignment("health", 320, 8, ell=2),
+                                   placement=PlacementOptimizer(ell=2), device=dev)
+        flaky = np.ones(8, dtype=bool)
+        flaky[5] = False
+        for _ in range(6):
+            sess_h.observe(flaky)
+        ests = {"before": (sess_h.step_cost(pp, pc, flaky, median=True), sess_h.pattern_covers(flaky))}
+        res = sess_h.permanent_loss(0)
+        row0 = int(sess_h.assignment.matrix[0].sum())
+        live = sess_h.alive_mask()
+        ests["after loss"] = (sess_h.step_cost(pp, pc, live, median=True), sess_h.pattern_covers(live))
+        sess_h.permanent_join(0)
+        live = sess_h.alive_mask()
+        ests["after join"] = (sess_h.step_cost(pp, pc, live, median=True), sess_h.pattern_covers(live))
+        print(f"(c) placement session: loss of node 0 feasible={res.feasible} (its row holds {row0}), "
+              f"after the join it holds {int(sess_h.assignment.matrix[0].sum())}; estimates "
+              f"{ {k: (round(v, 4), c) for k, (v, c) in ests.items()} } (estimate, covered) vs true "
+              f"{true_p:.4f}; "
+              f"health {np.round(sess_h.node_health(), 3).tolist()}; session {sess_h.stats.as_dict()}")
+        if not (res.feasible and row0 == 0 and sess_h.stats.placement_reoptimizes == 2
+                and sess_h.assignment.matrix[0].sum() > 0 and sess_h.stats.host_solves > 0):
+            raise AssertionError("permanent loss / join on the placement session went wrong")
+        if not all(np.isfinite(v) and (v >= true_p * (1 - 1e-4) or not c) for v, c in ests.values()):
+            raise AssertionError(f"placement session: a covered round's estimate is below the true cost: {ests}")
+
+    with phase("session full width"):
+        run_session()
 
     def step_seconds(log, wall):
         total = sum(t for _, t in log)

@@ -1,6 +1,7 @@
 """Core of the paper, ported: redundant data assignment, recovery vectors,
-the straggler-resilient k-median of Algorithm 1, and the coresets,
-subspace clustering and PCA of Algorithms 2 and 3."""
+the straggler-resilient k-median of Algorithm 1, the coresets, subspace
+clustering and PCA of Algorithms 2 and 3, and the elastic resilience
+runtime (sessions, on-device recovery, health-aware placement)."""
 
 from .assignment import (  # noqa: F401
     Assignment,
@@ -15,8 +16,17 @@ from .assignment import (  # noqa: F401
     singleton_assignment,
     theorem6_ell,
 )
+from .placement import (  # noqa: F401
+    PlacementOptimizer,
+    choose_ell,
+    expected_completion_time,
+    health_assignment,
+    round_miss_probability,
+)
 from .recovery import (  # noqa: F401
     RecoveryResult,
+    device_recovery,
+    device_recovery_masked,
     expand_to_all_nodes,
     lp_recovery,
     nnls_recovery,
@@ -24,11 +34,21 @@ from .recovery import (  # noqa: F401
     uniform_recovery,
 )
 from .stragglers import (  # noqa: F401
+    AdversarialScenario,
+    DeadlineScenario,
+    DeadlineStragglerSimulator,
+    FixedCountScenario,
+    IIDScenario,
+    ScenarioStep,
+    StragglerScenario,
+    TraceScenario,
     adversarial_stragglers,
     fixed_count_stragglers,
     make_scenario,
     random_stragglers,
+    record_trace,
 )
+from .resilience import ElasticPolicy, ResilienceSession, SessionStats  # noqa: F401
 from .aggregation import mom_combine, resilient_sum, weighted_union  # noqa: F401
 from .executor import Executor, LocalExecutor, get_executor  # noqa: F401
 from .kmeans import (  # noqa: F401
@@ -38,7 +58,6 @@ from .kmeans import (  # noqa: F401
     plusplus_init,
     resilient_cost,
 )
-from .resilience import ResilienceSession, SessionStats  # noqa: F401
 from .kmedian import (  # noqa: F401
     ResilientClusteringOutput,
     ignore_stragglers_kmedian,

@@ -1,7 +1,6 @@
 """Redundant data-assignment schemes (paper §3.1, §3.4), numpy only.
 
-Copied from the reference package's ``core/assignment.py``, without the
-``"health"`` scheme.
+Copied from the reference package's ``core/assignment.py``.
 
 An assignment matrix ``A ∈ {0,1}^{s×n}`` maps each of ``n`` data shards to a
 subset of ``s`` compute nodes (``A[i, j] = 1`` iff shard ``j`` is assigned to
@@ -191,13 +190,16 @@ def make_assignment(
     rng: Optional[np.random.Generator] = None,
     **kwargs,
 ) -> Assignment:
-    """Factory over the construction families, keyed by scheme name.
+    """Factory over the five construction families, keyed by scheme name.
 
     ``"bernoulli"`` / ``"cyclic"`` / ``"fractional_repetition"`` (alias
-    ``"fr"``) / ``"singleton"``.  ``ell`` is the per-shard replication
-    (ignored by singleton); remaining kwargs go to the construction.  The
-    reference's ``"health"`` scheme needs the placement optimizer, which is
-    not ported yet (ROADMAP queue 1, item 8).
+    ``"fr"``) / ``"singleton"`` / ``"health"``.  ``ell`` is the per-shard
+    replication (ignored by singleton; ``ell=None`` lets the ``"health"``
+    optimizer choose it); remaining kwargs go to the construction — for
+    ``"health"``, notably ``health=`` (per-node straggle probability, e.g.
+    ``ResilienceSession.node_health()``) and ``capacity=``.  One shared
+    spelling for benchmarks, sessions, and the streaming layer — instead
+    of each call site keeping its own if/elif ladder.
     """
     if scheme == "bernoulli":
         return bernoulli_assignment(n, s, ell=float(ell), rng=rng, **kwargs)
@@ -208,13 +210,14 @@ def make_assignment(
     if scheme == "singleton":
         return singleton_assignment(n, s, **kwargs)
     if scheme == "health":
-        raise NotImplementedError(
-            "the 'health' scheme needs core/placement.py, not ported yet "
-            "(ROADMAP queue 1, item 8)"
+        from .placement import health_assignment  # local import: placement imports us
+
+        return health_assignment(
+            n, s, ell=None if ell is None else int(ell), rng=rng, **kwargs
         )
     raise ValueError(
         f"unknown assignment scheme {scheme!r}; expected "
-        "bernoulli/cyclic/fractional_repetition/singleton"
+        "bernoulli/cyclic/fractional_repetition/singleton/health"
     )
 
 

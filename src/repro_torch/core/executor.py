@@ -12,17 +12,27 @@ function; the executor decides where it runs.
   an unbatched function instead).  One kernel launch per step covers every
   node.
 
+:meth:`Executor.resilient_reduce_masked` solves the recovery weights on the
+device inside the step (:func:`~repro_torch.core.recovery.device_recovery_masked`)
+and combines, with no host synchronisation: the alive mask is data, so a
+straggler pattern never seen before costs no host solve.  The reference
+jits that step; here it runs eagerly, a fixed sequence of launches.
+
 The reference's mesh executor (one node per device) waits for the
 ``torch.distributed`` port (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Sequence, Union
+from typing import Any, Callable, Sequence, Union
 
+import numpy as np
 import torch
 
+from ..device import resolve_device
+from ..obs import trace_span
 from .aggregation import resilient_sum
+from .recovery import device_recovery_masked
 
 __all__ = ["Executor", "LocalExecutor", "get_executor"]
 
@@ -46,6 +56,61 @@ class Executor:
         ``b_full`` carries zeros at stragglers, so their contributions vanish."""
         raise NotImplementedError
 
+    def resilient_reduce_masked(
+        self,
+        fn: Callable,
+        node_args: Sequence[Any],
+        broadcast_args: Sequence[Any],
+        A,
+        alive,
+        *,
+        iters: int = 300,
+        b_override=None,
+    ):
+        """Lemma-3 combine with the recovery weights solved ON DEVICE.
+
+        Takes the full assignment matrix ``A`` and the boolean ``alive`` mask
+        as data, runs :func:`repro_torch.core.recovery.device_recovery_masked`
+        and combines — so a straggler pattern never seen before costs no host
+        solve.  Returns ``(reduced, b_full)``; the weights come back so
+        callers can check them against the host LP without a second solve.
+
+        ``b_override`` (optional ``(s,)`` weights) routes the combine through
+        caller-supplied weights instead of the device solve, selected by
+        ``torch.where`` on a flag tensor — the same launches either way.
+        """
+        raise NotImplementedError
+
+    def replicated_compute(self, fn: Callable, args: Sequence[Any]):
+        """Run ``fn(*args)`` redundantly on every node; return ONE result.
+
+        Compute redundancy, the dual of the paper's data redundancy: all
+        inputs are replicated, every node computes the identical output, and
+        any alive replica serves it.  Locally one call stands in for all
+        replicas.
+        """
+        raise NotImplementedError
+
+    # --------------------------------------------------- placement helpers
+    # Sessions (repro_torch.core.resilience) keep node-stacked inputs
+    # resident across rounds; these helpers make placement explicit so only
+    # changed blocks move after an elastic re-assignment.
+
+    def place_node_stacked(self, arr, device=None) -> torch.Tensor:
+        """A copy of a node-stacked array on ``device`` (the card by
+        default): its own storage, so :meth:`update_node_rows` never writes
+        through to the caller's array."""
+        return torch.as_tensor(arr).to(resolve_device(device), copy=True)
+
+    def place_broadcast(self, arr, device=None) -> torch.Tensor:
+        """A copy of an array shared by all nodes on ``device``."""
+        return torch.as_tensor(arr).to(resolve_device(device), copy=True)
+
+    def update_node_rows(self, arr: torch.Tensor, rows: Sequence[int], new_rows) -> torch.Tensor:
+        """Write ``arr[rows[i]] = new_rows[i]`` in place, moving only those
+        rows to the device (``index_copy_`` on the node axis); returns ``arr``."""
+        raise NotImplementedError
+
 
 class LocalExecutor(Executor):
     """All nodes in one process as a single batch."""
@@ -56,7 +121,42 @@ class LocalExecutor(Executor):
         return fn(*(torch.as_tensor(a) for a in node_args), *broadcast_args)
 
     def resilient_reduce(self, fn, node_args, broadcast_args, b_full):
-        return resilient_sum(self.map_nodes(fn, node_args, broadcast_args), b_full)
+        with trace_span("executor.combine", executor=self.name):
+            return resilient_sum(self.map_nodes(fn, node_args, broadcast_args), b_full)
+
+    def resilient_reduce_masked(
+        self, fn, node_args, broadcast_args, A, alive, *, iters: int = 300,
+        b_override=None,
+    ):
+        node_args = tuple(torch.as_tensor(a) for a in node_args)
+        device = node_args[0].device
+        A = torch.as_tensor(A, dtype=torch.float32, device=device)
+        alive = torch.as_tensor(alive, device=device)
+        s = A.shape[0]
+        # The override is data, not a branch: a flag tensor selects it.
+        if b_override is None:
+            use_ov = torch.zeros((), dtype=torch.bool, device=device)
+            b_ov = torch.zeros((s,), dtype=torch.float32, device=device)
+        else:
+            use_ov = torch.ones((), dtype=torch.bool, device=device)
+            b_ov = torch.as_tensor(b_override, dtype=torch.float32, device=device)
+        with trace_span(
+            "executor.masked_reduce", executor=self.name,
+            nodes=int(s), override=b_override is not None,
+        ):
+            solved = device_recovery_masked(A, alive, iters=iters, device=device)
+            b_full = torch.where(use_ov, b_ov, solved)
+            per_node = self.map_nodes(fn, node_args, broadcast_args)
+            return resilient_sum(per_node, b_full), b_full
+
+    def replicated_compute(self, fn, args):
+        with trace_span("executor.replicated", executor=self.name):
+            return fn(*args)
+
+    def update_node_rows(self, arr, rows, new_rows):
+        idx = torch.as_tensor(np.asarray(list(rows), dtype=np.int64), device=arr.device)
+        src = torch.as_tensor(new_rows, dtype=arr.dtype).to(arr.device)
+        return arr.index_copy_(0, idx, src)
 
 
 _LOCAL = LocalExecutor()

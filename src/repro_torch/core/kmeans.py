@@ -183,6 +183,17 @@ def clustering_cost(
     return cost[0] if single else cost
 
 
+def _local_cost_fn(median: bool, impl: str):
+    """Per-node shard cost against a broadcast center set (Lemma-3 ``f``),
+    batched over the node axis: ``(xs (s, m, d), ws (s, m), centers (k, d))
+    → (s,)``, one ``assign_min`` launch for every node."""
+
+    def local_cost(xs, ws, centers):
+        return clustering_cost(xs, centers, weights=ws, median=median, impl=impl)
+
+    return local_cost
+
+
 def resilient_cost(
     points,
     centers,
@@ -200,7 +211,9 @@ def resilient_cost(
 
     The clustering cost is additively decomposable, so each node evaluates
     its local shard cost and the recovery-weighted sum over the alive set
-    satisfies ``cost ≤ Σ b_i·cost_i ≤ (1+δ)·cost``.
+    satisfies ``cost ≤ Σ b_i·cost_i ≤ (1+δ)·cost``.  For the multi-round
+    form with the recovery solve on the device, see
+    :meth:`repro_torch.core.resilience.ResilienceSession.step_cost`.
     """
     from ..device import resolve_device
     from .kmedian import _session_for
@@ -210,9 +223,5 @@ def resilient_cost(
     _, _, rec, ex, _, _ = session.prepare(points, alive)
     _, xs, ws = session.device_shards(device)
     c = torch.as_tensor(centers, dtype=torch.float32, device=device)
-
-    def local_cost(xs, ws):
-        return clustering_cost(xs, c, weights=ws, median=median, impl=impl)
-
     b = torch.as_tensor(rec.b_full, dtype=torch.float32, device=device)
-    return float(ex.resilient_reduce(local_cost, (xs, ws), (), b))
+    return float(ex.resilient_reduce(_local_cost_fn(median, impl), (xs, ws), (c,), b))

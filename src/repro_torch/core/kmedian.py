@@ -75,7 +75,9 @@ def pack_local_shards(
 
 def _session_for(assignment, recovery_method, executor, session) -> ResilienceSession:
     """The caller's session, checked against the other arguments, or a
-    throwaway one (``recovery_method`` defaults to ``"auto"``)."""
+    throwaway one (``recovery_method`` defaults to ``"auto"``).  Any
+    assignment of the session's lineage — the original or an elastically
+    patched successor — is accepted."""
     if session is None:
         return ResilienceSession(
             assignment, recovery_method=recovery_method or "auto", executor=executor
@@ -86,10 +88,11 @@ def _session_for(assignment, recovery_method, executor, session) -> ResilienceSe
             f"{session.recovery_method!r}; construct the ResilienceSession with "
             "the method you want"
         )
-    if assignment is not None and assignment is not session.assignment:
+    if assignment is not None and id(assignment) not in session._assignment_lineage:
         raise ValueError(
-            "assignment= is not the session's assignment; a session owns exactly "
-            "one assignment — build a new ResilienceSession for a different one"
+            "assignment= is not the session's assignment (nor a pre-patch "
+            "version of it); a session owns exactly one assignment — build "
+            "a new ResilienceSession for a different one"
         )
     if executor is not None and get_executor(executor) is not session.executor:
         raise ValueError(

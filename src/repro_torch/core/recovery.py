@@ -1,9 +1,10 @@
-"""Recovery-vector solvers for Property 1 (paper §3.1, Theorem 6), host side.
+"""Recovery-vector solvers for Property 1 (paper §3.1, Theorem 6).
 
 Given an assignment ``A`` and the alive set ``R``, find ``b ≥ 0`` with
 ``bᵀ A_R = a`` and ``1 ≤ a_j ≤ 1+δ`` for all shards ``j``.
 
-Copied from the reference package's ``core/recovery.py`` (numpy and scipy):
+The host solvers are copied from the reference package's
+``core/recovery.py`` (numpy and scipy):
 
 * :func:`uniform_recovery` — the paper's closed form for the Bernoulli
   ensemble: ``b = 𝟙 / ((1−γ)·ℓ·(1−p_t))`` (proof of Theorem 6).
@@ -12,9 +13,21 @@ Copied from the reference package's ``core/recovery.py`` (numpy and scipy):
   scipy/HiGHS.  δ* = z* − 1 is the best achievable band for this ``(A, R)``.
 * :func:`nnls_recovery` — non-negative least squares, rescaled to min(a) = 1.
 
+The on-device solvers are the reference's ``jax_recovery`` and
+``jax_recovery_masked`` in PyTorch, with the same arithmetic:
+
+* :func:`device_recovery` — projected gradient descent on
+  ``½‖bᵀA_R − 𝟙‖²`` over the alive rows ``A_R``;
+* :func:`device_recovery_masked` — the fixed-shape form: the full ``(s, n)``
+  matrix and an ``(s,)`` alive mask, so every straggler pattern is data.
+
+Both run eagerly on the tensors' device with no host synchronisation:
+every step is a fixed number of launches and no value comes back to the
+host.  Their products are f32 matrix-vector products (``torch.mv``, a
+non-tensor-core routine, so TF32 never enters them).
+
 :func:`solve_recovery` dispatches and degrades gracefully: shards with zero
-alive replicas are reported via ``uncovered``.  The on-device solvers
-(``jax_recovery*``) are not ported yet (ROADMAP queue 1, item 8).
+alive replicas are reported via ``uncovered``.
 """
 
 from __future__ import annotations
@@ -23,7 +36,9 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
+from ..device import resolve_device
 from .assignment import Assignment
 
 __all__ = [
@@ -31,6 +46,8 @@ __all__ = [
     "uniform_recovery",
     "lp_recovery",
     "nnls_recovery",
+    "device_recovery",
+    "device_recovery_masked",
     "solve_recovery",
     "expand_to_all_nodes",
 ]
@@ -170,6 +187,73 @@ def nnls_recovery(
     return _result(A, alive_idx, b, "nnls")
 
 
+def _power_sigma_sq(A_c: torch.Tensor) -> torch.Tensor:
+    """σ_max(A_c)² by 8 power iterations on A_cᵀA_c, floored at 1e-6 — the
+    Lipschitz constant of the gradient, kept on the device."""
+    n = A_c.shape[1]
+    v = torch.full((n,), 1.0 / float(np.sqrt(n)), dtype=torch.float32, device=A_c.device)
+    for _ in range(8):
+        v = torch.mv(A_c.T, torch.mv(A_c, v))
+        v = v / torch.clamp_min(torch.linalg.vector_norm(v), 1e-12)
+    return torch.clamp_min(torch.linalg.vector_norm(torch.mv(A_c, v)) ** 2, 1e-6)
+
+
+def device_recovery(A_R, *, iters: int = 500, lr: float = 1.0, device=None) -> torch.Tensor:
+    """On-device projected-gradient recovery over the alive rows ``A_R``
+    (r, n): PGD on the NNLS objective ``½‖bᵀA_R − 𝟙‖²`` with step
+    1/σ_max(A_R)² (power-iteration estimate), then an exact rescale so that
+    ``min_j a_j = 1`` on covered shards.  Returns ``b`` (r,) f32 on
+    ``device`` (the card by default)."""
+    device = resolve_device(device)
+    A_R = torch.as_tensor(A_R, dtype=torch.float32, device=device)
+    r, n = A_R.shape
+    sigma_sq = _power_sigma_sq(A_R)
+    step = lr / sigma_sq
+    repl = torch.clamp_min(A_R.sum(dim=0), 1.0)
+    b = torch.ones((r,), dtype=torch.float32, device=device) / torch.mean(repl)
+    for _ in range(iters):
+        grad = torch.mv(A_R, torch.mv(A_R.T, b) - 1.0)
+        b = torch.clamp_min(b - step * grad, 0.0)
+    a = torch.mv(A_R.T, b)
+    covered = A_R.sum(dim=0) > 0
+    amin = torch.amin(torch.where(covered, a, torch.inf))
+    return torch.where(amin > 1e-12, b / amin, b)
+
+
+def device_recovery_masked(
+    A, alive, *, iters: int = 300, lr: float = 1.0, device=None
+) -> torch.Tensor:
+    """Fixed-shape on-device recovery from an alive mask.
+
+    Takes the FULL ``(s, n)`` assignment and the ``(s,)`` alive mask: every
+    straggler pattern is data for the same launches.  Dead rows are masked
+    out of the gradient and their weights pinned to 0; uncovered shards are
+    masked out of the objective (their target is unreachable and would
+    otherwise drag the covered band down).  Returns ``b_full`` — ``(s,)``
+    f32 weights on ``device`` with zeros at stragglers, the form the
+    executors' Lemma-3 combine consumes.
+    """
+    device = resolve_device(device)
+    A = torch.as_tensor(A, dtype=torch.float32, device=device)
+    alive_f = torch.as_tensor(alive, device=device).to(torch.float32)
+    A_m = A * alive_f[:, None]            # dead rows contribute nothing
+    covered = (A_m.sum(dim=0) > 0).to(torch.float32)
+    A_c = A_m * covered[None, :]          # uncovered shards leave the objective
+    sigma_sq = _power_sigma_sq(A_c)
+    step = lr / sigma_sq
+    repl = torch.clamp_min(A_c.sum(dim=0), 1.0)
+    b = alive_f / torch.clamp_min(torch.mean(repl), 1.0)
+    for _ in range(iters):
+        grad = torch.mv(A_c, torch.mv(A_c.T, b) - covered)
+        b = torch.clamp_min(b - step * grad, 0.0) * alive_f
+    a = torch.mv(A_c.T, b)
+    amin = torch.amin(torch.where(covered > 0, a, torch.inf))
+    # Exact rescale so min_j a_j = 1 on covered shards; degenerate solves
+    # (amin ≈ 0, or no covered shard at all) are returned unscaled — the
+    # caller sees a < 1 and can fall back to the host LP.
+    return torch.where((amin > 1e-12) & torch.isfinite(amin), b / amin, b)
+
+
 def solve_recovery(
     assignment: Assignment,
     alive: np.ndarray,
@@ -184,9 +268,15 @@ def solve_recovery(
         return nnls_recovery(assignment, alive, **kw)
     if method == "lp":
         return lp_recovery(assignment, alive)
+    if method == "device":
+        A = assignment.matrix
+        alive_idx = _as_alive_index(A, alive)
+        b = device_recovery(A[alive_idx], **kw).cpu().numpy()
+        return _result(A, alive_idx, b, "device")
     if method == "jax":
-        raise NotImplementedError(
-            "the on-device recovery solver is not ported yet (ROADMAP queue 1, item 8)"
+        raise ValueError(
+            "method='jax' is the reference package's name; the port's "
+            "on-device solver is method='device'"
         )
     if method != "auto":
         raise ValueError(f"unknown recovery method {method!r}")

@@ -7,7 +7,8 @@
 // Computes, for each batch b and row i of x (B, n, d) against the centers
 // c (B, k, d):
 //     d2[j] = max(|x_i|^2 + |c_j|^2 - 2 x_i.c_j, 0)   for j < k_valid
-//     idx[b, i] = first j with the least d2,  dist[b, i] = that d2
+//     idx[b, i] = first j with the least d2,  dist[b, i] = |x_i - c_idx|^2
+// (the chosen center's distance summed directly in fp32, see the epilogue).
 // The (n, k) matrix never reaches device memory.  Columns >= k_valid are
 // skipped by index (never by padding coordinates: huge pad coordinates
 // overflow |c|^2 and give inf - inf = NaN).  With no valid column the
@@ -19,7 +20,11 @@
 // big = cvt.rna.tf32(v), small = cvt.rna.tf32(v - big), and the product is
 // small.big + big.small + big.big summed in fp32 on the tensor cores, in that
 // order; the dropped small.small term and the residuals are about 2^-22 of
-// |x||c|.  That is three TF32 passes: at the local-solve shape of Algorithm
+// |x||c| per product, but the tensor cores' fp32 accumulation truncates, so
+// the 3 d/8 accumulations of a row add up to a bias of a few 2^-22 |x||c|
+// (d2 of the nearest center high by 1e-4 at |x|^2 = 43, d = 128, measured
+// on the H100): the index is chosen from these d2, and the returned dist is
+// recomputed directly for the chosen center.  That is three TF32 passes: at the local-solve shape of Algorithm
 // 1, (10, 211349, 256, 128), 0.84 ms on the 495 TFLOP/s of the TF32 tensor
 // cores, above the 0.33 ms of bytes.  The fp32 CUDA-core rate (67 TFLOP/s)
 // would need 2.07 ms for one pass.
@@ -238,6 +243,23 @@ assign_min_kernel(const float* __restrict__ x, const float* __restrict__ c,
       }
     }
     const int row = row0 + my_row + 8 * r;
+    // The chosen center's distance again, directly: |x_i - c_idx|^2 in fp32
+    // FMAs, lane t of the quad taking columns 4t + 16m, then a fixed-order
+    // sum across the quad (x and c are in L2: this block just read them).
+    // The tensor cores' fp32 accumulation truncates, so x.c from the d/8 x 3
+    // products of a row comes out low by a few ulps of |x||c| every time:
+    // harmless for the choice of idx, but a bias of the minimum that a sum
+    // of minima (a clustering cost) keeps whole.
+    float part = 0.f;
+    for (int col = 4 * t; col < d; col += 16) {
+      const float4 xv4 = load4<VEC>(xb, row, n, col, d);
+      const float4 cv4 = load4<VEC>(cb, bi, kv, col, d);
+      const float dx = xv4.x - cv4.x, dy = xv4.y - cv4.y, dz = xv4.z - cv4.z, dw = xv4.w - cv4.w;
+      part = fmaf(dw, dw, fmaf(dz, dz, fmaf(dy, dy, fmaf(dx, dx, part))));
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    if (bd < PAD_DIST) bd = part;  // no valid column (k_valid = 0) keeps PAD_DIST
     if (t == 0 && row < n) {
       idx_out[(long long)b * n + row] = bi;
       dist_out[(long long)b * n + row] = bd;

@@ -6,8 +6,9 @@
 // swizzled K-major panels (store_split: a row of 32 floats is one swizzle
 // atom, 16-byte chunk c4 of row r at c4 ^ (r % 8)); wgmma m64nNk8 .tf32 reads
 // the panels through sw128_desc.  A kernel sums small.big + big.small +
-// big.big per 8 columns, in that order, which keeps x.c within about 2^-22
-// of |x||c|.  Norms are fp32 FMA sums of the raw staged values (sumsq, then
+// big.big per 8 columns, in that order: each product within about 2^-22 of
+// |x||c|, the sum of them low by a few such ulps, since the tensor cores'
+// fp32 accumulation truncates (assign_min.cu recomputes its minima).  Norms are fp32 FMA sums of the raw staged values (sumsq, then
 // row_sum across the 8 lanes that hold a row).
 
 #pragma once

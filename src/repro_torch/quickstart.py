@@ -7,6 +7,10 @@ k=15 medians.  Compares:
   3. Algorithm 1, Bernoulli p_a=0.1            (Fig 1c)
   4. Algorithm 1, Bernoulli p_a=0.2            (Fig 1d)
 
+Each Algorithm-1 line prints the recovery's ``feasible`` and the number of
+``uncovered`` points beside its cost: at this seed both Bernoulli draws
+leave points with no alive replica, so Property 1 does not hold there.
+
 Run:  PYTHONPATH=src python -m repro_torch.quickstart [--device cuda|cpu]
 (the card by default).  The twin of ``examples/quickstart.py``.
 """
@@ -62,7 +66,8 @@ def run(device=None, *, verbose: bool = True) -> dict[str, float]:
         say(
             f"{tag} Algorithm 1, p_a={p_a}              cost={out.cost:9.1f}  "
             f"ratio={out.cost / ref:5.3f}   load/machine={node_loads(a).mean():.0f}  "
-            f"delta={out.recovery.delta:.2f}"
+            f"delta={out.recovery.delta:.2f}  feasible={out.recovery.feasible}  "
+            f"uncovered={len(out.recovery.uncovered)}"
         )
     return ratios
 

@@ -53,8 +53,13 @@ def test_assignment_matrices_identical(scheme, ell, seed):
 
 
 def test_assignment_health_scheme_is_not_ported():
-    with pytest.raises(NotImplementedError, match="placement"):
-        t_asg.make_assignment("health", 10, 4)
+    # The "health" scheme is ported now (core/placement.py): the same
+    # health vector gives the reference's matrix and parameters.
+    q = np.array([0.02, 0.3, 0.01, 0.9])
+    ja = j_asg.make_assignment("health", 10, 4, ell=2, health=q)
+    ta = t_asg.make_assignment("health", 10, 4, ell=2, health=q)
+    np.testing.assert_array_equal(ja.matrix, ta.matrix)
+    assert ja.scheme == ta.scheme == "health" and ja.params == ta.params
 
 
 @pytest.mark.parametrize("seed", [0, 3, 11])
@@ -239,9 +244,11 @@ def test_session_caches_solves_packs_and_device_copies():
         out = sess.prepare(pts, alive)
         sess.device_shards("cpu")
     assert out[4].shape[0] == 5 and out[3] is get_executor()
-    assert sess.stats.as_dict() == {
+    got = sess.stats.as_dict()
+    assert {k: got[k] for k in ("host_solves", "cache_hits", "coverage_checks", "packs", "device_copies")} == {
         "host_solves": 1, "cache_hits": 1, "coverage_checks": 1, "packs": 1, "device_copies": 1,
     }
+    assert got["device_solves"] == got["elastic_patches"] == 0
     with pytest.raises(ValueError, match="no surviving"):
         sess.prepare(pts, np.zeros(5, bool))
     with pytest.raises(NotImplementedError, match="queue 1, item 9"):

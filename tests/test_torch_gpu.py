@@ -25,6 +25,20 @@ on the TF32 tensor cores with each fp32 operand split into two TF32 pieces,
 which keeps them within about 2^-22 of |x||c|; the same tolerances hold, and
 two runs give the same bits.
 
+``assign_min`` returns the chosen center's distance summed directly in
+fp32, not the tensor cores' ‖x‖²+‖c‖²−2x·c: the truncating fp32
+accumulation of the products puts that minimum high by a few ulps of |x||c|
+every time, which a sum of minima keeps whole.  Over 60,000 points near
+their centers at |x|² ≈ 43 the minima's mean error stays under 1e-7 of
+their mean, and a ``step_cost`` through the kernel agrees with the plain
+path to 1e-5.
+
+The resilience runtime on the card: ``device_recovery_masked`` within
+1e-5·max|b| of the CPU, also with TF32 allowed for matmuls (its products
+are matrix-vector products, which TF32 never enters); the solve and the
+Lemma-3 combine make no synchronising call; an elastic patch rewrites only
+the moved node rows of the resident shards, in place.
+
 Flash attention: f32 inputs rtol 1e-5, atol 1e-5 (the kernel sums three
 bf16 pieces of each f32 value on the tensor cores, about 2^-24 of each
 product, in another order than the plain version's f32 GEMMs); bf16 inputs
@@ -440,3 +454,173 @@ def test_serving_on_card_prefills_through_the_kernel_and_decodes_without_it(cuda
     out = D.greedy_generate(model, cfg, tokens[:, :8], steps=4)
     assert dispatch.launch_counts()["flash_attention"] == before + cfg.n_layers  # decode: plain attention
     assert out.shape == (2, 4) and out.device.type == "cuda"
+
+
+# ------------------------------------------------- the resilience runtime
+
+RECOVERY_CASES = [
+    pytest.param("cyclic", 60, 8, 3, id="cyclic-60-8-3"),
+    pytest.param("fr", 64, 8, 2, id="fr-64-8-2"),
+    pytest.param("bernoulli", 60, 10, 4.0, id="bernoulli-60-10-4"),
+    pytest.param("fr", 20000, 10, 5, id="fr-20000-10-5"),
+    pytest.param("bernoulli", 20000, 10, 2.0, id="bernoulli-20000-10-2"),
+]
+
+
+def _recovery_case(scheme, n, s, ell):
+    from repro_torch.core import fixed_count_stragglers, make_assignment
+
+    a = make_assignment(scheme, n, s, ell=ell, rng=np.random.default_rng(0))
+    return a, fixed_count_stragglers(s, 2, np.random.default_rng(1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("allow_tf32", [False, True], ids=["tf32-off", "tf32-allowed"])
+@pytest.mark.parametrize("scheme,n,s,ell", RECOVERY_CASES)
+def test_device_recovery_masked_on_card_matches_cpu(cuda_device, scheme, n, s, ell, allow_tf32):
+    """The solve's products are f32 matrix-vector products: even with TF32
+    allowed for matmuls, the card's b stays within 1e-5·max|b| of the CPU's."""
+    from repro_torch.core.recovery import device_recovery_masked
+
+    a, alive = _recovery_case(scheme, n, s, ell)
+    A = a.matrix.astype(np.float32)
+    want = device_recovery_masked(A, alive, device="cpu").numpy()
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = allow_tf32
+    try:
+        got = device_recovery_masked(A, alive, device=cuda_device)
+        assert got.device.type == "cuda"
+        got = got.cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert (got[~alive] == 0).all()
+    assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+def _session_inputs(n=4000, d=32, k=16, seed=5, generating=False):
+    """Gaussian-mixture points and k centers: random rows, or the mixture's
+    own centers (every point near its center, |x|^2 ≈ d/3 against d2 ≈
+    0.0016 d: the regime where a biased distance shows in a cost)."""
+    from repro_torch.data.synthetic import gaussian_mixture
+
+    pts, gen_centers, _ = gaussian_mixture(n, k, d, rng=np.random.default_rng(seed))
+    if generating:
+        return pts, gen_centers
+    return pts, pts[np.random.default_rng(seed + 1).choice(n, k, replace=False)]
+
+
+@pytest.mark.gpu
+def test_assign_min_minima_carry_no_bias_on_card(cuda_device):
+    """The kernel recomputes the chosen center's distance directly: near
+    their centers and far from the origin (|x|^2 ≈ 43, d2 ≈ 0.2), where the
+    tensor cores' truncating accumulation put d2 1e-4 high on average, the
+    minima agree with float64 without a bias."""
+    pts, centers = _session_inputs(n=60000, d=128, k=256, generating=True)
+    x = torch.from_numpy(pts.reshape(2, 30000, 128)).to(cuda_device)
+    c = torch.from_numpy(centers).to(cuda_device).unsqueeze(0).expand(2, -1, -1).contiguous()
+    idx, dist = pd_ops.assign_min(x, c)
+    own = torch.gather(c.double(), 1, idx.long().unsqueeze(-1).expand(-1, -1, 128))
+    d64 = ((x.double() - own) ** 2).sum(-1)
+    err = dist.double() - d64
+    assert abs(float(err.mean())) <= 1e-7 * float(d64.mean())
+    assert float(err.abs().max()) <= 1e-5 * float(d64.max())
+    cost, cost64 = float(torch.sqrt(dist.double()).sum()), float(torch.sqrt(d64).sum())
+    assert abs(cost - cost64) <= 1e-6 * cost64
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("median", [False, True], ids=["means", "median"])
+@pytest.mark.parametrize("shape", [(4000, 32, 16, False), (40000, 128, 256, True)],
+                         ids=["rows-d32", "mixture-centers-d128"])
+def test_step_cost_through_the_kernel_matches_torch_ref_on_card(cuda_device, median, shape):
+    from repro_torch.core import ResilienceSession, cyclic_assignment
+
+    n, d, k, generating = shape
+    pts, centers = _session_inputs(n, d, k, generating=generating)
+    a = cyclic_assignment(len(pts), 10, 4)
+    alive = np.ones(10, bool)
+    alive[[1, 4, 8]] = False
+    sess = ResilienceSession(a, device=cuda_device)
+    before = dispatch.launch_counts()["assign_min"]
+    got = sess.step_cost(pts, centers, alive, median=median)
+    assert dispatch.launch_counts()["assign_min"] == before + 1  # all 10 nodes, one launch
+    want = sess.step_cost(pts, centers, alive, median=median, impl="torch_ref")
+    on_cpu = ResilienceSession(a, device="cpu").step_cost(pts, centers, alive, median=median)
+    assert got == pytest.approx(want, rel=1e-5)
+    assert got == pytest.approx(on_cpu, rel=1e-5)
+    assert sess.stats.device_solves == 2 and sess.stats.host_solves == 0
+    assert sess.stats.device_copies == 1
+
+
+@pytest.mark.gpu
+def test_solve_and_combine_do_not_sync_with_the_host(cuda_device):
+    """Under torch.cuda.set_sync_debug_mode("error") every synchronising
+    call raises: the solve and the Lemma-3 combine make none."""
+    from repro_torch.core import cyclic_assignment, get_executor
+    from repro_torch.core.kmeans import _local_cost_fn
+    from repro_torch.core.kmedian import pack_local_shards
+    from repro_torch.core.recovery import device_recovery_masked
+
+    pts, centers = _session_inputs()
+    a = cyclic_assignment(len(pts), 10, 4)
+    xs, ws = pack_local_shards(pts, a)
+    alive_np = np.ones(10, bool)
+    alive_np[[0, 5, 6]] = False
+    A, alive, xs, ws, c = (torch.from_numpy(v).to(cuda_device) for v in (
+        a.matrix.astype(np.float32), alive_np, xs, ws, centers))
+    ex = get_executor()
+    fn = _local_cost_fn(True, "auto")
+    ex.resilient_reduce_masked(fn, (xs, ws), (c,), A, alive)  # builds and loads the kernel
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        b = device_recovery_masked(A, alive, device=cuda_device)
+        est, b_full = ex.resilient_reduce_masked(fn, (xs, ws), (c,), A, alive)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(b, b_full)
+    assert float(est) == pytest.approx(float(ex.resilient_reduce(fn, (xs, ws), (c,), b_full)), rel=1e-6)
+
+
+@pytest.mark.gpu
+def test_update_node_rows_moves_only_the_patched_rows_on_card(cuda_device):
+    from repro_torch.core import ElasticPolicy, ResilienceSession, get_executor
+    from repro_torch.core.assignment import Assignment
+    from repro_torch.core.kmedian import pack_local_shards
+
+    ex = get_executor()
+    arr = ex.place_node_stacked(np.arange(24, dtype=np.float32).reshape(6, 4), cuda_device)
+    ptr = arr.data_ptr()
+    out = ex.update_node_rows(arr, [1, 4], np.full((2, 4), 7.0, np.float32))
+    want = np.arange(24, dtype=np.float32).reshape(6, 4)
+    want[[1, 4]] = 7.0
+    assert out.data_ptr() == ptr and out.device.type == "cuda"
+    np.testing.assert_array_equal(out.cpu().numpy(), want)
+
+    # A patch inside the existing padding (loads ≤ the max of 8): the session
+    # rewrites the moved rows of its resident copy in place.
+    mat = np.zeros((8, 20), dtype=np.uint8)
+    mat[0, 0:8] = mat[2, 0:8] = 1
+    mat[1, 8:16] = mat[3, 8:16] = 1
+    mat[4, 0:4] = 1
+    mat[5, 4:8] = 1
+    mat[6, 16:20] = mat[7, 16:20] = 1
+    pts = np.random.default_rng(3).normal(size=(20, 3)).astype(np.float32)
+    sess = ResilienceSession(Assignment(matrix=mat, scheme="skewed", params={}),
+                             elastic=ElasticPolicy(enabled=True, patience=2), device=cuda_device)
+    dead = np.ones(8, dtype=bool)
+    dead[[6, 7]] = False
+    sess.step_cost(pts, np.zeros((2, 3), np.float32), dead)
+    xs0, ws0, _ = sess._resident
+    ptrs, before = (xs0.data_ptr(), ws0.data_ptr()), xs0.clone()
+    moved = set()
+    for _ in range(3):
+        moved.update(sess.observe(dead)["moved_nodes"])
+    xs1, ws1, _ = sess._resident
+    assert moved and (xs1.data_ptr(), ws1.data_ptr()) == ptrs
+    assert sess.stats.device_copies == 1  # no full re-upload
+    want_x, want_w = pack_local_shards(pts, sess.assignment)
+    np.testing.assert_array_equal(xs1.cpu().numpy(), want_x)
+    np.testing.assert_array_equal(ws1.cpu().numpy(), want_w)
+    unmoved = sorted(set(range(8)) - moved)
+    assert torch.equal(xs1[unmoved], before[unmoved])
