@@ -6,8 +6,10 @@ each against its plain PyTorch version on the card, then drives the paper's
 Algorithms 1, 2 and 3 through the port's public entry points, at the
 paper's size and at full width, runs the elastic resilience runtime
 (ResilienceSession: on-device recovery in step_cost, elastic patching,
-placement), and serves qwen3-4b at full width and depth (prefill and greedy
-decode), and fails loudly: there is no CPU fallback and
+placement), runs the streaming clustering service (the coreset tree, the
+query engine, the micro-batching frontend) on the same 1M points, and
+serves qwen3-4b at full width and depth (prefill and greedy decode), and
+fails loudly: there is no CPU fallback and
 no caught phase.  Every phase prints its seconds beside the card's name and
 power limit.
 
@@ -51,18 +53,43 @@ Phases:
                  device solve held to the host LP's band, then a permanent
                  loss and join on a session with placement; launch counts
                  are read around (a) and each round of (b)
-  9. alg3 full width  Algorithm 3 (resilient_pca) at the shape of SIFT1M:
+  9. stream full width  the streaming service on the same 1M x 128 points,
+                 every warm-up pass's errors counted (any error fails):
+                 the kernels first at each shape the phase sends them;
+                 (a) StreamingSession(d=128, k=256, 8 nodes, FR ell=2,
+                 fanout 4, leaf 16384, coreset 4096) ingests 64 batches of
+                 15,625 rows under make_scenario("iid", 8, p=0.15): exactly
+                 61 leaf and 18 level compactions, buckets by level
+                 [1, 3, 3], 28,672 summary points, 576 pending; rows/s,
+                 ingest ms, launches per ingest; (b) a second session fed
+                 the first 16 batches with every node alive: its frontier
+                 within 1e-5 of (a)'s after 16 (bit for bit printed);
+                 (c) solve(iters=20) over the frontier padded to 32,768
+                 rows; the stream model's cost on the 1M points against the
+                 centralized lloyd's; the frontier's cost within 0.35 of it;
+                 (d) the query engine after a warm-up: the first query
+                 launches assign_min once; batches of 1, 63, 64, 1000 and
+                 4096 rows against the plain version (idx outside near
+                 ties, d^2 in the kernel band, distances within 1e-5 of
+                 float64), one launch each; p50/p99 over 200 calls of 256
+                 rows; (e) AsyncFrontend(window 2 ms, max batch 256, cache
+                 1024) over (a)'s session and a second one fed 4 x 65,536
+                 rows of another mixture: a burst of 4096 queries of 1-16
+                 rows, 30% repeats; rows/s, p50/p99/p999, dispatches,
+                 occupancy, cache hit rate; assign_min launches equal the
+                 dispatches; every answer bit for bit the query engine's
+  10. alg3 full width  Algorithm 3 (resilient_pca) at the shape of SIFT1M:
                  planted_subspaces(1M, 1, 128, 8, noise 0.05), centred;
                  s=10, Bernoulli ell=8, t=3, r=8, delta=0.25; host prelude,
                  sketch SVDs, coordinator SVD and cost timed apart;
                  centralized_pca on all rows; the ratio must lie within
                  the Theorem-5 band 1 + 4 max(delta, achieved) times 1.05
-  10. alg2 full width  Algorithm 2 (resilient_subspace_clustering) on
+  11. alg2 full width  Algorithm 2 (resilient_subspace_clustering) on
                  planted_subspaces(1M, 16, 128, 8, noise 0.05) with the same
                  s, ell, t and stragglers; k=16, r=8, coreset_size=4096;
                  steps timed apart; a centralized lloyd_subspace on all
                  rows; the cost must lie within max(5 central, central + 2)
-  11. serve      qwen3-4b (36 layers, d_model 2560, 32 heads over 8 KV
+  12. serve      qwen3-4b (36 layers, d_model 2560, 32 heads over 8 KV
                  heads, vocab 151936), random weights from --seed drawn on
                  the card, cast once to bf16: (a) prefill of 4 x 2048
                  tokens through the kernel, exactly 36 flash launches;
@@ -71,7 +98,7 @@ Phases:
                  batch 4, prompt 16, gen 32, no flash launch; then one
                  prefill and 8 decode steps under torch.profiler (kernel
                  time by name, device idle share)
-  12. timing     each kernel, its plain version and one library call
+  13. timing     each kernel, its plain version and one library call
                  (weighted_segsum also at the coordinator's (1, 2560, 256,
                  128), with its launches in Algorithm 1 by shape); the
                  bound of rows assign_min and pairwise_sqdist is three TF32
@@ -173,6 +200,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
 
+    import asyncio
+
     import numpy as np
 
     from repro_torch import distributed_pca, quickstart, scenarios
@@ -195,12 +224,16 @@ def main() -> int:
     from repro_torch.core import pca as pca_mod
     from repro_torch.core import subspace as sub_mod
     from repro_torch.data.synthetic import franti_s1_like, gaussian_mixture, planted_subspaces
-    from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels import _build, autotune, dispatch
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
     from repro_torch.models import transformer as T
     from repro_torch.models.registry import get_config
+    from repro_torch.obs import Histogram
+    from repro_torch.serve import AsyncFrontend
     from repro_torch.serve import decode as D
+    from repro_torch.stream import StreamingSession
+    from repro_torch.stream.query import QueryEngine, bucket_size
     from repro_torch.kernels.pairwise_dist import ops as pd_ops
     from repro_torch.kernels.pairwise_dist import ref as pd_ref
     from repro_torch.kernels.weighted_segsum import ops as ss_ops
@@ -741,6 +774,256 @@ def main() -> int:
     with phase("session full width"):
         run_session()
 
+    def run_stream():
+        """The streaming service at the shape of SIFT1M: (a) ingest of the
+        1M points into the coreset tree, (b) the FR tree under stragglers
+        against an all-alive one, (c) the frontier solve, (d) the query
+        engine, (e) the micro-batching frontend over two tenants."""
+        reports = []
+        real_warmup = autotune.warmup
+
+        def recorded_warmup(plan):  # every warm-up pass of the phase, kept
+            rep = real_warmup(plan)
+            reports.append(rep)
+            return rep
+
+        autotune.warmup = recorded_warmup
+        try:
+            _run_stream(reports)
+        finally:
+            autotune.warmup = real_warmup
+        errors = sum(r.errors for r in reports)
+        print(f"warm-up passes {len(reports)}: warmed {sum(r.warmed for r in reports)}, errors {errors}, "
+              f"{sum(r.seconds for r in reports):.3f} s in all")
+        if errors:
+            raise AssertionError(f"{errors} warm-up entries failed: a kernel did not build or launch")
+
+    stream_launches: dict = {}
+
+    def _run_stream(reports):
+        n_batch, rows = 64, n_full // 64
+        leaf, fanout, nodes = 16384, 4, 8
+
+        def session(seed=args.seed, scenario=None):
+            return StreamingSession(d_full, k_full, num_nodes=nodes, scheme="fractional_repetition",
+                                    ell=2, fanout=fanout, leaf_size=leaf, scenario=scenario,
+                                    seed=seed, device=dev)
+
+        # The kernels at every shape this phase sends them: a compaction's
+        # bicriteria solve (16384 rows, 2k = 512 centers) and its sums, the
+        # frontier solve (32768 rows, k = 256), the query and frontend buckets.
+        xl = pts_d[:leaf][None]
+        idx = check_assign("stream compaction", xl, rows_of(xl, 2 * k_full))
+        check_segsum("stream compaction", xl, rand(1, leaf), idx, 2 * k_full)
+        xs2 = torch.cat([pts_d[:29248], torch.zeros(32768 - 29248, d_full, device=dev)])[None]
+        idx = check_assign("stream solve", xs2, rows_of(xs2[:, :29248], k_full))
+        check_segsum("stream solve", xs2, rand(1, 32768) * (torch.arange(32768, device=dev) < 29248), idx,
+                     k_full)
+        for b in (64, 128, 256, 512, 1024, 4096):
+            xq = pts_d[b: 2 * b][None]
+            check_assign(f"stream query bucket {b}", xq, rows_of(pts_d[None], k_full))
+        del xl, xs2, xq, idx
+
+        # (a) ingest: iid stragglers (p = 0.15) over 8 nodes, FR ell=2.
+        sess = session(scenario=make_scenario("iid", nodes, p_straggler=0.15, seed=args.seed + 5))
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launch_counts()
+        ingest_s, front16 = [], None
+        for i in range(n_batch):
+            batch = pts[i * rows: (i + 1) * rows]
+            sync()
+            t0 = time.perf_counter()
+            sess.ingest(batch)
+            sync()
+            ingest_s.append(time.perf_counter() - t0)
+            if i == 15:
+                front16 = tuple(t.clone() for t in sess.frontier())
+        counts_i = dispatch.launch_counts()
+        stream_launches.update({f"{k}_per_ingest": v / n_batch for k, v in counts_i.items()})
+        st = sess.stats
+        levels = [len(lv) for lv in sess.buffer.levels]
+        total = sum(ingest_s)
+        print(f"(a) ingest {n_batch} x {rows} rows: {total:.3f} s, {n_full / total:.0f} rows/s; ingest ms "
+              f"median {1e3 * np.median(ingest_s):.3f} max {1e3 * max(ingest_s):.3f}  [{card}]")
+        print(f"(a) leaf compactions {st['leaf_compactions']}, level compactions {st['compactions']}, "
+              f"buckets by level {levels}, summary points {st['summary_points']}, pending "
+              f"{sess.buffer._pending_n}; blocking {st['blocking_compactions']}, host solves "
+              f"{st['recovery_host_solves']}, cache hits {st['recovery_cache_hits']}, elastic patches "
+              f"{st['recovery_elastic_patches']}, uncovered rounds {st['recovery_uncovered_rounds']}")
+        print(f"(a) launches {counts_i} ({counts_i['assign_min'] / n_batch:.1f} assign_min and "
+              f"{counts_i['weighted_segsum'] / n_batch:.1f} weighted_segsum per ingest); "
+              f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        want = (61, 18, [1, 3, 3], 28672, 576)
+        got = (st["leaf_compactions"], st["compactions"], levels, st["summary_points"], sess.buffer._pending_n)
+        if got != want:
+            raise AssertionError(f"stream tree {got}, expected {want}")
+        if not all(counts_i.get(name, 0) > 0 for name in ("assign_min", "weighted_segsum")):
+            raise AssertionError(f"stream ingest: a kernel of the path was never launched: {counts_i}")
+
+        # (b) the same 16 batches with every node alive.
+        clean = session()
+        for i in range(16):
+            clean.ingest(pts[i * rows: (i + 1) * rows], alive=np.ones(nodes, dtype=bool))
+        xc, wc = clean.frontier()
+        xa, wa = front16
+        if xc.shape != xa.shape:
+            raise AssertionError(f"all-alive frontier {tuple(xc.shape)}, under stragglers {tuple(xa.shape)}")
+        gap = max(float((xc - xa).abs().max()), float((wc - wa).abs().max()))
+        bitwise = bool(torch.equal(xc, xa) and torch.equal(wc, wa))
+        print(f"(b) all-alive tree after 16 batches vs (a)'s: {tuple(xc.shape)} rows, max |diff| {gap:.3e}, "
+              f"bit for bit {bitwise}; (a)'s elastic patches by then are in its stats above")
+        if gap > 1e-5:
+            raise AssertionError("the FR tree under stragglers departs from the all-alive tree")
+        # Where an ingest's time goes: the 17th batch again (its leaf
+        # compaction cascades into two level compactions, as in (a)).
+        busy = profiled("the 17th ingest on the all-alive session (3 reductions)",
+                        lambda: clean.ingest(pts[16 * rows: 17 * rows], alive=np.ones(nodes, dtype=bool)), top=8)
+        print(f"(b) that ingest's device busy {1e3 * busy:.1f} ms of its unprofiled {1e3 * ingest_s[16]:.1f} ms "
+              f"in (a) (idle share {1 - busy / ingest_s[16]:.3f})")
+        del clean, xc, wc, xa, wa, front16
+
+        # (c) the frontier solve, padded to 32768 rows.
+        dispatch.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        sol = sess.solve(iters=20)
+        sync()
+        solve_s = time.perf_counter() - t0
+        counts_s = dispatch.launch_counts()
+        xf, wf = sess.frontier()
+        full_cost = float(clustering_cost(pts_d, sol.centers, median=True))
+        front_cost = float(clustering_cost(xf, sol.centers, weights=wf, median=True))
+        band = abs(front_cost - full_cost) / full_cost
+        print(f"(c) solve(iters=20) over {sol.frontier_size} frontier rows (padded to "
+              f"{bucket_size(sol.frontier_size)}): {solve_s:.3f} s (with the query warm-up)  cost {sol.cost:.2f}  "
+              f"launches {counts_s}  [{card}]")
+        print(f"(c) stream model on the 1M points: {full_cost:.2f}; centralized lloyd {central_cost:.2f}; "
+              f"ratio {full_cost / central_cost:.6f}; frontier cost {front_cost:.2f}, |frontier - full| / full "
+              f"{band:.4f} (band 0.35)")
+        if sol.centers.shape != (k_full, d_full) or not bool(torch.isfinite(sol.centers).all()):
+            raise AssertionError("stream centers are not finite (k, d)")
+        if band > 0.35:
+            raise AssertionError("the frontier's cost of the stream centers is outside the 0.35 band")
+        del xf, wf
+
+        # (d) the query engine after a warm-up: the first query, then the
+        # answers against the plain version, then the steady state.
+        rng = np.random.default_rng(args.seed + 6)
+
+        def queries(n):
+            pick = rng.integers(0, n_full, size=n)
+            return (pts[pick] + rng.normal(scale=0.01, size=(n, d_full))).astype(np.float32)
+
+        engine = sess.query_engine
+        rep = engine.warmup(sess.centers, sess.version)
+        print(f"(d) warm-up: {rep.warmed} buckets {rep.labels}, errors {rep.errors}, {rep.seconds:.3f} s")
+        if rep.errors or not rep.warmed:
+            raise AssertionError("the query engine's warm-up failed")
+        q256 = queries(256)
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        sess.query(q256)
+        first = time.perf_counter() - t0
+        if dispatch.launch_counts()["assign_min"] != 1:
+            raise AssertionError("the first query after the warm-up did not launch assign_min")
+        plain = QueryEngine(impl="torch_ref", device=dev)
+        c_np = sess.centers.cpu().numpy().astype(np.float64)
+
+        for n in (1, 63, 64, 1000, 4096):
+            q = queries(n)
+            dispatch.reset_launch_counts()
+            got = sess.query(q)
+            launched = dispatch.launch_counts()["assign_min"]
+            want = plain.assign(q, sess.centers, version=sess.version)
+            exact = np.sqrt(((q.astype(np.float64)[:, None] - c_np[None]) ** 2).sum(-1))
+            d2k, d2r = got.distances.astype(np.float64) ** 2, want.distances.astype(np.float64) ** 2
+            top2 = np.sort(exact ** 2, axis=1)[:, :2]
+            decided = (top2[:, 1] - top2[:, 0]) > 1e-5 * ((q.astype(np.float64) ** 2).sum(1) + top2[:, 1])
+            wrong = int((decided & (got.indices != want.indices)).sum())
+            band_bad = int((np.abs(d2k - d2r) > 1e-5 * d2r + 1e-4 * d2r.max()).sum())
+            own = exact[np.arange(n), got.indices]
+            rel = float(np.max(np.abs(got.distances - own) / own))
+            print(f"(d) query {n} rows: launches {launched}; idx differs from the plain version on {wrong} "
+                  f"decided rows ({int((~decided).sum())} near ties); d^2 outside the kernel band {band_bad}; "
+                  f"distance vs float64 max rel {rel:.2e}")
+            if launched != 1 or wrong or band_bad or rel > 1e-5:
+                raise AssertionError(f"query engine at {n} rows: wrong answer or not one assign_min launch")
+        lat = []
+        for _ in range(200):
+            q = queries(256)
+            t0 = time.perf_counter()
+            sess.query(q)
+            lat.append(time.perf_counter() - t0)
+        lat = np.sort(lat)
+        print(f"(d) 256-row queries: first after the warm-up {1e3 * first:.3f} ms; steady over 200 calls p50 "
+              f"{1e3 * lat[100]:.3f} ms p99 {1e3 * lat[197]:.3f} ms  [{card}]")
+        qs50 = [queries(256) for _ in range(50)]
+        busy = profiled("50 queries of 256 rows", lambda: [sess.query(q) for q in qs50], top=6)
+        print(f"(d) query device busy {1e6 * busy / 50:.1f} us per call of the unprofiled p50 "
+              f"{1e3 * lat[100]:.3f} ms (idle share {1 - busy / 50 / lat[100]:.3f})")
+
+        # (e) the frontend: two tenants, an open-loop burst.
+        other, _, _ = gaussian_mixture(4 * 65536, k_full, d_full, rng=np.random.default_rng(args.seed + 7))
+        sess_b = session(seed=args.seed + 1)
+        for i in range(4):
+            sess_b.ingest(other[i * 65536: (i + 1) * 65536])
+        sess_b.solve(iters=20)
+        af = AsyncFrontend(window=0.002, max_batch=256, cache_size=1024)
+        af.core.add_tenant("a", sess)
+        af.core.add_tenant("b", sess_b)
+        rep = af.core.warmup()
+        if rep.errors:
+            raise AssertionError("the frontend's warm-up failed")
+        tenants = ("a", "b")
+
+        async def burst(qs):
+            async def one(i, q):
+                t0 = time.perf_counter()
+                res = await af.query(tenants[i % 2], q)
+                return res, time.perf_counter() - t0
+
+            return await asyncio.gather(*[one(i, q) for i, q in enumerate(qs)])
+
+        pool = [queries(int(m)) for m in rng.integers(1, 17, size=32)]
+        asyncio.run(burst([q for q in pool for _ in tenants]))  # each answered once on each tenant
+        # The burst: 30% of its queries repeat one of the pool (bench_serve's REPEAT_FRACTION).
+        qs = [pool[int(rng.integers(len(pool)))] if rng.random() < 0.3 else queries(int(rng.integers(1, 17)))
+              for _ in range(4096)]
+        core = af.core
+        d0, h0, m0, o0 = core.dispatches, core.cache.hits, core.cache.misses, core._c_occupancy.value
+        sc0, wc0 = core.batcher.size_closes, core.batcher.window_closes
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = asyncio.run(burst(qs))
+        wall = time.perf_counter() - t0
+        launched = dispatch.launch_counts()["assign_min"]
+        dispatches = core.dispatches - d0
+        hits, misses = core.cache.hits - h0, core.cache.misses - m0
+        hist = Histogram()
+        hist.observe_many([t * 1e6 for _, t in out])
+        snap = hist.snapshot()
+        n_rows = sum(q.shape[0] for q in qs)
+        print(f"(e) burst of {len(qs)} queries ({n_rows} rows, 30% repeats) over 2 tenants: {wall:.3f} s, "
+              f"{n_rows / wall:.0f} rows/s; latency p50 {snap.percentile(0.50) / 1e3:.3f} ms p99 "
+              f"{snap.percentile(0.99) / 1e3:.3f} ms p999 {snap.percentile(0.999) / 1e3:.3f} ms; dispatches "
+              f"{dispatches}, mean occupancy {(core._c_occupancy.value - o0) / max(dispatches, 1):.3f}; cache "
+              f"hit rate {hits / max(hits + misses, 1):.3f}; assign_min launches {launched}; closes "
+              f"{core.batcher.size_closes - sc0} by size, {core.batcher.window_closes - wc0} by window  [{card}]")
+        if launched != dispatches or dispatches == 0:
+            raise AssertionError(f"{launched} assign_min launches for {dispatches} dispatches")
+        by = {"a": sess, "b": sess_b}
+        for i, (q, (res, _)) in enumerate(zip(qs, out)):
+            want = by[tenants[i % 2]].query(q)
+            if not (np.array_equal(res.indices, want.indices) and np.array_equal(res.distances, want.distances)
+                    and res.version == want.version):
+                raise AssertionError(f"frontend answer {i} differs from the query engine's")
+        print(f"(e) all {len(qs)} answers bit for bit the query engine's (same rows, centers, version)")
+        del sess, sess_b, af, other
+        torch.cuda.empty_cache()
+
+    with phase("stream full width"):
+        run_stream()
+
     def step_seconds(log, wall):
         total = sum(t for _, t in log)
         for name, t in log:
@@ -1014,8 +1297,12 @@ def main() -> int:
         # Computed figures beside each row, printed on its timing line only.
         beside = {
             "assign_min": {"shape": [B, m, k_full, d],
-                           "fp32_bound_ms": 1e3 * max(a_flops / PEAK_FP32_FLOPS, a_bytes / PEAK_BYTES)},
-            "weighted_segsum": {"shape": [B, m, k_full, d], "launches_by_x_shape": {
+                           "fp32_bound_ms": 1e3 * max(a_flops / PEAK_FP32_FLOPS, a_bytes / PEAK_BYTES),
+                           "stream_launches_per_ingest": stream_launches["assign_min_per_ingest"],
+                           "launches_per_query_batch": 1, "launches_per_frontend_dispatch": 1},
+            "weighted_segsum": {"shape": [B, m, k_full, d],
+                                "stream_launches_per_ingest": stream_launches["weighted_segsum_per_ingest"],
+                                "launches_by_x_shape": {
                 str(list(shape)): n for shape, n in seg_shapes.items()}},
         }
         # weighted_segsum at the coordinator's shape too: (1, s*k, 256, 128)

@@ -11,10 +11,15 @@ objects passes their numpy fields here:
   (:func:`subspace_from_jax`);
 * a transformer's params pytree → the port's ``state_dict``
   (:func:`transformer_params_from_jax`), and its K/V cache both ways
-  (:func:`cache_from_jax`, :func:`cache_to_jax`).
+  (:func:`cache_from_jax`, :func:`cache_to_jax`);
+* a streaming session's tree, pending leaf, counters and model → a port
+  :class:`~repro_torch.stream.StreamingSession`
+  (:func:`streaming_state_from_jax`).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -28,6 +33,7 @@ __all__ = [
     "coreset_from_jax",
     "subspace_from_jax",
     "cache_to_jax",
+    "streaming_state_from_jax",
     "to_assignment",
     "to_recovery",
     "to_tensor",
@@ -135,3 +141,69 @@ def cache_to_jax(cache) -> dict:
     return {"unit": {"slot0": {
         key: np.stack([c[key].float().cpu().numpy() for c in cache]) for key in ("k", "v")
     }}}
+
+
+def streaming_state_from_jax(session, *, device=None, scenario=None):
+    """A reference ``StreamingSession`` → a port one that continues from the
+    same state, on ``device`` (the card by default).
+
+    Carried: the configuration (d, k, nodes, leaf size, fanout, coreset
+    size, bicriteria iterations, squared, seed, solve iterations, elastic
+    policy, recovery method), the bucket→node assignment as it stands
+    (elastic patches included), every bucket with its level and ``seq``,
+    the pending leaf, the tree's counters, and the serving model (centers,
+    version and the staleness clock).  Not carried: the pattern cache and
+    the straggle streaks, which start afresh, and the scenario (pass
+    ``scenario=``).  The reduce's draws come from ``(seed, seq)`` in the
+    port's stream, so trees built on from here part from the reference's
+    after the next compaction.
+    """
+    from .core.resilience import ElasticPolicy
+    from .stream import Bucket, StreamingSession
+
+    buf, res = session.buffer, session.resilience
+    a = res.assignment
+    port = StreamingSession(
+        session.d, session.k,
+        num_nodes=int(a.num_nodes),
+        scheme=str(a.scheme).split("+")[0],
+        ell=a.params.get("ell", 2),
+        leaf_size=buf.leaf_size,
+        fanout=buf.fanout,
+        coreset_size=buf.m,
+        scenario=scenario,
+        elastic=ElasticPolicy(**dataclasses.asdict(res.elastic)),
+        recovery_method=res.recovery_method,
+        squared=buf.squared,
+        seed=session.seed,
+        solve_iters=session.solve_iters,
+        device=device,
+    )
+    dev = port.device
+    assignment = to_assignment(a.matrix, a.scheme, a.params)
+    port.resilience.assignment = assignment
+    port.resilience._assignment_lineage.add(id(assignment))
+    pb = port.buffer
+    pb.bicriteria_iters = buf.bicriteria_iters
+    pb.levels = [
+        [
+            Bucket(points=to_tensor(b.points, dev), weights=to_tensor(b.weights, dev),
+                   level=int(b.level), seq=int(b.seq))
+            for b in lv
+        ]
+        for lv in buf.levels
+    ]
+    pb._pending = [to_tensor(p, dev) for p in buf._pending]
+    pb._pending_n = int(buf._pending_n)
+    pb.compactions = int(buf.compactions)
+    pb.leaf_compactions = int(buf.leaf_compactions)
+    pb.blocking_compactions = int(buf.blocking_compactions)
+    pb._seq = int(buf._seq)
+    if session._centers is not None:
+        port._centers = to_tensor(session._centers, dev)
+    port._version = int(session._version)
+    port._ingested = int(session._ingested)
+    port._ingests = int(session._ingests)
+    port._points_at_solve = int(session._points_at_solve)
+    port._ingests_at_solve = int(session._ingests_at_solve)
+    return port

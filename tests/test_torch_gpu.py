@@ -46,6 +46,8 @@ rtol 2^-7, atol 1e-3 (both sides sum exact products in f32 in other orders
 and round the output to bf16, so they may differ by one bf16 ulp).
 """
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -624,3 +626,104 @@ def test_update_node_rows_moves_only_the_patched_rows_on_card(cuda_device):
     np.testing.assert_array_equal(ws1.cpu().numpy(), want_w)
     unmoved = sorted(set(range(8)) - moved)
     assert torch.equal(xs1[unmoved], before[unmoved])
+
+
+# ------------------------------------------------ the streaming service
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("d", [2, 16, 128])
+@pytest.mark.parametrize("k", [4, 32, 256])
+def test_query_engine_and_frontend_dispatch_through_the_kernel_on_card(cuda_device, d, k):
+    """The query engine's and the frontend's batches through ``assign_min``
+    on the card against the plain version (indices outside near ties,
+    squared distances in ``_check_assign``'s band) and against float64
+    (unsquared distances rtol 1e-5: the kernel sums the chosen distance
+    directly, the plain version's ‖x‖²+‖c‖²−2x·c cancels); one launch per
+    batch and per dispatch; every frontend answer bit for bit the engine's."""
+    from repro_torch.serve import ServingFrontend, VirtualClock
+    from repro_torch.stream.query import QueryEngine
+
+    rng = np.random.default_rng(d * 1000 + k)
+    c_np = rng.normal(size=(k, d)).astype(np.float32)
+    centers = torch.from_numpy(c_np).to(cuda_device)
+    engine, plain = QueryEngine(), QueryEngine(impl="torch_ref")
+    assert engine.warmup(centers, 1).errors == 0
+    for n in (1, 63, 64, 1000):
+        q = rng.normal(size=(n, d)).astype(np.float32)
+        before = dispatch.launch_counts()["assign_min"]
+        got = engine.assign(q, centers, version=1)
+        assert dispatch.launch_counts()["assign_min"] == before + 1
+        want = plain.assign(q, centers, version=1)
+        _check_assign(q, c_np, k, got.indices, got.distances.astype(np.float64) ** 2,
+                      want.indices, want.distances.astype(np.float64) ** 2)
+        exact = np.sqrt(((q.astype(np.float64)[:, None] - c_np[None]) ** 2).sum(-1))
+        np.testing.assert_allclose(got.distances, exact[np.arange(n), got.indices], rtol=1e-5, atol=1e-7)
+
+    fixed = types.SimpleNamespace(  # a session whose model never moves
+        resilience=types.SimpleNamespace(add_patch_listener=lambda cb: None),
+        centers=centers, version=1, generation=(1, 0),
+        staleness={"points": 0, "ingests": 0, "version": 1}, ensure_model=lambda: centers,
+    )
+    clk = VirtualClock()
+    fe = ServingFrontend(window=0.002, max_batch=256, cache_size=0, clock=clk)
+    fe.add_tenant("t", fixed)
+    assert fe.warmup().errors == 0
+    before = dispatch.launch_counts()["assign_min"]
+    tickets = [fe.submit("t", rng.normal(size=(int(m), d)).astype(np.float32))
+               for m in rng.integers(1, 17, size=60)]
+    clk.advance(0.002)
+    fe.flush()
+    fe.drain()
+    assert dispatch.launch_counts()["assign_min"] - before == fe.dispatches >= 2
+    for t in tickets:
+        want = engine.assign(t.queries, centers, version=1)
+        np.testing.assert_array_equal(t.result.indices, want.indices)
+        np.testing.assert_array_equal(t.result.distances, want.distances)
+
+
+@pytest.mark.gpu
+def test_fr_stream_tree_under_stragglers_equals_the_all_alive_tree_on_card(cuda_device):
+    """Compactions through the kernels on the card: the FR tree under a
+    coverage-preserving pattern equals the all-alive tree at 1e-5; a query
+    after the solve's warm-up launches ``assign_min`` once."""
+    from repro_torch.stream import StreamingSession
+
+    rng = np.random.default_rng(4)
+    batches = [rng.normal(size=(192, 8)).astype(np.float32) for _ in range(9)]
+    dead = np.ones(6, dtype=bool)
+    dead[2] = False
+    trees = []
+    for mask in (None, dead):
+        sess = StreamingSession(8, 5, num_nodes=6, fanout=3, leaf_size=64, coreset_size=16, seed=1,
+                                device=cuda_device)
+        for b in batches:
+            sess.ingest(b, alive=mask)
+        trees.append(sess)
+    assert trees[1].stats["compactions"] == trees[0].stats["compactions"] > 0
+    assert trees[1].stats["blocking_compactions"] == 0
+    for a, b in zip(trees[0].frontier(), trees[1].frontier()):
+        assert a.device.type == "cuda"
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=1e-5)
+    sess = trees[1]
+    sess.solve(iters=5)
+    before = dispatch.launch_counts()["assign_min"]
+    res = sess.query(rng.normal(size=(10, 8)).astype(np.float32))
+    assert dispatch.launch_counts()["assign_min"] == before + 1
+    assert res.indices.shape == (10,) and np.isfinite(res.distances).all()
+
+
+@pytest.mark.gpu
+def test_warmups_report_no_error_on_card(cuda_device):
+    from repro_torch.kernels import autotune
+    from repro_torch.stream.query import QueryEngine
+
+    c = torch.randn(32, 16, device=cuda_device)
+    engine = QueryEngine()
+    assert engine.warmup(c, 1).errors == 0
+    engine.assign(np.zeros((300, 16), np.float32), c, version=1)
+    report = engine.warmup(c, 1)
+    assert (report.warmed, report.errors) == (2, 0)
+    # An entry that fails on the card is counted, not raised.
+    bad = autotune.warmup([lambda: pd_ops.assign_min(c[None], c, impl="cuda")])
+    assert (bad.warmed, bad.errors) == (0, 1)
