@@ -6,7 +6,9 @@ each against its plain PyTorch version on the card, then drives the paper's
 Algorithms 1, 2 and 3 through the port's public entry points, at the
 paper's size and at full width, runs the elastic resilience runtime
 (ResilienceSession: on-device recovery in step_cost, elastic patching,
-placement), runs the streaming clustering service (the coreset tree, the
+placement), runs Algorithm 1, the session and the streaming tree through
+the torch.distributed mesh executor (a world of one over NCCL, two ranks
+over gloo), runs the streaming clustering service (the coreset tree, the
 query engine, the micro-batching frontend) on the same 1M points, and
 serves qwen3-4b at full width and depth (prefill and greedy decode), and
 fails loudly: there is no CPU fallback and
@@ -53,7 +55,21 @@ Phases:
                  device solve held to the host LP's band, then a permanent
                  loss and join on a session with placement; launch counts
                  are read around (a) and each round of (b)
-  9. stream full width  the streaming service on the same 1M x 128 points,
+  9. mesh full width  the torch.distributed executor on the same points:
+                 (a) a world of one over NCCL in this process runs phase 6's
+                 Algorithm-1 cell, within 1e-5 of its cost (bit for bit
+                 printed); (b)-(d) two ranks over gloo on this card,
+                 spawned, 5 nodes each: (b) the same cell within 1e-5, the
+                 ranks' b, packed shards and centers identical by hash,
+                 each rank's peak memory, shard bytes and seconds (host
+                 prelude, local solves, collectives); (c) 8 rounds of
+                 observe + step_cost on phase 8's covered cell, each within
+                 1e-5 of phase 8 (b)'s round, 0 host solves, rows written
+                 only by the owning rank; (d) the stream cell of phase 10
+                 cut to 16 batches: both ranks' frontiers bit for bit, within
+                 1e-5 of a local session fed the same batches; each rank's
+                 launches are read around each part
+  10. stream full width  the streaming service on the same 1M x 128 points,
                  every warm-up pass's errors counted (any error fails):
                  the kernels first at each shape the phase sends them;
                  (a) StreamingSession(d=128, k=256, 8 nodes, FR ell=2,
@@ -78,18 +94,18 @@ Phases:
                  rows, 30% repeats; rows/s, p50/p99/p999, dispatches,
                  occupancy, cache hit rate; assign_min launches equal the
                  dispatches; every answer bit for bit the query engine's
-  10. alg3 full width  Algorithm 3 (resilient_pca) at the shape of SIFT1M:
+  11. alg3 full width  Algorithm 3 (resilient_pca) at the shape of SIFT1M:
                  planted_subspaces(1M, 1, 128, 8, noise 0.05), centred;
                  s=10, Bernoulli ell=8, t=3, r=8, delta=0.25; host prelude,
                  sketch SVDs, coordinator SVD and cost timed apart;
                  centralized_pca on all rows; the ratio must lie within
                  the Theorem-5 band 1 + 4 max(delta, achieved) times 1.05
-  11. alg2 full width  Algorithm 2 (resilient_subspace_clustering) on
+  12. alg2 full width  Algorithm 2 (resilient_subspace_clustering) on
                  planted_subspaces(1M, 16, 128, 8, noise 0.05) with the same
                  s, ell, t and stragglers; k=16, r=8, coreset_size=4096;
                  steps timed apart; a centralized lloyd_subspace on all
                  rows; the cost must lie within max(5 central, central + 2)
-  12. serve      qwen3-4b (36 layers, d_model 2560, 32 heads over 8 KV
+  13. serve      qwen3-4b (36 layers, d_model 2560, 32 heads over 8 KV
                  heads, vocab 151936), random weights from --seed drawn on
                  the card, cast once to bf16: (a) prefill of 4 x 2048
                  tokens through the kernel, exactly 36 flash launches;
@@ -98,7 +114,7 @@ Phases:
                  batch 4, prompt 16, gen 32, no flash launch; then one
                  prefill and 8 decode steps under torch.profiler (kernel
                  time by name, device idle share)
-  13. timing     each kernel, its plain version and one library call
+  14. timing     each kernel, its plain version and one library call
                  (weighted_segsum also at the coordinator's (1, 2560, 256,
                  128), with its launches in Algorithm 1 by shape); the
                  bound of rows assign_min and pairwise_sqdist is three TF32
@@ -605,6 +621,8 @@ def main() -> int:
             self.b = out[1]
             return out
 
+    session_rounds: dict = {"estimates": []}  # (b)'s rounds, for the mesh phase
+
     def run_session():
         """The elastic resilience runtime at full width, then the scenario
         grid at the paper's size."""
@@ -644,6 +662,7 @@ def main() -> int:
 
         # (b) rounds of a straggler scenario through step_cost.
         centers_c = out_c.centers
+        session_rounds["centers"] = centers_c
         true = float(clustering_cost(pts_d, torch.from_numpy(centers_c).to(dev), median=True))
         fp_log: list = []
         real_fp = ResilienceSession._fingerprint
@@ -670,6 +689,7 @@ def main() -> int:
             t_obs = time.perf_counter() - t0
             est = sess.step_cost(pts, centers_c, step.alive, median=True)
             wall = time.perf_counter() - t0
+            session_rounds["estimates"].append(est)
             launches = dispatch.launch_counts()
             e0, e1 = ex_ev.spans[-1]
             dev_s, fp_s = e0.elapsed_time(e1) / 1e3, sum(fp_log)
@@ -773,6 +793,119 @@ def main() -> int:
 
     with phase("session full width"):
         run_session()
+
+    def run_mesh():
+        """The mesh executor at full width: (a) a world of one over NCCL in
+        this process; (b)-(d) two ranks over gloo on this card, spawned."""
+        import torch.distributed as dist
+
+        from repro_torch.launch import distributed as mesh_dist
+        from repro_torch.launch import mesh_runs
+
+        # (a) Algorithm 1 on the full-width cell through a world of one.
+        ex1 = mesh_dist.MeshExecutor(mesh_dist.node_mesh(backend="nccl", device=dev))
+        try:
+            t0 = time.perf_counter()
+            sess1 = ResilienceSession(a, executor=ex1, device=dev)
+            sess1.prepare(pts, alive)
+            _, xs1, ws1 = sess1.device_shards(dev)
+            sync()
+            host = time.perf_counter() - t0
+            bytes1 = (xs1.local.numel() + ws1.local.numel()) * 4
+            dispatch.reset_launch_counts()
+            t0 = time.perf_counter()
+            out1 = resilient_kmedian(pts, k_full, a, alive, local_iters=15, coord_iters=30, seed=args.seed,
+                                     session=sess1, device=dev)
+            sync()
+            run1 = time.perf_counter() - t0
+            counts1 = dispatch.launch_counts()
+        finally:
+            dist.destroy_process_group()
+        rel1 = abs(out1.cost - out.cost) / out.cost
+        bit1 = out1.cost == out.cost and np.array_equal(out1.centers, out.centers)
+        print(f"(a) {ex1.describe()}: host prelude {host:.3f} s (LP, pack, copy of {bytes1 / 1e9:.3f} GB), "
+              f"Algorithm 1 {run1:.3f} s  cost {out1.cost:.4f} vs local {out.cost:.4f}: rel {rel1:.2e}, "
+              f"bit for bit {bit1}; launches {counts1}  [{card}]")
+        if rel1 > 1e-5:
+            raise AssertionError("the world of one over NCCL departs from the local executor by more than 1e-5")
+        if not all(counts1.get(name, 0) > 0 for name in ("assign_min", "weighted_segsum")):
+            raise AssertionError(f"(a): a kernel of the path was never launched: {counts1}")
+        del sess1, xs1, ws1
+        torch.cuda.empty_cache()
+
+        # The local twin of (d): a session fed the same 16 batches.
+        rows, n_batch = n_full // 64, 16
+        loc = StreamingSession(d_full, k_full, num_nodes=8, scheme="fractional_repetition", ell=2, fanout=4,
+                               leaf_size=16384, seed=args.seed, device=dev,
+                               scenario=make_scenario("iid", 8, p_straggler=0.15, seed=args.seed + 5))
+        for i in range(n_batch):
+            loc.ingest(pts[i * rows: (i + 1) * rows])
+        xl, wl = (v.cpu().numpy() for v in loc.frontier())
+        levels_l = [len(lv) for lv in loc.buffer.levels]
+        del loc
+
+        # (b)-(d): two ranks over gloo, both on this card.
+        t0 = time.perf_counter()
+        rep = mesh_dist.run_ranks(mesh_runs.full_width_rank, 2, backend="gloo", device="cuda", timeout=600,
+                                  args=(args.seed, session_rounds["centers"], 8, n_batch))
+        print(f"{rep['describe']}: {time.perf_counter() - t0:.3f} s with the ranks' start; data (host) "
+              f"{[round(v, 3) for v in rep['data_s']]} s per rank  [{card}]")
+
+        alg = rep["alg1"]
+        rel = abs(alg["cost"] / out.cost - 1.0)
+        print(f"(b) Algorithm 1: cost {alg['cost']:.4f} vs local {out.cost:.4f}: rel {rel:.2e}, bit for bit "
+              f"{alg['cost'] == out.cost}; ranks identical (b, packed shards, centers, cost) {alg['lockstep']}")
+        for r, st in enumerate(alg["ranks"]):
+            print(f"(b) rank {r}: nodes {st['block']}, shards {st['shard_bytes'] / 1e9:.3f} GB of (a)'s "
+                  f"{bytes1 / 1e9:.3f}, peak {st['peak_gib']:.3f} GiB; host prelude {st['prelude_s']:.3f} s, "
+                  f"Algorithm 1 {st['run_s']:.3f} s = local solves {st['local_s']:.3f} + collectives "
+                  f"{st['collectives_s']:.3f} + the rest {st['rest_s']:.3f} (host prepare with its fingerprint, "
+                  f"coordinator, cost); launches "
+                  f"{st['launches']}  [{card}]")
+        if rel > 1e-5 or not alg["lockstep"]:
+            raise AssertionError("(b): the mesh departs from the local run, or its ranks differ")
+        for st in alg["ranks"]:
+            if not all(st["launches"].get(name, 0) > 0 for name in ("assign_min", "weighted_segsum")):
+                raise AssertionError(f"(b): a rank never launched a kernel of the path: {st['launches']}")
+
+        ses = rep["session"]
+        want = session_rounds["estimates"]
+        worst = max(abs(e / w - 1.0) for e, w in zip(ses["estimates"], want))
+        written = [st["rows_written"] for st in ses["ranks"]]
+        print(f"(c) {len(ses['estimates'])} rounds of observe + step_cost: max rel vs the local session's rounds "
+              f"{worst:.2e}; solves {ses['stats']['host_solves']} host, {ses['stats']['device_solves']} device; "
+              f"patches {ses['stats']['elastic_patches']}, moved_node_blocks {ses['stats']['moved_node_blocks']}, "
+              f"rows written per rank {written}; ranks identical {ses['lockstep']}")
+        for r, st in enumerate(ses["ranks"]):
+            print(f"(c) rank {r}: nodes {st['block']}, {st['seconds']:.3f} s (with the pack), rounds "
+                  f"{[round(v, 3) for v in st['round_s']]} s, peak {st['peak_gib']:.3f} GiB, launches "
+                  f"{st['launches']}  [{card}]")
+        if len(want) != len(ses["estimates"]) or worst > 1e-5 or not ses["lockstep"]:
+            raise AssertionError("(c): the mesh session departs from the local one by more than 1e-5")
+        if ses["stats"]["host_solves"] != 0 or ses["stats"]["device_solves"] != len(want):
+            raise AssertionError(f"(c): expected 0 host solves, got {ses['stats']}")
+        if sum(written) != 2 * ses["stats"]["moved_node_blocks"]:
+            raise AssertionError("(c): the ranks wrote other rows than the moved nodes of their own blocks")
+        if not all(st["launches"].get("assign_min", 0) >= len(want) for st in ses["ranks"]):
+            raise AssertionError("(c): a rank's step_cost did not launch assign_min")
+
+        stm = rep["stream"]
+        xm, wm = stm["frontier"]
+        gap = max(float(np.abs(xm - xl).max()), float(np.abs(wm - wl).max())) if xm.shape == xl.shape else np.inf
+        print(f"(d) {n_batch} ingests of {rows} rows: frontier {xm.shape}, levels {stm['levels']} (local "
+              f"{levels_l}); both ranks bit for bit {stm['lockstep']}; vs the local session max |diff| "
+              f"{gap:.3e}, bit for bit {bool(np.array_equal(xm, xl) and np.array_equal(wm, wl))}")
+        for r, st in enumerate(stm["ranks"]):
+            print(f"(d) rank {r}: ingest {st['ingest_s']:.3f} s, peak {st['peak_gib']:.3f} GiB, host solves "
+                  f"{st['host_solves']}, launches {st['launches']}  [{card}]")
+        if not stm["lockstep"] or gap > 1e-5 or stm["levels"] != levels_l:
+            raise AssertionError("(d): the ranks' trees differ, or depart from the local tree by more than 1e-5")
+        for st in stm["ranks"]:
+            if not all(st["launches"].get(name, 0) > 0 for name in ("assign_min", "weighted_segsum")):
+                raise AssertionError(f"(d): a rank never launched a kernel of the path: {st['launches']}")
+
+    with phase("mesh full width"):
+        run_mesh()
 
     def run_stream():
         """The streaming service at the shape of SIFT1M: (a) ingest of the

@@ -6,13 +6,13 @@ Lemma 3 states that for an assignment with Property 1 and recovery vector
     F(P) ≤ Σ_{i∈R} b_i · F(P_i) ≤ (1+δ)·F(P).
 
 :func:`resilient_sum` applies the combine to node-stacked tensors;
-:func:`mom_combine` is a byzantine-robust median-of-means alternative;
-:func:`weighted_union` builds the coordinator's weighted point set on the
-host.  The in-graph ``resilient_psum`` of the reference waits for the
-distributed executor (ROADMAP queue 1, item 9).
+:func:`resilient_psum` is its form across the ranks of a mesh (a weighted
+``all_reduce``, :mod:`repro_torch.launch.distributed`); :func:`mom_combine`
+is a byzantine-robust median-of-means alternative; :func:`weighted_union`
+builds the coordinator's weighted point set on the host.
 
-Statistics may be a tensor or a tuple, list or dict of tensors, each with
-the node axis first.
+Statistics may be a tensor or a tuple, named tuple, list or dict of
+tensors, each with the node axis first.
 """
 
 from __future__ import annotations
@@ -22,13 +22,17 @@ from typing import Any, Callable, Optional, Sequence
 import numpy as np
 import torch
 
-__all__ = ["resilient_sum", "mom_combine", "weighted_union"]
+__all__ = ["resilient_sum", "resilient_psum", "mom_combine", "weighted_union"]
 
 
 def _tree_map(fn: Callable, tree: Any) -> Any:
-    """Apply ``fn`` to every tensor leaf of a tuple / list / dict tree."""
+    """Apply ``fn`` to every tensor leaf of a tuple / named tuple / list /
+    dict tree, leaves in the order of the tree (every rank of a mesh walks
+    it the same way)."""
     if isinstance(tree, dict):
         return {key: _tree_map(fn, v) for key, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_map(fn, v) for v in tree))
     if isinstance(tree, (tuple, list)):
         return type(tree)(_tree_map(fn, v) for v in tree)
     return fn(tree)
@@ -48,6 +52,26 @@ def resilient_sum(per_node_stats: Any, b_full) -> Any:
         return torch.sum(w * leaf, dim=0)
 
     return _tree_map(combine, per_node_stats)
+
+
+def resilient_psum(x: Any, my_weight, group) -> Any:
+    """Lemma-3 combine across ranks: ``Σ_r w_r · x_r`` by one ``all_reduce``
+    per leaf over the process group ``group``, the result on every rank.
+
+    ``my_weight`` is this rank's weight (1.0 when ``x`` already carries the
+    recovery weights of this rank's nodes, as after :func:`resilient_sum`).
+    A rank whose nodes all straggle contributes zeros; the collective always
+    runs, on every rank, in the order of the tree's leaves.
+    """
+    import torch.distributed as dist
+
+    def combine(leaf):
+        leaf = torch.as_tensor(leaf)
+        out = leaf * torch.as_tensor(my_weight, dtype=leaf.dtype, device=leaf.device)
+        dist.all_reduce(out, group=group)
+        return out
+
+    return _tree_map(combine, x)
 
 
 def mom_combine(per_node_stats: Any, num_groups: int = 5) -> Any:

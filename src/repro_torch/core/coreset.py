@@ -27,6 +27,7 @@ from ..kernels.pairwise_dist.ops import assign_min
 from ..kernels.weighted_segsum.ops import weighted_segsum
 from . import kmeans
 from .executor import Executor
+from .nodes import node_rand
 
 __all__ = [
     "Coreset",
@@ -68,7 +69,7 @@ def _draw(x, w, p, m: int, gen: torch.Generator) -> Coreset:
     noise tensor."""
     q = torch.clamp_min(p.double(), _EPS)
     cdf = torch.cumsum(q, dim=-1)
-    u = torch.rand((p.shape[0], m), generator=gen, dtype=torch.float64, device=p.device)
+    u = node_rand((p.shape[0], m), generator=gen, dtype=torch.float64, device=p.device)
     picks = torch.searchsorted(cdf, u * cdf[:, -1:], right=True).clamp_max(p.shape[-1] - 1)
     cw = torch.gather(w, -1, picks) / (m * torch.clamp_min(torch.gather(p, -1, picks), _EPS))
     pts = torch.gather(x, 1, picks.unsqueeze(-1).expand(-1, -1, x.shape[-1]))

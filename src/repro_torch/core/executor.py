@@ -11,15 +11,15 @@ function; the executor decides where it runs.
   per-node function is written batched over it (the reference ``vmap``s
   an unbatched function instead).  One kernel launch per step covers every
   node.
+* :class:`~repro_torch.launch.distributed.MeshExecutor` — the node axis
+  split over the ranks of a ``torch.distributed`` process group, each rank
+  running the same per-node function on its block (``get_executor("mesh")``).
 
 :meth:`Executor.resilient_reduce_masked` solves the recovery weights on the
 device inside the step (:func:`~repro_torch.core.recovery.device_recovery_masked`)
 and combines, with no host synchronisation: the alive mask is data, so a
 straggler pattern never seen before costs no host solve.  The reference
 jits that step; here it runs eagerly, a fixed sequence of launches.
-
-The reference's mesh executor (one node per device) waits for the
-``torch.distributed`` port (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -112,6 +112,16 @@ class Executor:
         raise NotImplementedError
 
 
+def override_flag(b_override, s: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(use, b)`` for :meth:`Executor.resilient_reduce_masked`: the
+    override is data, not a branch — a flag tensor selects it."""
+    if b_override is None:
+        return (torch.zeros((), dtype=torch.bool, device=device),
+                torch.zeros((s,), dtype=torch.float32, device=device))
+    return (torch.ones((), dtype=torch.bool, device=device),
+            torch.as_tensor(b_override, dtype=torch.float32, device=device))
+
+
 class LocalExecutor(Executor):
     """All nodes in one process as a single batch."""
 
@@ -133,13 +143,7 @@ class LocalExecutor(Executor):
         A = torch.as_tensor(A, dtype=torch.float32, device=device)
         alive = torch.as_tensor(alive, device=device)
         s = A.shape[0]
-        # The override is data, not a branch: a flag tensor selects it.
-        if b_override is None:
-            use_ov = torch.zeros((), dtype=torch.bool, device=device)
-            b_ov = torch.zeros((s,), dtype=torch.float32, device=device)
-        else:
-            use_ov = torch.ones((), dtype=torch.bool, device=device)
-            b_ov = torch.as_tensor(b_override, dtype=torch.float32, device=device)
+        use_ov, b_ov = override_flag(b_override, s, device)
         with trace_span(
             "executor.masked_reduce", executor=self.name,
             nodes=int(s), override=b_override is not None,
@@ -164,14 +168,15 @@ _LOCAL = LocalExecutor()
 
 def get_executor(spec: Union[None, str, Executor] = None) -> Executor:
     """Resolve an ``executor=`` argument: ``None`` / ``"local"`` → the shared
-    :class:`LocalExecutor`; an :class:`Executor` instance passes through."""
+    :class:`LocalExecutor`; ``"mesh"`` → the mesh executor on the default
+    process group (a world of one in this process when none exists); an
+    :class:`Executor` instance passes through."""
     if spec is None or spec == "local":
         return _LOCAL
     if spec == "mesh":
-        raise NotImplementedError(
-            "the mesh executor is not ported yet: it becomes a torch.distributed "
-            "executor (ROADMAP queue 1, item 9)"
-        )
+        from ..launch.distributed import default_mesh_executor
+
+        return default_mesh_executor()
     if isinstance(spec, Executor):
         return spec
     raise ValueError(f"unknown executor {spec!r}; expected None, 'local', or an Executor")

@@ -25,6 +25,7 @@ import torch
 
 from ..kernels.pairwise_dist.ops import assign_min
 from ..kernels.weighted_segsum.ops import weighted_segsum
+from .nodes import node_rand
 
 __all__ = [
     "ClusteringResult",
@@ -72,8 +73,10 @@ def _logits(w: torch.Tensor, score: torch.Tensor) -> torch.Tensor:
 def _sample(logits: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
     """One categorical draw per row of (B, n) logits by Gumbel-max, as
     ``jax.random.categorical`` draws.  All -inf logits give row 0 (argmax
-    over equal values), like the reference; no host check is needed."""
-    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    over equal values), like the reference; no host check is needed.  On a
+    mesh rank the uniforms are this block's rows of the whole node batch's
+    draw (:func:`~repro_torch.core.nodes.node_rand`)."""
+    u = node_rand(logits.shape, generator=gen, device=logits.device)
     u = torch.clamp_min(u, torch.finfo(torch.float32).tiny)
     return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
 

@@ -25,6 +25,7 @@ import torch
 from ..device import resolve_device
 from .assignment import Assignment
 from .executor import Executor, get_executor
+from .nodes import NodeBlock
 from .recovery import RecoveryResult
 
 __all__ = [
@@ -66,8 +67,10 @@ def local_relaxed_coresets(
 
     Padding rows are zeros: they only add zero singular values.  ``b_full``
     (default all ones) applies the Lemma-5 √b weighting on the device.
+    ``xs`` may be a mesh rank's placed block (a ``NodeBlock``).
     """
-    xs = torch.as_tensor(xs, dtype=torch.float32)
+    if not isinstance(xs, NodeBlock):
+        xs = torch.as_tensor(xs, dtype=torch.float32)
     b = (
         torch.ones(xs.shape[0], dtype=torch.float32, device=xs.device)
         if b_full is None

@@ -27,6 +27,12 @@ state for a whole run:
   cache entries the patch can change, and rewrites ONLY the moved node rows
   of the device copy (``Executor.update_node_rows``).
 
+On a mesh (``executor="mesh"``) every rank runs the session: the resident
+shards are the rank's own block of nodes (a ``NodeBlock``), ``step_cost``
+combines across the ranks, and a patch writes the moved rows on the rank
+that owns them only; ``moved_node_blocks`` counts the moved nodes, as the
+reference does.
+
 The reference package's ``core/resilience.py`` in PyTorch: the same state
 machine, counters (``resilience_<field>{session=…}`` in the port's own
 :mod:`repro_torch.obs` registry) and order of repair picks.  Two counters

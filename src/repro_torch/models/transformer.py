@@ -69,8 +69,8 @@ class ModelContext:
     def __post_init__(self):
         if self.mesh is not None:
             raise NotImplementedError(
-                "ModelContext: meshes are not ported yet (ROADMAP queue 1, item 9: "
-                "the torch.distributed executor)")
+                "ModelContext: LM meshes are not ported yet (ROADMAP queue 1, item 9, "
+                "what waits: launch/{mesh,sharding,specs}.py)")
 
 
 def _check_supported(cfg: ModelConfig) -> None:

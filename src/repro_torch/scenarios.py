@@ -10,13 +10,15 @@ pick ℓ from the scenario's probed straggle profile) × four scenarios
 (``iid``, ``fixed``, ``adversarial``, ``deadline``), at the paper's size
 n = 320, s = 8, k = 4 by default.
 
-The twin of ``benchmarks/bench_scenarios.py`` (its local executor): the
-same cells, assignments, scenario streams and probes, so a cell's events,
-final assignment and counters equal the reference's, and its costs agree to
-f32 rounding.  Each cell comes back as a record instead of a printed row.
+The twin of ``benchmarks/bench_scenarios.py``: the same cells,
+assignments, scenario streams and probes, so a cell's events, final
+assignment and counters equal the reference's, and its costs agree to f32
+rounding.  Each cell runs once per executor (``"local"``, ``"mesh"``: the
+mesh executor on the default process group, a world of one in this process
+when none exists) and comes back as a record instead of a printed row.
 
 Run:  PYTHONPATH=src python -m repro_torch.scenarios [--device cuda|cpu]
-(the card by default).
+[--executor local|mesh|both] (the card and both executors by default).
 """
 
 from __future__ import annotations
@@ -99,9 +101,10 @@ def run(
     rounds: int = 5,
     seed: int = 0,
     device=None,
+    executors: tuple[str, ...] = ("local",),
     verbose: bool = True,
 ) -> list[dict]:
-    """The 20 cells; one record each.
+    """The 20 cells, each once per executor; one record each.
 
     ``pts`` default to the reference sweep's ``gaussian_mixture(n, k, 3)``
     at ``seed``; ``centers`` to a 5-iteration k-median ``lloyd`` of them on
@@ -110,8 +113,8 @@ def run(
     dicts of ``observe``) and ``costs`` (``step_cost``, ``None`` for an
     all-dead round), the ``final`` assignment, the session's ``stats``,
     ``health`` (``node_health()``), ``ect`` (expected completion time of the
-    final assignment under the probed profile) and the per-round
-    ``seconds``.
+    final assignment under the probed profile), the per-round ``seconds``
+    and its ``executor``.
     """
     device = resolve_device(device)
     if pts is None:
@@ -125,40 +128,41 @@ def run(
     cells = []
     for scheme in SCHEMES:
         for scen_name in SCENARIOS:
-            q = probes[scen_name]
-            a = _assignment(scheme, n, s, seed, health=q)
-            scen = _scenario(scen_name, s, a, seed + 1)
-            sess = ResilienceSession(
-                a, elastic=ElasticPolicy(enabled=True, patience=2), device=device,
-            )
-            rec = {"scheme": scheme, "scenario": scen_name, "assignment": a,
-                   "alive": [], "events": [], "costs": [], "seconds": []}
-            for _ in range(rounds):
-                r0 = time.perf_counter()
-                step = next(scen)
-                ev = sess.observe(step)
-                if ev["patched"] and hasattr(scen, "rebind"):
-                    scen.rebind(sess.assignment)  # re-aim the adversary
-                alive = np.asarray(step.alive, bool)
-                cost = (sess.step_cost(pts, centers, alive, median=True)
-                        if alive.any() else None)
-                rec["seconds"].append(time.perf_counter() - r0)
-                rec["alive"].append(alive)
-                rec["events"].append(ev)
-                rec["costs"].append(cost)
-            rec.update(final=sess.assignment, stats=sess.stats.as_dict(),
-                       health=sess.node_health(),
-                       ect=expected_completion_time(sess.assignment, q))
-            cells.append(rec)
-            if verbose:
-                st = rec["stats"]
-                last = next((c for c in reversed(rec["costs"]) if c is not None), -1.0)
-                print(f"{scheme:>9s} × {scen_name:<11s} cost={last:.1f} "
-                      f"host_solves={st['host_solves']} device_solves={st['device_solves']} "
-                      f"patches={st['elastic_patches']} moved_blocks={st['moved_node_blocks']} "
-                      f"uncovered_rounds={st['uncovered_rounds']} "
-                      f"round_ms={1e3 * float(np.median(rec['seconds'])):.1f} "
-                      f"ewma_max={float(rec['health'].max()):.2f} ect={rec['ect']:.4g}")
+            for ex in executors:
+                q = probes[scen_name]
+                a = _assignment(scheme, n, s, seed, health=q)
+                scen = _scenario(scen_name, s, a, seed + 1)
+                sess = ResilienceSession(
+                    a, executor=ex, elastic=ElasticPolicy(enabled=True, patience=2), device=device,
+                )
+                rec = {"scheme": scheme, "scenario": scen_name, "executor": ex, "assignment": a,
+                       "alive": [], "events": [], "costs": [], "seconds": []}
+                for _ in range(rounds):
+                    r0 = time.perf_counter()
+                    step = next(scen)
+                    ev = sess.observe(step)
+                    if ev["patched"] and hasattr(scen, "rebind"):
+                        scen.rebind(sess.assignment)  # re-aim the adversary
+                    alive = np.asarray(step.alive, bool)
+                    cost = (sess.step_cost(pts, centers, alive, median=True)
+                            if alive.any() else None)
+                    rec["seconds"].append(time.perf_counter() - r0)
+                    rec["alive"].append(alive)
+                    rec["events"].append(ev)
+                    rec["costs"].append(cost)
+                rec.update(final=sess.assignment, stats=sess.stats.as_dict(),
+                           health=sess.node_health(),
+                           ect=expected_completion_time(sess.assignment, q))
+                cells.append(rec)
+                if verbose:
+                    st = rec["stats"]
+                    last = next((c for c in reversed(rec["costs"]) if c is not None), -1.0)
+                    print(f"{scheme:>9s} × {scen_name:<11s} {ex:<5s} cost={last:.1f} "
+                          f"host_solves={st['host_solves']} device_solves={st['device_solves']} "
+                          f"patches={st['elastic_patches']} moved_blocks={st['moved_node_blocks']} "
+                          f"uncovered_rounds={st['uncovered_rounds']} "
+                          f"round_ms={1e3 * float(np.median(rec['seconds'])):.1f} "
+                          f"ewma_max={float(rec['health'].max()):.2f} ect={rec['ect']:.4g}")
     return cells
 
 
@@ -168,8 +172,10 @@ def main(argv=None) -> None:
                     help="where to run (default: the card; raises without one)")
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--executor", choices=("local", "mesh", "both"), default="both")
     args = ap.parse_args(argv)
-    run(device=args.device, rounds=args.rounds, seed=args.seed)
+    executors = ("local", "mesh") if args.executor == "both" else (args.executor,)
+    run(device=args.device, rounds=args.rounds, seed=args.seed, executors=executors)
 
 
 if __name__ == "__main__":

@@ -63,8 +63,9 @@ class StreamSolveResult:
 
 class StreamingSession:
     """Streaming resilient clustering over redundantly-compacted coresets.
-    ``executor="mesh"`` raises until the ``torch.distributed`` executor is
-    ported (ROADMAP queue 1, item 9)."""
+    With ``executor="mesh"`` every rank of the mesh runs the session, its
+    compactions through ``MeshExecutor.replicated_compute``, and holds the
+    same tree."""
 
     def __init__(
         self,

@@ -251,8 +251,8 @@ def test_session_caches_solves_packs_and_device_copies():
     assert got["device_solves"] == got["elastic_patches"] == 0
     with pytest.raises(ValueError, match="no surviving"):
         sess.prepare(pts, np.zeros(5, bool))
-    with pytest.raises(NotImplementedError, match="queue 1, item 9"):
-        get_executor("mesh")
+    mesh = get_executor("mesh")  # the torch.distributed executor, a world of one here
+    assert mesh.name == "mesh" and mesh is get_executor("mesh") and mesh.num_devices == 1
 
 
 def test_entry_points_raise_without_a_card_and_device(monkeypatch):

@@ -39,6 +39,10 @@ are matrix-vector products, which TF32 never enters); the solve and the
 Lemma-3 combine make no synchronising call; an elastic patch rewrites only
 the moved node rows of the resident shards, in place.
 
+The mesh executor on the card: a world of one over NCCL and two ranks over
+gloo on one card run Algorithm 1 within 1e-5 of the local executor, with
+both kernels launched on every rank.
+
 Flash attention: f32 inputs rtol 1e-5, atol 1e-5 (the kernel sums three
 bf16 pieces of each f32 value on the tensor cores, about 2^-24 of each
 product, in another order than the plain version's f32 GEMMs); bf16 inputs
@@ -727,3 +731,31 @@ def test_warmups_report_no_error_on_card(cuda_device):
     # An entry that fails on the card is counted, not raised.
     bad = autotune.warmup([lambda: pd_ops.assign_min(c[None], c, impl="cuda")])
     assert (bad.warmed, bad.errors) == (0, 1)
+
+
+# ------------------------------------------------ the mesh executor on the card
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("world,backend", [(1, "nccl"), (2, "gloo")])
+def test_mesh_on_card_matches_the_local_executor(cuda_device, world, backend):
+    """Algorithm 1 through the mesh on the card (a world of one over NCCL;
+    two ranks over gloo, both on card 0) against the local executor, 1e-5
+    on the cost; the ranks identical by hash; both kernels launched on every
+    rank."""
+    from repro_torch.core import resilient_kmedian
+    from repro_torch.kernels import _build
+    from repro_torch.launch import distributed as mesh_dist
+    from repro_torch.launch import mesh_runs
+
+    _build.build(("assign_min", "weighted_segsum"))  # once, before the ranks load them
+    n, d, k, s, seed = 20000, 16, 8, 6, 0
+    mesh = mesh_dist.run_ranks(mesh_runs.alg1_rank, world, backend=backend, device="cuda", timeout=300,
+                               args=(n, d, k, s, seed))
+    pts, a, alive = mesh_runs.alg1_problem(n, d, k, s, seed)
+    local = resilient_kmedian(pts, k, a, alive, local_iters=5, coord_iters=8, seed=seed, device=cuda_device)
+    assert mesh["describe"] == f"mesh[{world}x{torch.cuda.get_device_name(0)}/{backend}]"
+    assert mesh["lockstep"]
+    assert abs(mesh["cost"] / local.cost - 1.0) <= 1e-5
+    assert len(mesh["launches"]) == world
+    assert all(c["assign_min"] > 0 and c["weighted_segsum"] > 0 for c in mesh["launches"])

@@ -19,8 +19,8 @@ and ``jax.random`` draw different streams, so:
   exactly, and ``lloyd`` from the same ``init_centers`` over it within
   1e-4 of the reference's.
 
-The mesh tests of ``tests/test_stream.py`` wait for the
-``torch.distributed`` executor (ROADMAP queue 1, item 9).
+The mesh tests of ``tests/test_stream.py`` have their twins in
+``tests/test_torch_mesh.py``.
 """
 
 import jax
@@ -395,8 +395,9 @@ def test_streamed_model_cost_stays_in_the_merge_and_reduce_band(seed):
 def test_session_validation_and_env_defaults(monkeypatch):
     with pytest.raises(ValueError, match="nodes"):
         StreamingSession(D, K, num_nodes=S, scenario=make_scenario("iid", S + 1), device=CPU)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        StreamingSession(D, K, num_nodes=S, executor="mesh", device=CPU)
+    mesh = StreamingSession(D, K, num_nodes=S, executor="mesh", device=CPU)
+    assert mesh.resilience.executor.name == "mesh"
+    assert mesh.ingest(np.zeros((8, D), np.float32))["pending"] == 8
     monkeypatch.setenv("REPRO_STREAM_LEAF_SIZE", "96")
     monkeypatch.setenv("REPRO_STREAM_FANOUT", "5")
     sess = StreamingSession(D, K, num_nodes=S, device=CPU)
