@@ -9,10 +9,10 @@ paper's size and at full width, runs the elastic resilience runtime
 placement), runs Algorithm 1, the session and the streaming tree through
 the torch.distributed mesh executor (a world of one over NCCL, two ranks
 over gloo), runs the streaming clustering service (the coreset tree, the
-query engine, the micro-batching frontend) on the same 1M points, and
-serves qwen3-4b at full width and depth (prefill and greedy decode), and
-fails loudly: there is no CPU fallback and
-no caught phase.  Every phase prints its seconds beside the card's name and
+query engine, the micro-batching frontend) on the same 1M points,
+serves qwen3-4b and the MoE model deepseek-moe-16b at full width and depth
+(prefill and greedy decode) and moonshot-v1-16b-a3b at full width, and
+fails loudly: there is no CPU fallback and no caught phase.  Every phase prints its seconds beside the card's name and
 power limit.
 
 Phases:
@@ -26,7 +26,8 @@ Phases:
                  T < S case (2, 300, 337, 8, 2, 128) and the prefill shape
                  (4, 2048, 2048, 32, 8, 128) (the tma-wgmma kernel), the
                  T < S case (1, 16, 32, 4, 2, 16) and f32 (the mma-sync
-                 one); pairwise_sqdist at its edges
+                 one), and the MoE prefill shape (4, 2048, 2048, 16, 16,
+                 128) (group size 1); pairwise_sqdist at its edges
                  and at (1,000,000 x 128) x (256 x 128), the op's own path:
                  launch counts are read just around that call
   5. paper size  the twin of examples/quickstart.py; the p_a=0.2 run is
@@ -114,7 +115,29 @@ Phases:
                  batch 4, prompt 16, gen 32, no flash launch; then one
                  prefill and 8 decode steps under torch.profiler (kernel
                  time by name, device idle share)
-  14. timing     each kernel, its plain version and one library call
+  14. serve moe  deepseek-moe-16b (28 layers, d_model 2048, 16 heads over 16
+                 KV heads, 64 routed experts top-6 of width 1408, 2 shared,
+                 softmax router, vocab 102400; 16.879 B parameters), drawn in
+                 bf16 on the card from --seed: (a) prefill of 4 x 2048 tokens,
+                 exactly 28 flash launches, seconds, tokens/s, peak memory;
+                 (b) the kernel prefill again and the plain-attention one,
+                 each layer's routing recorded (each token's experts, each
+                 expert's kept tokens; models.moe.recorded_routing): with
+                 no routing difference the logits within 2e-2, else every
+                 K cache up to and including the first layer that differs
+                 within 2e-2 relative in norm; then the plain prefill with
+                 the kernel run's routing replayed, its logits and every
+                 layer's K and V caches within 2e-2; (c)
+                 greedy_generate, batch 4, prompt 16, gen 32 (capacity 1 a
+                 step), no kernel launch; (d) one prefill and 8 decode
+                 steps under torch.profiler; (b') the comparisons of (b) in
+                 f32 (the mma-sync kernel) at full width, depth cut to 4
+                 layers, at 1e-4, and a control that must exceed 1e-4:
+                 the replayed plain prefill with TF32 matmuls; (e)
+                 moonshot-v1-16b-a3b (sigmoid router,
+                 top-k renormalised) at full width, depth cut 48 -> 4, bf16:
+                 prefill (4 flash launches), 8 decode steps, and (b)'s check
+  15. timing     each kernel, its plain version and one library call
                  (weighted_segsum also at the coordinator's (1, 2560, 256,
                  128), with its launches in Algorithm 1 by shape); the
                  bound of rows assign_min and pairwise_sqdist is three TF32
@@ -123,7 +146,8 @@ Phases:
                  row adds the floor of its split p (1.5 x its bound); these
                  computed figures and the shapes go on the printed timing
                  lines, the kernels line holds the measured numbers and
-                 bound_ms
+                 bound_ms; flash is timed at the MoE shape too, and its row
+                 lists its launches by path
 
 The last two lines are the card's name and power limit and
 {"ok": true, "device": {...}}; the line before them lists the kernels.
@@ -243,6 +267,7 @@ def main() -> int:
     from repro_torch.kernels import _build, autotune, dispatch
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models import transformer as T
     from repro_torch.models.registry import get_config
     from repro_torch.obs import Histogram
@@ -337,13 +362,13 @@ def main() -> int:
         print(f"weighted_segsum {tag}: x {tuple(x.shape)} k={k} max_abs_err={err:.3e} "
               f"max_err/sum|w*x|={rel:.2e} bitwise-reproducible")
 
-    def check_flash(tag, B, Tq, S, H, KV, dh, dtype=torch.bfloat16):
+    def check_flash(tag, B, Tq, S, H, KV, dh, dtype=torch.bfloat16, g=gen):
         """The kernel against the plain version on random inputs: rtol 2^-7,
         atol 1e-3 in bf16 (both round the output to bf16 after f32 sums in
         other orders); rtol 1e-5, atol 1e-5 in f32."""
-        q = torch.randn((B, Tq, H, dh), generator=gen, device=dev).to(dtype)
-        k = torch.randn((B, S, KV, dh), generator=gen, device=dev).to(dtype)
-        v = torch.randn((B, S, KV, dh), generator=gen, device=dev).to(dtype)
+        q = torch.randn((B, Tq, H, dh), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, S, KV, dh), generator=g, device=dev).to(dtype)
+        v = torch.randn((B, S, KV, dh), generator=g, device=dev).to(dtype)
         got = fa_ops.flash_attention(q, k, v)
         want = fa_ops.flash_attention(q, k, v, impl="torch_ref")
         sync()
@@ -467,6 +492,10 @@ def main() -> int:
         check_flash("T<S", 1, 16, 32, 4, 2, 16)
         check_flash("prefill", 4, 2048, 2048, 32, 8, 128)
         check_flash("ragged f32", 2, 100, 100, 8, 2, 64, dtype=torch.float32)
+        # deepseek-moe-16b's prefill: group size 1 (H = KV = 16); inputs from
+        # a generator of their own, so the draws of later phases stay as they were.
+        check_flash("prefill moe H=KV=16", 4, 2048, 2048, 16, 16, 128,
+                    g=torch.Generator(device=dev).manual_seed(args.seed))
 
         # pairwise_sqdist: ragged n and k, odd d, k = 1, k over one tile,
         # duplicate rows, n = 0; then the op's own path at full width, its
@@ -1368,6 +1397,215 @@ def main() -> int:
         print(f"max_memory_allocated (f32 weights + bf16 copy + activations): {peak:.3f} GiB")
         del model, served
 
+    def moe_param_count(cfg):
+        """The parameters of an attn_moe model from its config's widths."""
+        d, m = cfg.d_model, cfg.moe
+        attn = d * cfg.head_dim * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+        moe = d * m.num_experts + 3 * m.num_experts * d * m.d_expert + 3 * d * m.d_expert * m.num_shared
+        return cfg.n_layers * (attn + moe + 2 * d) + 2 * cfg.vocab * d + d
+
+    def kernel_vs_plain(tag, served, cfg, tokens, tol):
+        """The prefill through the kernel, then through the plain attention
+        twice, each run's routing recorded (``models.moe.recorded_routing``).
+        The free plain run is held by the flip rule: with no routing
+        difference the last-position logits lie within ``tol`` of their
+        scale (max|a-b|/max|b|, as phase "serve" holds them); otherwise every
+        layer up to and including the first that differs has its K cache
+        within ``tol`` relative in norm.  The second plain run replays the
+        kernel run's decisions, so the two differ only in arithmetic: its
+        logits and every layer's K and V caches must lie within ``tol``.
+        Returns (the kernel run's logits, its routing log, the replayed plain
+        run's logits)."""
+        plain = D.make_prefill_fn(cfg, T.ModelContext(attn_impl="torch_ref"))
+        with moe_mod.recorded_routing() as log_k:
+            logits, cache = D.make_prefill_fn(cfg, T.ModelContext())(served, {"tokens": tokens})
+        with moe_mod.recorded_routing() as log_p:
+            t0 = time.perf_counter()
+            logits_p, cache_p = plain(served, {"tokens": tokens})
+            sync()
+            ref_s = time.perf_counter() - t0
+        differ = moe_mod.routing_differences(log_k, log_p)
+        first = next((li for li, n in enumerate(differ) if n), None)
+
+        def cache_gap(a, b, key):
+            return [float(torch.linalg.vector_norm(x[key].float() - y[key].float())
+                          / torch.linalg.vector_norm(y[key].float())) for x, y in zip(a, b)]
+
+        def logits_gap(a, b):
+            a, b = a.float()[:, 0], b.float()[:, 0]
+            if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+                raise AssertionError(f"{tag}: prefill logits are not finite")
+            return float((a - b).abs().max() / b.abs().max())
+
+        k_gap, gap = cache_gap(cache, cache_p, "k"), logits_gap(logits, logits_p)
+        print(f"{tag}: plain-attention prefill {ref_s:.3f} s; routing decisions that differ "
+              f"{sum(differ)} (by layer {differ}), first layer with a difference {first}; "
+              f"last-position logits max|a-b|/max|b| {gap:.3e}; argmax agrees per request "
+              f"{(logits[:, 0].argmax(-1) == logits_p[:, 0].argmax(-1)).tolist()}")
+        print(f"{tag}: relative gap of the K cache by layer {[round(g, 6) for g in k_gap]}")
+        if first is None:
+            if gap > tol:
+                raise AssertionError(f"{tag}: no routing difference, yet the logits differ by {gap:.3e} of "
+                                     f"their scale (> {tol:g})")
+        else:
+            far = [li for li in range(first + 1) if k_gap[li] > tol]
+            if far:
+                raise AssertionError(f"{tag}: K caches of layers {far}, at or before the first routing "
+                                     f"difference (layer {first}), differ by more than {tol:g}")
+        del cache_p, logits_p
+        with moe_mod.recorded_routing(replay=log_k):
+            logits_r, cache_r = plain(served, {"tokens": tokens})
+        gap = logits_gap(logits, logits_r)
+        k_gap, v_gap = cache_gap(cache, cache_r, "k"), cache_gap(cache, cache_r, "v")
+        print(f"{tag}: plain prefill given the kernel run's routing: last-position logits max|a-b|/max|b| "
+              f"{gap:.3e}; worst K / V cache gap {max(k_gap):.3e} / {max(v_gap):.3e} (layers "
+              f"{k_gap.index(max(k_gap))} / {v_gap.index(max(v_gap))})")
+        far = [li for li in range(cfg.n_layers) if max(k_gap[li], v_gap[li]) > tol]
+        if gap > tol or far:
+            raise AssertionError(f"{tag}: with the routing replayed, the logits differ by {gap:.3e} of their "
+                                 f"scale and the caches of layers {far} by more than {tol:g}")
+        del cache, cache_r
+        return logits, log_k, logits_r
+
+    with phase("serve moe"):
+        # (a) deepseek-moe-16b at full width and depth, drawn in bf16 on the
+        # card: an f32 tree (67.5 GB) and its bf16 copy would not fit.
+        cfg = get_config("deepseek-moe-16b", param_dtype="bfloat16")
+        B_s, T_s, prompt_len, gen_len = 4, 2048, 16, 32
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        served = T.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(args.seed))
+        sync()
+        n_params = T.param_count(served)
+        print(f"deepseek-moe-16b: {n_params / 1e9:.3f} B parameters ({n_params:,}; {cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, {cfg.moe.num_experts} experts top-"
+              f"{cfg.moe.top_k} of width {cfg.moe.d_expert}, {cfg.moe.num_shared} shared, "
+              f"{cfg.moe.router_score} router, vocab {cfg.vocab}); drawn in bf16 on the card in "
+              f"{time.perf_counter() - t0:.3f} s; {torch.cuda.memory_allocated() / 2**30 - base:.3f} GiB")
+        if n_params != moe_param_count(cfg):
+            raise AssertionError(f"deepseek-moe-16b holds {n_params} parameters, its widths give {moe_param_count(cfg)}")
+        if served.blocks[0].moe.router.dtype != torch.bfloat16 or served.blocks[0].moe.w_gate.dtype != torch.bfloat16:
+            raise AssertionError("deepseek-moe-16b: expected its weights in bf16")
+        tokens = torch.randint(0, cfg.vocab, (B_s, T_s), device=dev,
+                               generator=torch.Generator(device=dev).manual_seed(args.seed))
+        prefill = D.make_prefill_fn(cfg, T.ModelContext())
+        prefill(served, {"tokens": tokens[:, :64]})  # warm-up
+        sync()
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill(served, {"tokens": tokens})
+        sync()
+        moe_prefill_s = time.perf_counter() - t0
+        moe_counts = dispatch.launch_counts()
+        print(f"(a) prefill {B_s} x {T_s} tokens: {moe_prefill_s:.3f} s  ({B_s * T_s / moe_prefill_s:.0f} tokens/s)  "
+              f"launches {moe_counts}  peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  [{card}]")
+        if moe_counts.get("flash_attention") != cfg.n_layers or sum(moe_counts.values()) != cfg.n_layers:
+            raise AssertionError(f"MoE prefill launched {moe_counts}, expected {cfg.n_layers} flash_attention")
+        if logits.shape != (B_s, 1, cfg.vocab) or len(cache) != cfg.n_layers:
+            raise AssertionError(f"MoE prefill returned logits {tuple(logits.shape)} and {len(cache)} cache layers")
+        if cache[-1]["k"].shape != (B_s, T_s, cfg.n_kv_heads, cfg.head_dim) or not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"MoE prefill cache of shape {tuple(cache[-1]['k'].shape)}, or logits not finite")
+        del cache
+
+        # (b) the same prefill through the plain attention, by the flip rule;
+        # the kernel run again beside (a): bf16 scatter-adds are atomics.
+        again, _, _ = kernel_vs_plain("(b) bf16", served, cfg, tokens, 2e-2)
+        la, lb = again.float()[:, 0], logits.float()[:, 0]
+        print(f"(b) two kernel prefills: last-position logits max|a-b|/max|b| "
+              f"{float((la - lb).abs().max() / lb.abs().max()):.3e}")
+        del again, logits
+
+        # (c) greedy decode: capacity max(1, int(4 * 6 * 1.25 / 64)) = 1 a step
+        prompt = tokens[:, :prompt_len].contiguous()
+        D.greedy_generate(served, cfg, prompt[:, :2], steps=2)  # warm-up
+        dispatch.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        out = D.greedy_generate(served, cfg, prompt, steps=gen_len)
+        sync()
+        moe_dec_s = time.perf_counter() - t0
+        dec_counts = dispatch.launch_counts()
+        steps = prompt_len + gen_len
+        print(f"(c) greedy_generate batch {B_s}, prompt {prompt_len}, gen {gen_len}: {moe_dec_s:.3f} s, "
+              f"{B_s * gen_len / moe_dec_s:.1f} generated tokens/s ({1e3 * moe_dec_s / steps:.2f} ms/step)  "
+              f"launches {dec_counts}  [{card}]")
+        if sum(dec_counts.values()) != 0:
+            raise AssertionError(f"MoE decode launched {dec_counts}")
+        if out.shape != (B_s, gen_len) or bool((out < 0).any() or (out >= cfg.vocab).any()):
+            raise AssertionError(f"greedy_generate returned {tuple(out.shape)} or ids outside the vocab")
+        print(f"row 0: {out[0].tolist()}")
+
+        # (d) where the time goes
+        busy = profiled(f"MoE prefill {B_s} x {T_s}", lambda: prefill(served, {"tokens": tokens}), top=10)
+        print(f"MoE prefill device busy {busy:.3f} s of {moe_prefill_s:.3f} s unprofiled "
+              f"(idle share {1 - busy / moe_prefill_s:.3f})")
+        busy = profiled("MoE greedy_generate, prompt 4, gen 4 (8 steps)",
+                        lambda: D.greedy_generate(served, cfg, prompt[:, :4], steps=4), top=10)
+        print(f"MoE decode device busy {1e3 * busy / 8:.3f} ms per step of {1e3 * moe_dec_s / steps:.3f} ms "
+              f"unprofiled (idle share {1 - busy / 8 / (moe_dec_s / steps):.3f})")
+        print(f"deepseek-moe-16b max_memory_allocated (bf16 weights, caches, activations): "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  [{card}]")
+        del served, out
+        torch.cuda.empty_cache()
+
+        # (b') f32 at full width, depth cut to 4 layers: the mma-sync kernel,
+        # whose f32 products run as bf16 pieces on the tensor cores (~1e-5 of
+        # an attention output at this shape), so 1e-4 of the logits' scale.
+        # The control: the replayed plain prefill with TF32 matmuls must part
+        # from the f32 one by more than that, or the check could not tell.
+        cfg32 = get_config("deepseek-moe-16b", n_layers=4, compute_dtype="float32")
+        served = T.init_params(cfg32, generator=torch.Generator(device=dev).manual_seed(args.seed))
+        _, log_k, logits_r = kernel_vs_plain("(b') f32, 4 of 28 layers", served, cfg32, tokens, 1e-4)
+        tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with moe_mod.recorded_routing(replay=log_k):
+                logits_c, _ = D.make_prefill_fn(cfg32, T.ModelContext(attn_impl="torch_ref"))(
+                    served, {"tokens": tokens})
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+        a, b = logits_c.float()[:, 0], logits_r.float()[:, 0]
+        control = float((a - b).abs().max() / b.abs().max())
+        print(f"(b') control: the same replayed plain prefill with TF32 matmuls, last-position logits "
+              f"max|a-b|/max|b| {control:.3e} against the f32 one (limit 1e-4)  [{card}]")
+        if not control > 1e-4:
+            raise AssertionError(f"(b'): TF32 arithmetic parts by only {control:.3e}: the 1e-4 check cannot tell it")
+        del served, log_k, logits_r, logits_c
+        torch.cuda.empty_cache()
+
+        # (e) moonshot-v1-16b-a3b at full width, depth cut 48 -> 4 layers: the
+        # sigmoid router with top-k renormalisation
+        cfg_m = get_config("moonshot-v1-16b-a3b", n_layers=4, param_dtype="bfloat16")
+        served = T.init_params(cfg_m, generator=torch.Generator(device=dev).manual_seed(args.seed))
+        tokens_m = torch.randint(0, cfg_m.vocab, (B_s, T_s), device=dev,
+                                 generator=torch.Generator(device=dev).manual_seed(args.seed))
+        dispatch.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        logits_m, _ = D.make_prefill_fn(cfg_m, T.ModelContext())(served, {"tokens": tokens_m})
+        sync()
+        m_s = time.perf_counter() - t0
+        m_counts = dispatch.launch_counts()
+        t0 = time.perf_counter()
+        out_m = D.greedy_generate(served, cfg_m, tokens_m[:, :8].contiguous(), steps=8)
+        sync()
+        m_dec = time.perf_counter() - t0
+        dec_counts = dispatch.launch_counts()
+        print(f"(e) moonshot-v1-16b-a3b (depth cut 48 -> 4 layers; full width: {T.param_count(served) / 1e9:.3f} B "
+              f"parameters held): prefill {B_s} x {T_s} {m_s:.3f} s (first call), launches {m_counts}; greedy "
+              f"prompt 8 gen 8 {1e3 * m_dec / 16:.2f} ms/step, launches after it {dec_counts}  [{card}]")
+        if m_counts.get("flash_attention") != cfg_m.n_layers or dec_counts != m_counts:
+            raise AssertionError(f"moonshot: prefill launched {m_counts}, decode added {dec_counts}")
+        if logits_m.shape != (B_s, 1, cfg_m.vocab) or not bool(torch.isfinite(logits_m).all()):
+            raise AssertionError("moonshot: prefill logits of the wrong shape or not finite")
+        if out_m.shape != (B_s, 8) or bool((out_m < 0).any() or (out_m >= cfg_m.vocab).any()):
+            raise AssertionError("moonshot: greedy ids outside the vocab")
+        kernel_vs_plain("(e) moonshot bf16", served, cfg_m, tokens_m, 2e-2)
+        del served, logits_m
+        torch.cuda.empty_cache()
+
     with phase("timing"):
         def cuda_ms(fn, reps):
             fn()
@@ -1471,6 +1709,9 @@ def main() -> int:
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:29",
             "launches": serve_counts["flash_attention"], "max_abs_err": errs["flash_attention"],
+            "launches_by_path": {"serve qwen3-4b prefill": serve_counts["flash_attention"],
+                                 "serve moe deepseek-moe-16b prefill": moe_counts["flash_attention"],
+                                 "serve moe moonshot-v1-16b-a3b prefill (4 layers)": m_counts["flash_attention"]},
             "ms": cuda_ms(lambda: fa_ops.flash_attention(fq, fk, fv), 20),
             "plain_ms": cuda_ms(lambda: fa_ops.flash_attention(fq, fk, fv, impl="torch_ref"), 3),
             "bound_ms": f_bound, "bound_by": f_by,
@@ -1485,6 +1726,21 @@ def main() -> int:
             "fp32_bound_ms": 1e3 * f_flops / PEAK_FP32_FLOPS,
             "bytes_bound_ms": 1e3 * f_bytes / PEAK_BYTES,
         }
+        # ... and at deepseek-moe-16b's prefill shape: group size 1, half the heads
+        mH = mKV = 16
+        mq = torch.randn((fB, fT, mH, fdh), generator=gen, device=dev).bfloat16()
+        mk = torch.randn((fB, fT, mKV, fdh), generator=gen, device=dev).bfloat16()
+        mv = torch.randn((fB, fT, mKV, fdh), generator=gen, device=dev).bfloat16()
+        m_flops = 4.0 * fB * mH * fdh * (fT * (fT + 1) / 2)
+        m_bytes = 2.0 * (2 * fB * fT * mH * fdh + 2 * fB * fT * mKV * fdh)
+        mqh, mkh, mvh = (t.transpose(1, 2).contiguous() for t in (mq, mk, mv))
+        beside["flash_attention"].update({
+            "moe_shape": [fB, fT, fT, mH, mKV, fdh],
+            "moe_ms": cuda_ms(lambda: fa_ops.flash_attention(mq, mk, mv), 20),
+            "moe_plain_ms": cuda_ms(lambda: fa_ops.flash_attention(mq, mk, mv, impl="torch_ref"), 3),
+            "moe_library_ms": cuda_ms(lambda: sdpa(mqh, mkh, mvh, is_causal=True), 20),
+            "moe_bound_ms": 1e3 * max(m_flops / PEAK_BF16_FLOPS, m_bytes / PEAK_BYTES),
+        })
         # pairwise_sqdist at its full-width path shape: the full (n, k) output.
         n_q, k_q = pts_d.shape[0], k_full
         q_flops = 2.0 * n_q * k_q * d_full

@@ -105,7 +105,10 @@ def transformer_params_from_jax(tree) -> dict[str, torch.Tensor]:
     dict of :class:`repro_torch.models.transformer.Transformer` (CPU tensors).
 
     The leaves of ``tree["unit"]["slot<i>"]`` carry a leading ``reps`` axis;
-    layer ``r·len(unit) + i`` is rep ``r`` of slot ``i``.
+    layer ``r·len(unit) + i`` is rep ``r`` of slot ``i``.  Nested dicts give
+    dotted names, so an ``attn_moe`` layer's subtree lands as
+    ``blocks.<l>.moe.router``, ``blocks.<l>.moe.w_gate`` …
+    ``blocks.<l>.moe.shared.down``, the names of :class:`~repro_torch.models.moe.MoE`.
     """
     if "tail" in tree:
         raise NotImplementedError("transformer_params_from_jax: tail blocks are not ported yet")

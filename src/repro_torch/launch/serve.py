@@ -1,13 +1,15 @@
-"""Serving launcher: batched decode for a registered dense architecture (the
-counterpart of the reference's ``launch/serve.py``).
+"""Serving launcher: batched decode for a registered architecture, dense or
+MoE (the counterpart of the reference's ``launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --scale smoke \\
         --batch 4 --prompt-len 16 --gen 32 --device cpu
 
 Runs on the card by default (``--device cuda``); ``--scale full`` is the
-architecture's own config.  Weights are random from a fixed seed.  The
-weights are cast to the compute dtype once, before the run; the tokens/s is
-timed on the device's clock (after a synchronize on the card).
+architecture's own config.  Weights are random from a fixed seed, drawn
+directly in the compute dtype that the matmuls read (the reference draws
+f32 and casts per call; drawn so, deepseek-moe-16b's 16.9 B parameters fit
+one 80 GB card, where an f32 tree and its bf16 copy would not).  The
+tokens/s is timed on the device's clock (after a synchronize on the card).
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from ..models import transformer as T
 from ..models.registry import get_config
 from ..serve.decode import greedy_generate
 
-# The reference's scales (its launch/train.py), dense configs only.
+# The reference's scales (its launch/train.py).
 _SCALES = {
     # (d_model, n_layers, heads, kv, d_ff, vocab, head_dim)
     "smoke": dict(d_model=128, n_layers=4, n_heads=4, n_kv_heads=2, d_ff=384,
@@ -35,9 +37,17 @@ _SCALES = {
 
 
 def scaled_config(arch: str, scale: str):
+    """The architecture at a scale, as the reference's launcher sizes it: an
+    MoE config keeps its routing but takes 8 experts, top-2, width 64, one
+    shared expert, and as many KV heads as query heads."""
     cfg = get_config(arch)
     if _SCALES[scale] is not None:
-        cfg = dataclasses.replace(cfg, **_SCALES[scale])
+        over = dict(_SCALES[scale])
+        if cfg.moe is not None:
+            over.pop("d_ff")
+            over["moe"] = dataclasses.replace(cfg.moe, num_experts=8, top_k=2, d_expert=64, num_shared=1)
+            over["n_kv_heads"] = over["n_heads"]
+        cfg = dataclasses.replace(cfg, **over)
     return cfg.validate()
 
 
@@ -53,9 +63,9 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     cfg = scaled_config(args.arch, args.scale)
+    cfg = dataclasses.replace(cfg, param_dtype=cfg.compute_dtype)
     device = resolve_device(args.device)
     model = T.init_params(cfg, generator=torch.Generator(device=device).manual_seed(0))
-    model = T.cast_params(model, cfg)
     gen = torch.Generator(device=device).manual_seed(1)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen, device=device)
 

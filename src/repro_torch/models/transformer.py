@@ -1,5 +1,5 @@
-"""Decoder assembly for the dense ``attn_mlp`` family (the serving subset of
-the reference's ``models/transformer.py``).
+"""Decoder assembly for the ``attn_mlp`` and ``attn_moe`` families (the
+serving subset of the reference's ``models/transformer.py``).
 
 The model is an ``nn.Module`` tree: an embedding, one :class:`Block` per
 layer in a ``ModuleList``, a final norm and a head.  The reference stacks
@@ -11,12 +11,12 @@ every matmul casts its weight to ``compute_dtype`` as the reference does;
 ``compute_dtype``, so the casts do nothing.
 
 Entry points:
-  * :func:`forward_train` — (B, T) tokens → logits (forward only for now;
-    the decode oracle of the tests)
+  * :func:`forward_train` — (B, T) tokens → logits and the layers' summed
+    MoE aux loss (forward only for now; the decode oracle of the tests)
   * :func:`prefill` / :func:`decode_step` — serving with a per-layer K/V
     cache; ``decode_step`` writes the cache in place
 
-MoE, xLSTM, RG-LRU and local-attention blocks, the modality frontends,
+xLSTM, RG-LRU and local-attention blocks, the modality frontends,
 ``loss_fn`` and meshes are not ported yet; they raise with the ROADMAP item
 that ports them.
 """
@@ -31,6 +31,7 @@ from torch import nn
 
 from . import attention as A
 from . import layers as L
+from . import moe as M
 from .registry import ModelConfig
 
 __all__ = [
@@ -47,10 +48,10 @@ __all__ = [
     "prefill",
 ]
 
+_BLOCKS = ("attn_mlp", "attn_moe")  # the block types the port runs
 # Block types of the reference that the port does not run yet, with the
 # ROADMAP item (queue 1) that ports them.
 _UNPORTED_BLOCKS = {
-    "attn_moe": "item 13.1 (MoE blocks)",
     "mlstm": "item 13.2 (xLSTM blocks)",
     "slstm": "item 13.2 (xLSTM blocks)",
     "rglru_mlp": "item 13.3 (RG-LRU and local attention)",
@@ -75,7 +76,7 @@ class ModelContext:
 
 def _check_supported(cfg: ModelConfig) -> None:
     for bt in cfg.block_types:
-        if bt != "attn_mlp":
+        if bt not in _BLOCKS:
             raise NotImplementedError(
                 f"{cfg.name}: block type {bt!r} is not ported yet: ROADMAP queue 1, "
                 f"{_UNPORTED_BLOCKS.get(bt, 'item 13')}")
@@ -92,15 +93,20 @@ def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 class Block(nn.Module):
-    """One ``attn_mlp`` layer: pre-norm GQA attention, pre-norm MLP."""
+    """One layer: pre-norm GQA attention, then a pre-norm MLP
+    (``attn_mlp``) or routed experts (``attn_moe``, parameters ``moe``)."""
 
-    def __init__(self, cfg: ModelConfig, *, dtype, device, generator):
+    def __init__(self, cfg: ModelConfig, block_type: str, *, dtype, device, generator):
         super().__init__()
         kw = dict(dtype=dtype, device=device, generator=generator)
+        self.block_type = block_type
         self.attn_norm = L.rmsnorm_init(cfg.d_model, dtype=dtype, device=device)
         self.attn = A.attn_init(cfg, **kw)
         self.mlp_norm = L.rmsnorm_init(cfg.d_model, dtype=dtype, device=device)
-        self.mlp = L.mlp_init(cfg.d_model, cfg.d_ff, gated=cfg.mlp_act != "gelu", **kw)
+        if block_type == "attn_moe":
+            self.moe = M.MoE(cfg, **kw)
+        else:
+            self.mlp = L.mlp_init(cfg.d_model, cfg.d_ff, gated=cfg.mlp_act != "gelu", **kw)
 
 
 class Transformer(nn.Module):
@@ -112,7 +118,7 @@ class Transformer(nn.Module):
         embed = torch.randn((V, d), generator=generator, device=device, dtype=dtype)
         self.embed = nn.Parameter(embed.mul_(0.02), requires_grad=False)
         self.blocks = nn.ModuleList(
-            Block(cfg, dtype=dtype, device=device, generator=generator) for _ in range(cfg.n_layers)
+            Block(cfg, bt, dtype=dtype, device=device, generator=generator) for bt in cfg.block_types
         )
         self.final_norm = L.rmsnorm_init(d, dtype=dtype, device=device)
         if not cfg.tie_embeddings:
@@ -140,10 +146,14 @@ def model_from_state_dict(cfg: ModelConfig, state_dict) -> Transformer:
 def cast_params(model: Transformer, cfg: ModelConfig) -> Transformer:
     """A model whose embedding and matmul weights are held in
     ``compute_dtype``: the values every per-call cast would give, made once.
-    The norm scales, which the forward reads in f32, are shared as they are."""
+    The norm scales and the MoE routers, which the forward reads in f32,
+    are shared as they are (a rounded router would move routing decisions).
+    It serves a tree held in f32, such as one carried from the reference;
+    the MoE launcher and the smoke script draw their weights in the compute
+    dtype and never call it."""
     cd = _compute_dtype(cfg)
     sd = {
-        name: t if name.endswith("norm") else t.to(cd)
+        name: t if name.endswith(("norm", "moe.router")) else t.to(cd)
         for name, t in model.state_dict().items()
     }
     return model_from_state_dict(cfg, sd)
@@ -152,24 +162,31 @@ def cast_params(model: Transformer, cfg: ModelConfig) -> Transformer:
 # ------------------------------------------------------------------ blocks
 
 
+def _ffn(p: Block, xn2, cfg: ModelConfig):
+    """The block's feed-forward on the normed residual.  Returns (out in
+    xn2's dtype, MoE aux loss or None)."""
+    if p.block_type == "attn_moe":
+        return M.moe_apply(p.moe, xn2, cfg)
+    out = L.mlp_apply(p.mlp, xn2, act=cfg.mlp_act, compute_dtype=_compute_dtype(cfg))
+    return out.to(xn2.dtype), None
+
+
 def _block_apply(p: Block, x, cfg: ModelConfig, ctx: ModelContext, positions):
-    """Training/prefill forward of one ``attn_mlp`` block.  Returns (x, cache)."""
+    """Training/prefill forward of one block.  Returns (x, aux or None, cache)."""
     xn = L.rmsnorm(x, p.attn_norm, eps=cfg.rms_eps)
     a, (k, v) = A.attn_apply(p.attn, xn, cfg, positions=positions, impl=ctx.attn_impl)
     x = x + a
-    xn2 = L.rmsnorm(x, p.mlp_norm, eps=cfg.rms_eps)
-    x = x + L.mlp_apply(p.mlp, xn2, act=cfg.mlp_act, compute_dtype=_compute_dtype(cfg)).to(x.dtype)
-    return x, {"k": k, "v": v}
+    f, aux = _ffn(p, L.rmsnorm(x, p.mlp_norm, eps=cfg.rms_eps), cfg)
+    return x + f, aux, {"k": k, "v": v}
 
 
-def _block_decode(p: Block, x_t, cache, cur_len: int, cfg: ModelConfig):
-    """One-token decode of one ``attn_mlp`` block.  Returns (x_t, cache)."""
+def _block_decode(p: Block, x_t, cache, cur_len: int, cfg: ModelConfig, ctx: ModelContext):
+    """One-token decode of one block.  Returns (x_t, cache)."""
     xn = L.rmsnorm(x_t, p.attn_norm, eps=cfg.rms_eps)
     a, ck, cv = A.attn_decode_step(p.attn, xn, cache["k"], cache["v"], cur_len, cfg)
     x_t = x_t + a
-    xn2 = L.rmsnorm(x_t, p.mlp_norm, eps=cfg.rms_eps)
-    x_t = x_t + L.mlp_apply(p.mlp, xn2, act=cfg.mlp_act, compute_dtype=_compute_dtype(cfg)).to(x_t.dtype)
-    return x_t, {"k": ck, "v": cv}
+    f, _ = _ffn(p, L.rmsnorm(x_t, p.mlp_norm, eps=cfg.rms_eps), cfg)
+    return x_t + f, {"k": ck, "v": cv}
 
 
 # ------------------------------------------------------------------ embed
@@ -194,12 +211,15 @@ def _logits(model: Transformer, x, cfg: ModelConfig):
 
 @torch.no_grad()
 def forward_train(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
-    """Full forward.  Returns (logits (B, T, V), aux (0: no MoE), label_mask)."""
+    """Full forward.  Returns (logits (B, T, V), aux (the layers' MoE aux
+    losses summed, f32; 0 without MoE), label_mask)."""
     x, mask = _embed(model, batch, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    for blk in model.blocks:
-        x, _ = _block_apply(blk, x, cfg, ctx, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for blk in model.blocks:
+        x, a, _ = _block_apply(blk, x, cfg, ctx, positions)
+        if a is not None:
+            aux = aux + a
     return _logits(model, x, cfg), aux, mask
 
 
@@ -226,7 +246,7 @@ def decode_step(model: Transformer, cache, tokens_t, cur_len: int, cfg: ModelCon
     x = model.embed[tokens_t].to(_compute_dtype(cfg))
     new_cache = []
     for blk, c in zip(model.blocks, cache):
-        x, nc = _block_decode(blk, x, c, int(cur_len), cfg)
+        x, nc = _block_decode(blk, x, c, int(cur_len), cfg, ctx)
         new_cache.append(nc)
     return _logits(model, x, cfg), new_cache
 
@@ -239,6 +259,6 @@ def prefill(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     cache = []
     for blk in model.blocks:
-        x, c = _block_apply(blk, x, cfg, ctx, positions)
+        x, _, c = _block_apply(blk, x, cfg, ctx, positions)
         cache.append(c)
     return _logits(model, x[:, -1:], cfg), cache

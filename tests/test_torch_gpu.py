@@ -56,10 +56,11 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import qwen3_4b
+from repro_torch.configs import deepseek_moe_16b, qwen3_4b
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.models import moe as M
 from repro_torch.models import transformer as T
 from repro_torch.serve import decode as D
 from repro_torch.kernels.pairwise_dist import ops as pd_ops
@@ -460,6 +461,45 @@ def test_serving_on_card_prefills_through_the_kernel_and_decodes_without_it(cuda
     out = D.greedy_generate(model, cfg, tokens[:, :8], steps=4)
     assert dispatch.launch_counts()["flash_attention"] == before + cfg.n_layers  # decode: plain attention
     assert out.shape == (2, 4) and out.device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_moe_prefill_on_card_matches_its_cpu_run_by_the_flip_rule(cuda_device):
+    """deepseek-moe-16b's smoke model, bf16: the card's prefill (the flash
+    kernel, cuBLAS, atomic scatter-adds) against the same weights' CPU run.
+    An ulp at a near tie may flip a routing decision, so: with no routing
+    difference the logits lie within the bf16 band; otherwise every layer up
+    to and including the first that differs has its K cache within 2e-2
+    relative in norm (tests/test_torch_moe.py).  Then the card runs again
+    with the CPU run's decisions replayed, and the logits and every layer's
+    K and V caches lie within the band."""
+    cfg = deepseek_moe_16b.smoke_config()
+    cpu_model = T.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    model = T.model_from_state_dict(cfg, {k: v.to(cuda_device) for k, v in cpu_model.state_dict().items()})
+    tokens = torch.randint(0, cfg.vocab, (2, 100), generator=torch.Generator().manual_seed(1))
+    prefill = D.make_prefill_fn(cfg, T.ModelContext())
+    before = dispatch.launch_counts()["flash_attention"]
+    with M.recorded_routing() as got:
+        logits, cache = prefill(model, {"tokens": tokens.to(cuda_device)})
+    assert dispatch.launch_counts()["flash_attention"] == before + cfg.n_layers
+    with M.recorded_routing() as ref:
+        want, want_cache = prefill(cpu_model, {"tokens": tokens})
+    differ = M.routing_differences(got, ref)
+    first = next((li for li, c in enumerate(differ) if c), None)
+
+    def gap(c, li, key):
+        a, b = c[li][key].float().cpu(), want_cache[li][key].float()
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    if first is None:
+        torch.testing.assert_close(logits.float().cpu(), want.float(), rtol=2e-2, atol=2e-2)
+    for li in range(cfg.n_layers if first is None else first + 1):
+        assert gap(cache, li, "k") <= 2e-2, (li, differ)
+    with M.recorded_routing(replay=ref):
+        logits, cache = prefill(model, {"tokens": tokens.to(cuda_device)})
+    torch.testing.assert_close(logits.float().cpu(), want.float(), rtol=2e-2, atol=2e-2)
+    for li in range(cfg.n_layers):
+        assert gap(cache, li, "k") <= 2e-2 and gap(cache, li, "v") <= 2e-2, (li, differ)
 
 
 # ------------------------------------------------- the resilience runtime

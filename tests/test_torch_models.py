@@ -230,11 +230,17 @@ def test_cast_params_holds_the_per_call_cast():
 
 
 def test_dense_configs_registered_with_reference_shapes():
-    assert list_archs() == sorted(["qwen3-4b", "qwen3-8b", "qwen2.5-3b", "qwen3-1.7b"])
+    assert list_archs() == sorted(["qwen3-4b", "qwen3-8b", "qwen2.5-3b", "qwen3-1.7b",
+                                   "moonshot-v1-16b-a3b", "deepseek-moe-16b"])
     from repro.models.registry import get_config as j_get_config
 
     for arch in list_archs():
-        assert get_config(arch) == ModelConfig(**vars(j_get_config(arch)))
+        got, want = get_config(arch), j_get_config(arch)
+        # The two packages' MoEConfig are different classes: compared field by field.
+        assert (got.moe is None) == (want.moe is None)
+        if got.moe is not None:
+            assert dataclasses.asdict(got.moe) == dataclasses.asdict(want.moe)
+        assert got == ModelConfig(**{**vars(want), "moe": got.moe})
     full = get_config("qwen3-4b")
     assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads, full.head_dim, full.d_ff,
             full.vocab) == (36, 2560, 32, 8, 128, 9728, 151936)
@@ -248,9 +254,9 @@ def test_get_config_raises_for_non_dense(arch):
 
 def test_unported_blocks_and_mesh_raise():
     cfg = importlib.import_module("repro_torch.configs.qwen3_4b").smoke_config()
-    moe = dataclasses.replace(cfg, scan_unit=("attn_moe",))
-    with pytest.raises(NotImplementedError, match="item 13.1"):
-        T.init_params(moe, generator=torch.Generator())
+    xlstm = dataclasses.replace(cfg, scan_unit=("mlstm",))
+    with pytest.raises(NotImplementedError, match="item 13.2"):
+        T.init_params(xlstm, generator=torch.Generator())
     with pytest.raises(NotImplementedError, match="item 9"):
         T.ModelContext(mesh=object())
 
