@@ -10,9 +10,10 @@ placement), runs Algorithm 1, the session and the streaming tree through
 the torch.distributed mesh executor (a world of one over NCCL, two ranks
 over gloo), runs the streaming clustering service (the coreset tree, the
 query engine, the micro-batching frontend) on the same 1M points,
-serves qwen3-4b and the MoE model deepseek-moe-16b at full width and depth
-(prefill and greedy decode) and moonshot-v1-16b-a3b at full width, and
-fails loudly: there is no CPU fallback and no caught phase.  Every phase prints its seconds beside the card's name and
+serves qwen3-4b, the MoE model deepseek-moe-16b and the xLSTM model
+xlstm-1.3b at full width and depth (prefill and greedy decode) and
+moonshot-v1-16b-a3b at full width, and fails loudly: there is no CPU
+fallback and no caught phase.  Every phase prints its seconds beside the card's name and
 power limit.
 
 Phases:
@@ -120,14 +121,18 @@ Phases:
                  softmax router, vocab 102400; 16.879 B parameters), drawn in
                  bf16 on the card from --seed: (a) prefill of 4 x 2048 tokens,
                  exactly 28 flash launches, seconds, tokens/s, peak memory;
-                 (b) the kernel prefill again and the plain-attention one,
-                 each layer's routing recorded (each token's experts, each
-                 expert's kept tokens; models.moe.recorded_routing): with
+                 (b) the kernel prefill again, bit for bit equal to (a)'s:
+                 the logits and every layer's routing record (each token's
+                 experts, each expert's kept tokens; models.moe.
+                 recorded_routing); the plain-attention prefill, its routing
+                 recorded too: with
                  no routing difference the logits within 2e-2, else every
                  K cache up to and including the first layer that differs
                  within 2e-2 relative in norm; then the plain prefill with
                  the kernel run's routing replayed, its logits and every
-                 layer's K and V caches within 2e-2; (c)
+                 layer's K and V caches within 2e-2; the combine
+                 (models.moe._combine) against index_add_ at the prefill and
+                 the decode shape, timed, two combines bit for bit; (c)
                  greedy_generate, batch 4, prompt 16, gen 32 (capacity 1 a
                  step), no kernel launch; (d) one prefill and 8 decode
                  steps under torch.profiler; (b') the comparisons of (b) in
@@ -137,7 +142,21 @@ Phases:
                  moonshot-v1-16b-a3b (sigmoid router,
                  top-k renormalised) at full width, depth cut 48 -> 4, bf16:
                  prefill (4 flash launches), 8 decode steps, and (b)'s check
-  15. timing     each kernel, its plain version and one library call
+  15. serve xlstm  xlstm-1.3b (48 layers: 42 mLSTM, 6 sLSTM; d_model 2048,
+                 4 heads, mLSTM heads 1024 wide, vocab 50304; 3,631,155,536
+                 parameters, the count held to the one from the widths),
+                 drawn in bf16 on the card from --seed: (a) prefill of
+                 4 x 2048 tokens: seconds, tokens/s, peak memory, 0 kernel
+                 launches, finite logits (4, 1, 50304), {} a layer as the
+                 cache; (b) forward_train (chunkwise, two chunks of 256)
+                 against 512 teacher-forced decode_step calls on 4 x 512
+                 tokens: f32 at full width cut to 8 layers (7 mLSTM, 1
+                 sLSTM) within 5e-4 of the logits' scale (the reference's
+                 band for this comparison) beside a TF32 control that must
+                 exceed it, bf16 at 8 and at 48 layers printed; (c) greedy_generate, batch 4, prompt 16,
+                 gen 32, 0 kernel launches, the recurrent state's bytes;
+                 (d) one prefill and 8 decode steps under torch.profiler
+  16. timing     each kernel, its plain version and one library call
                  (weighted_segsum also at the coordinator's (1, 2560, 256,
                  128), with its launches in Algorithm 1 by shape); the
                  bound of rows assign_min and pairwise_sqdist is three TF32
@@ -226,6 +245,251 @@ def timed_steps(module, names, sync, log: list):
     finally:
         for name, fn in saved.items():
             setattr(module, name, fn)
+
+
+def profiled(tag, fn, top=12):
+    """Run fn under torch.profiler; print kernel time by name.  Returns
+    the seconds of kernel time (device busy)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    # Kernels only: an aten op's entry repeats the time of its kernels.
+    kernels = sorted(
+        (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        key=dev_us, reverse=True,
+    )
+    busy = sum(dev_us(e) for e in kernels) / 1e6
+    print(f"{tag} under the profiler: wall {wall:.3f} s, kernels {busy:.3f} s "
+          f"({100 * busy / wall:.1f}% of the profiled wall, which the profiler inflates)")
+    for e in kernels[:top]:
+        print(f"  {dev_us(e) / 1e3:10.1f} ms  {e.count:7d} launches  {e.key[:90]}")
+    return busy
+
+
+def cuda_ms(fn, reps):
+    """Milliseconds per call of fn on the card: CUDA events around ``reps``
+    calls after one warm-up call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def moe_combine_timing(seed: int, card: str) -> None:
+    """The MoE combine (``models.moe._combine``: each token's contributions
+    gathered and added in the reference's order) against ``index_add_``
+    (atomics) of the same weighted rows, at deepseek-moe-16b's prefill
+    shape (8192 tokens, 64 experts top-6, capacity 960, d_model 2048) and
+    its decode shape (4 tokens, capacity 1), timed in this call; two
+    combines must give the same bits."""
+    import torch
+
+    from repro_torch.models import moe as M
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for tag, n in (("prefill", 8192), ("decode", 4)):
+        E, k, d = 64, 6, 2048
+        cap = min(max(1, int(n * k * 1.25 / E)), n)
+        vals, experts = M._topk(torch.rand((n, E), generator=g, device=dev), k)
+        w = torch.zeros((n, E), device=dev).scatter_(1, experts, vals)
+        vals, idx = M._topk(w.T, cap)
+        out = torch.randn((E, cap, d), generator=g, device=dev).bfloat16()
+        flat_idx = idx.reshape(-1)
+
+        def atomics():
+            weighted = out * vals[..., None].bfloat16()
+            return torch.zeros((n, d), dtype=torch.bfloat16, device=dev).index_add_(
+                0, flat_idx, weighted.reshape(-1, d))
+
+        a, b = M._combine(out, idx, vals, n, k), M._combine(out, idx, vals, n, k)
+        x, y = atomics(), atomics()
+        ms, lib_ms = cuda_ms(lambda: M._combine(out, idx, vals, n, k), 20), cuda_ms(atomics, 20)
+        print(f"MoE combine at the {tag} shape ({n} tokens, capacity {cap}): {ms:.3f} ms, index_add_ "
+              f"{lib_ms:.3f} ms (weighting included in both); two combines bit for bit {torch.equal(a, b)}, "
+              f"two index_add_ bit for bit {torch.equal(x, y)}, combine vs index_add_ max|a-b| "
+              f"{float((a.float() - x.float()).abs().max()):.3e}  [{card}]")
+        if not torch.equal(a, b):
+            raise AssertionError(f"MoE combine at the {tag} shape: two runs differ")
+
+
+def xlstm_param_count(cfg) -> int:
+    """The parameters of an mLSTM/sLSTM model from its config's widths."""
+    d, H, W = cfg.d_model, cfg.n_heads, cfg.conv_width
+    di, dh, f = int(cfg.mlstm_proj_factor * d), d // H, int(cfg.slstm_proj_factor * d)
+    mlstm = 2 * d * di + W * di + di + 3 * di * di + 2 * (di * H + H) + di * d + d + di
+    slstm = 4 * (d * d + H * dh * dh + d) + d * d + 3 * d * f + 3 * d
+    kinds = cfg.block_types
+    return kinds.count("mlstm") * mlstm + kinds.count("slstm") * slstm + 2 * cfg.vocab * d + d
+
+
+def serve_xlstm(seed: int, card: str) -> None:
+    """Phase "serve xlstm": xlstm-1.3b at full width and depth in bf16, then
+    chunkwise against stepwise at depth 8 in f32 and bf16 and at full depth;
+    greedy decode; a profile.  No kernel of the port runs on this path."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    from repro_torch.serve import decode as D
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    ctx = T.ModelContext()
+    # (a) 48 layers (42 mLSTM, 6 sLSTM), drawn in bf16 on the card
+    cfg = get_config("xlstm-1.3b", param_dtype="bfloat16")
+    B_s, T_s, prompt_len, gen_len = 4, 2048, 16, 32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    served = T.init_params(cfg, generator=torch.Generator(device=dev).manual_seed(seed))
+    sync()
+    n_params = T.param_count(served)
+    kinds = cfg.block_types
+    print(f"xlstm-1.3b: {n_params:,} parameters ({kinds.count('mlstm')} mLSTM and {kinds.count('slstm')} sLSTM "
+          f"layers, d_model {cfg.d_model}, {cfg.n_heads} heads (mLSTM heads "
+          f"{int(cfg.mlstm_proj_factor * cfg.d_model) // cfg.n_heads} wide), vocab {cfg.vocab}); drawn in bf16 "
+          f"on the card in {time.perf_counter() - t0:.3f} s; "
+          f"{torch.cuda.memory_allocated() / 2**30 - base:.3f} GiB")
+    if n_params != xlstm_param_count(cfg):
+        raise AssertionError(f"xlstm-1.3b holds {n_params} parameters, its widths give {xlstm_param_count(cfg)}")
+    tokens = torch.randint(0, cfg.vocab, (B_s, T_s), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+    prefill = D.make_prefill_fn(cfg, ctx)
+    prefill(served, {"tokens": tokens[:, :64]})  # warm-up
+    sync()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(served, {"tokens": tokens})
+    sync()
+    prefill_s = time.perf_counter() - t0
+    counts = dispatch.launch_counts()
+    print(f"(a) prefill {B_s} x {T_s} tokens: {prefill_s:.3f} s  ({B_s * T_s / prefill_s:.0f} tokens/s)  "
+          f"launches {counts}  peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  [{card}]")
+    if sum(counts.values()) != 0:
+        raise AssertionError(f"xLSTM prefill launched {counts}; its path runs no kernel of the port")
+    if logits.shape != (B_s, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"xLSTM prefill logits of shape {tuple(logits.shape)} or not finite")
+    if cache != [{}] * cfg.n_layers:
+        raise AssertionError("xLSTM prefill returned a recurrent cache; the reference returns {} a layer")
+    del logits, cache
+
+    # (b) chunkwise (forward_train) against stepwise (decode_step, teacher-
+    # forced) on 4 x 512 tokens: two chunks of 256, the carry exercised.
+    toks = tokens[:, :512]
+
+    def gap(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def chunk_vs_step(tag, model, cfg_b, tol):
+        t0 = time.perf_counter()
+        full, _, _ = T.forward_train(model, {"tokens": toks}, cfg_b, ctx)
+        sync()
+        fwd_s = time.perf_counter() - t0
+        cache, steps = T.init_cache(cfg_b, B_s, toks.shape[1], device=dev), []
+        t0 = time.perf_counter()
+        for t in range(toks.shape[1]):
+            lg, cache = T.decode_step(model, cache, toks[:, t : t + 1], t, cfg_b, ctx)
+            steps.append(lg[:, 0])
+        sync()
+        dec_s = time.perf_counter() - t0
+        a, b = torch.stack(steps, 1).float(), full.float()
+        if not (bool(torch.isfinite(a).all()) and bool(torch.isfinite(b).all())):
+            raise AssertionError(f"{tag}: logits are not finite")
+        g = gap(a, b)
+        fro = float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+        print(f"{tag}: forward_train {fwd_s:.3f} s, {toks.shape[1]} decode steps {dec_s:.3f} s; logits "
+              f"max|a-b|/max|b| {g:.3e} (limit {tol}), |a-b|/|b| {fro:.3e}, argmax agrees "
+              f"{float((a.argmax(-1) == b.argmax(-1)).float().mean()):.4f}  [{card}]")
+        if tol is not None and g > tol:
+            raise AssertionError(f"{tag}: chunkwise and stepwise logits differ by {g:.3e} of their scale (> {tol:g})")
+        return a
+
+    # f32 at 5e-4 of the scale, the band of the reference's own chunkwise-
+    # against-stepwise test (tests/test_cells_property.py): the two forms are
+    # one function (an f64 twin agrees to 1e-13, tools/xlstm_f64_control.py),
+    # and f32 sums over heads of 1024 part them by ~1e-4.  The control: the
+    # forward with TF32 matmuls must part from the f32 decode by more.
+    cfg8 = get_config("xlstm-1.3b", n_layers=8, compute_dtype="float32")
+    model8 = T.init_params(cfg8, generator=torch.Generator(device=dev).manual_seed(seed))
+    stepwise = chunk_vs_step("(b) f32, 8 of 48 layers (7 mLSTM, 1 sLSTM)", model8, cfg8, 5e-4)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32, _, _ = T.forward_train(model8, {"tokens": toks}, cfg8, ctx)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    control = gap(tf32.float(), stepwise)
+    print(f"(b) control: the f32 forward with TF32 matmuls against the f32 decode: max|a-b|/max|b| "
+          f"{control:.3e} (must exceed 5e-4)  [{card}]")
+    if not control > 5e-4:
+        raise AssertionError(f"(b): TF32 arithmetic parts by only {control:.3e}: the 5e-4 check cannot tell it")
+    del stepwise, tf32
+    # bf16: printed.  The forward rounds the conv output, q and k to bf16 and
+    # the decode keeps them f32 (the reference's dtypes), and this random
+    # model amplifies the difference: the reference itself parts by 0.14-0.26
+    # on the CPU at d_model 64-256 (PERF.md).
+    cfg8b = get_config("xlstm-1.3b", n_layers=8)
+    chunk_vs_step("(b) bf16, 8 of 48 layers", T.cast_params(model8, cfg8b), cfg8b, None)
+    del model8
+    torch.cuda.empty_cache()
+    chunk_vs_step("(b) bf16, 48 layers", served, cfg, None)
+
+    # (c) greedy decode from the recurrent state: no KV cache
+    prompt = tokens[:, :prompt_len].contiguous()
+    D.greedy_generate(served, cfg, prompt[:, :2], steps=2)  # warm-up
+    dispatch.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    out = D.greedy_generate(served, cfg, prompt, steps=gen_len)
+    sync()
+    dec_s = time.perf_counter() - t0
+    counts = dispatch.launch_counts()
+    steps = prompt_len + gen_len
+    state = T.init_cache(cfg, B_s, steps, device=dev)
+    state_bytes = sum(t.numel() * t.element_size() for c in state for t in c.values())
+    mlstm_bytes = sum(t.numel() * t.element_size() for c, bt in zip(state, kinds) if bt == "mlstm"
+                      for t in c.values())
+    del state
+    print(f"(c) greedy_generate batch {B_s}, prompt {prompt_len}, gen {gen_len}: {dec_s:.3f} s, "
+          f"{B_s * gen_len / dec_s:.1f} generated tokens/s ({1e3 * dec_s / steps:.2f} ms/step)  launches {counts}; "
+          f"recurrent state {state_bytes / 2**30:.4f} GiB (mLSTM {mlstm_bytes / 2**30:.4f} GiB)  [{card}]")
+    if sum(counts.values()) != 0:
+        raise AssertionError(f"xLSTM decode launched {counts}")
+    if out.shape != (B_s, gen_len) or bool((out < 0).any() or (out >= cfg.vocab).any()):
+        raise AssertionError(f"greedy_generate returned {tuple(out.shape)} or ids outside the vocab")
+    print(f"row 0: {out[0].tolist()}")
+
+    # (d) where the time goes
+    busy = profiled(f"xLSTM prefill {B_s} x {T_s}", lambda: prefill(served, {"tokens": tokens}), top=12)
+    print(f"xLSTM prefill device busy {busy:.3f} s of {prefill_s:.3f} s unprofiled "
+          f"(idle share {1 - busy / prefill_s:.3f})")
+    busy = profiled("xLSTM greedy_generate, prompt 4, gen 4 (8 steps)",
+                    lambda: D.greedy_generate(served, cfg, prompt[:, :4], steps=4), top=12)
+    print(f"xLSTM decode device busy {1e3 * busy / 8:.3f} ms per step of {1e3 * dec_s / steps:.3f} ms "
+          f"unprofiled (idle share {1 - busy / 8 / (dec_s / steps):.3f})")
+    print(f"xlstm-1.3b max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  [{card}]")
+    del served
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -601,34 +865,6 @@ def main() -> int:
         print(f"summary weight mass {mass:.1f} vs sum(a) {want:.1f}")
         if abs(mass - want) > 1e-4 * want:
             raise AssertionError("summary weights do not carry the recovery mass")
-
-    def profiled(tag, fn, top=12):
-        """Run fn under torch.profiler; print kernel time by name.  Returns
-        the seconds of kernel time (device busy)."""
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
-
-        sync()
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            sync()
-        wall = time.perf_counter() - t0
-
-        def dev_us(e):
-            return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-        # Kernels only: an aten op's entry repeats the time of its kernels.
-        kernels = sorted(
-            (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-            key=dev_us, reverse=True,
-        )
-        busy = sum(dev_us(e) for e in kernels) / 1e6
-        print(f"{tag} under the profiler: wall {wall:.3f} s, kernels {busy:.3f} s "
-              f"({100 * busy / wall:.1f}% of the profiled wall, which the profiler inflates)")
-        for e in kernels[:top]:
-            print(f"  {dev_us(e) / 1e3:10.1f} ms  {e.count:7d} launches  {e.key[:90]}")
-        return busy
 
     with phase("profile"):
         profiled("Algorithm 1", run_alg1)
@@ -1495,8 +1731,9 @@ def main() -> int:
         sync()
         dispatch.reset_launch_counts()
         t0 = time.perf_counter()
-        logits, cache = prefill(served, {"tokens": tokens})
-        sync()
+        with moe_mod.recorded_routing() as log_a:
+            logits, cache = prefill(served, {"tokens": tokens})
+            sync()
         moe_prefill_s = time.perf_counter() - t0
         moe_counts = dispatch.launch_counts()
         print(f"(a) prefill {B_s} x {T_s} tokens: {moe_prefill_s:.3f} s  ({B_s * T_s / moe_prefill_s:.0f} tokens/s)  "
@@ -1510,12 +1747,19 @@ def main() -> int:
         del cache
 
         # (b) the same prefill through the plain attention, by the flip rule;
-        # the kernel run again beside (a): bf16 scatter-adds are atomics.
-        again, _, _ = kernel_vs_plain("(b) bf16", served, cfg, tokens, 2e-2)
+        # the kernel run again beside (a): the combine adds in one order, so
+        # the two runs must route alike and give the same bits.
+        again, log_again, _ = kernel_vs_plain("(b) bf16", served, cfg, tokens, 2e-2)
         la, lb = again.float()[:, 0], logits.float()[:, 0]
-        print(f"(b) two kernel prefills: last-position logits max|a-b|/max|b| "
-              f"{float((la - lb).abs().max() / lb.abs().max()):.3e}")
-        del again, logits
+        same_routing = len(log_a) == len(log_again) and all(
+            torch.equal(x, y) for x, y in zip(log_a, log_again))
+        print(f"(b) two kernel prefills: logits bit for bit {torch.equal(again, logits)}, every layer's "
+              f"routing record bit for bit {same_routing} ({len(log_a)} selections), last-position logits "
+              f"max|a-b|/max|b| {float((la - lb).abs().max() / lb.abs().max()):.3e}")
+        if not (torch.equal(again, logits) and same_routing):
+            raise AssertionError("(b): two kernel prefills of the same tokens differ")
+        del again, logits, log_a, log_again
+        moe_combine_timing(args.seed, card)
 
         # (c) greedy decode: capacity max(1, int(4 * 6 * 1.25 / 64)) = 1 a step
         prompt = tokens[:, :prompt_len].contiguous()
@@ -1606,18 +1850,10 @@ def main() -> int:
         del served, logits_m
         torch.cuda.empty_cache()
 
-    with phase("timing"):
-        def cuda_ms(fn, reps):
-            fn()
-            sync()
-            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            e0.record()
-            for _ in range(reps):
-                fn()
-            e1.record()
-            e1.synchronize()
-            return e0.elapsed_time(e1) / reps
+    with phase("serve xlstm"):
+        serve_xlstm(args.seed, card)
 
+    with phase("timing"):
         B, m, d = xs_d.shape
         c = rows_of(xs_d, k_full)
         idx, _ = pd_ops.assign_min(xs_d, c)

@@ -10,8 +10,9 @@ objects passes their numpy fields here:
   and a subspace clustering's bases and means → (bases, means) tensors
   (:func:`subspace_from_jax`);
 * a transformer's params pytree → the port's ``state_dict``
-  (:func:`transformer_params_from_jax`), and its K/V cache both ways
-  (:func:`cache_from_jax`, :func:`cache_to_jax`);
+  (:func:`transformer_params_from_jax`), its cache of K/V and recurrent
+  states → the port's (:func:`cache_from_jax`), and a K/V cache back
+  (:func:`cache_to_jax`);
 * a streaming session's tree, pending leaf, counters and model → a port
   :class:`~repro_torch.stream.StreamingSession`
   (:func:`streaming_state_from_jax`).
@@ -126,15 +127,30 @@ def transformer_params_from_jax(tree) -> dict[str, torch.Tensor]:
     return sd
 
 
-def cache_from_jax(tree) -> list[dict[str, torch.Tensor]]:
-    """The reference's cache {"unit": {"slot0": {"k", "v"}}} with (reps, B,
-    S, KV, dh) leaves → the port's per-layer list of {"k", "v"} (B, S, KV, dh)."""
+def cache_from_jax(tree, n_layers: int | None = None) -> list[dict[str, torch.Tensor]]:
+    """The reference's cache {"unit": {"slot<i>": {...}}}, whose leaves carry a
+    leading ``reps`` axis → the port's per-layer list of dicts: layer
+    ``r·len(unit) + i`` takes rep ``r`` of every leaf of slot ``i``.  An
+    attention slot gives {"k", "v"} (B, S, KV, dh), an mLSTM slot
+    {"C", "n", "m", "conv"}, an sLSTM slot {"h", "c", "n", "m"}, and a
+    recurrent slot of the reference's ``prefill``, ``{}``, gives ``{}``.
+    ``n_layers`` is needed only when every slot is ``{}``."""
+    if "tail" in tree:
+        raise NotImplementedError("cache_from_jax: tail blocks are not ported yet")
     unit = tree["unit"]
     n_slots = len(unit)
-    reps = np.asarray(unit["slot0"]["k"]).shape[0]
+    leaves = [np.asarray(leaf) for slot in unit.values() for leaf in slot.values()]
+    if leaves:
+        n = leaves[0].shape[0] * n_slots
+        if n_layers is not None and n_layers != n:
+            raise ValueError(f"cache_from_jax: the cache holds {n} layers, not {n_layers}")
+    elif n_layers is None:
+        raise ValueError("cache_from_jax: every slot is empty; pass n_layers")
+    else:
+        n = n_layers
     return [
-        {key: _tensor(np.asarray(unit[f"slot{li % n_slots}"][key])[li // n_slots]) for key in ("k", "v")}
-        for li in range(reps * n_slots)
+        {key: _tensor(np.asarray(leaf)[li // n_slots]) for key, leaf in unit[f"slot{li % n_slots}"].items()}
+        for li in range(n)
     ]
 
 

@@ -1,5 +1,5 @@
-"""Serving launcher: batched decode for a registered architecture, dense or
-MoE (the counterpart of the reference's ``launch/serve.py``).
+"""Serving launcher: batched decode for a registered architecture, dense,
+MoE or xLSTM (the counterpart of the reference's ``launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --scale smoke \\
         --batch 4 --prompt-len 16 --gen 32 --device cpu
@@ -39,7 +39,9 @@ _SCALES = {
 def scaled_config(arch: str, scale: str):
     """The architecture at a scale, as the reference's launcher sizes it: an
     MoE config keeps its routing but takes 8 experts, top-2, width 64, one
-    shared expert, and as many KV heads as query heads."""
+    shared expert, and as many KV heads as query heads; an ``ssm`` or
+    ``hybrid`` config keeps its own ``d_ff`` and KV heads; the depth is
+    rounded down to whole scan units (at least one)."""
     cfg = get_config(arch)
     if _SCALES[scale] is not None:
         over = dict(_SCALES[scale])
@@ -47,6 +49,12 @@ def scaled_config(arch: str, scale: str):
             over.pop("d_ff")
             over["moe"] = dataclasses.replace(cfg.moe, num_experts=8, top_k=2, d_expert=64, num_shared=1)
             over["n_kv_heads"] = over["n_heads"]
+        if cfg.family in ("ssm", "hybrid"):
+            over.pop("d_ff", None)
+            over.pop("n_kv_heads", None)
+        scan_len = len(cfg.scan_unit)
+        body = over.get("n_layers", cfg.n_layers) - len(cfg.tail)
+        over["n_layers"] = max(scan_len, body - body % scan_len) + len(cfg.tail)
         cfg = dataclasses.replace(cfg, **over)
     return cfg.validate()
 

@@ -1,8 +1,8 @@
-"""Shared neural building blocks of the dense family, as in the reference's
-``models/layers.py``: RMSNorm and RoPE in f32, the gated MLP in the compute
-dtype.  Dense weights keep the reference's (d_in, d_out) layout, so a
-forward is ``x @ w`` on both sides.  ``causal_conv1d*`` wait for the
-recurrent blocks (ROADMAP queue 1, items 13.2–13.3)."""
+"""Shared neural building blocks, as in the reference's ``models/layers.py``:
+RMSNorm and RoPE in f32, the gated MLP in the compute dtype, the depthwise
+causal convolution of the xLSTM blocks in its input's dtype.  Dense weights
+keep the reference's (d_in, d_out) layout, so a forward is ``x @ w`` on
+both sides."""
 
 from __future__ import annotations
 
@@ -20,6 +20,9 @@ __all__ = [
     "apply_rope",
     "mlp_init",
     "mlp_apply",
+    "causal_conv1d_init",
+    "causal_conv1d",
+    "causal_conv1d_step",
 ]
 
 
@@ -87,3 +90,34 @@ def mlp_apply(p, x, *, act: str, compute_dtype):
     else:
         h = _gelu(xc @ p["up"].to(compute_dtype))
     return h @ p["down"].to(compute_dtype)
+
+
+def causal_conv1d_init(d: int, width: int, *, dtype, device, generator) -> nn.ParameterDict:
+    w = torch.randn((width, d), generator=generator, device=device, dtype=dtype)
+    return nn.ParameterDict({
+        "w": _param(w.div_(math.sqrt(width))),
+        "b": _param(torch.zeros((d,), dtype=dtype, device=device)),
+    })
+
+
+def causal_conv1d(p, x):
+    """Depthwise causal conv over time.  x: (B, T, d) → (B, T, d), every
+    product and sum rounded to x's dtype, as the reference's unrolled taps."""
+    w = p["w"].to(x.dtype)  # (W, d)
+    width, T = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, width - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(width):  # width is tiny (4): unrolled adds, no conv op
+        out = out + pad[:, i : i + T, :] * w[i]
+    return out + p["b"].to(x.dtype)
+
+
+def causal_conv1d_step(p, state, x_t):
+    """Single decode step.  state: (B, W−1, d) past inputs; x_t: (B, d).
+    Returns (the new state, out (B, d)).  The window takes the wider of the
+    two dtypes (the reference's f32 state makes the output f32 under a bf16
+    input)."""
+    w = p["w"].to(x_t.dtype)
+    window = torch.cat([state, x_t[:, None, :]], dim=1)  # (B, W, d)
+    out = torch.einsum("bwd,wd->bd", window, w.to(window.dtype)) + p["b"].to(x_t.dtype)
+    return window[:, 1:], out  # the new state drops the oldest column

@@ -3,8 +3,9 @@ mesh-free branch of the reference's ``models/moe.py``).
 
 Each token's router scores pick its top-k experts; each expert then takes
 the top-C tokens of its combine-weight column (C = the capacity), runs its
-gated FFN on them as one batched matmul over all experts, and scatter-adds
-the weighted outputs back; the shared experts see every token.  A token
+gated FFN on them as one batched matmul over all experts, and adds the
+weighted outputs back into their tokens' rows in the reference's order
+(:func:`_combine`); the shared experts see every token.  A token
 that more than C tokens outbid at an expert is dropped there, and a slot
 of an expert with fewer than C routed tokens carries weight 0, so its
 output is inert.  Nothing here is a hand-written kernel: the reference
@@ -154,22 +155,50 @@ def _routing(router, x, m: MoEConfig):
     return w_sparse, m.num_experts * torch.sum(frac * prob)
 
 
-def _expert_compute(x_flat, w_cols, wg, wu, wd, cap: int, compute_dtype):
-    """Top-C dispatch → batched expert FFN → weighted scatter-add.
+def _combine(out, idx, vals, n: int, k: int):
+    """The expert outputs out (E, C, d), each slot times its combine weight,
+    summed into their tokens' rows (n, d) as the reference's serial
+    scatter-add ``flat.at[idx].add``: each token's contributions added in
+    the order of the flattened idx (expert-major, then slot), rounded to
+    out's dtype after every add, and the same bits on every run
+    (``index_add_`` on the card adds in the order its atomics land).
 
-    x_flat: (N, d); w_cols: (N, E) combine weights; wg/wu/wd: (E, d, f)/
-    (E, d, f)/(E, f, d).  Returns (N, d) in ``compute_dtype``."""
+    One expert keeps C distinct tokens, so a token has at most one slot at
+    an expert.  A slot of weight 0 adds ±0, which leaves every sum as it
+    is, so only the live slots (weight ≠ 0) count, and a token has at most
+    k of them, one at each of its top-k experts.  Each token gathers its
+    live slots in expert order (their flat positions e·C + c ascend with e)
+    and sums them in k rounded adds: one pass, no atomics.
+
+    idx, vals: (E, C) kept tokens and their combine weights (f32).  Returns
+    (n, d) in out's dtype."""
+    E, C, d = out.shape
+    none = E * C  # the position of a zero row: a slot no token has
+    rows = out.new_empty((none + 1, d))
+    torch.mul(out, vals[..., None].to(out.dtype), out=rows[:none].view(E, C, d))
+    rows[none].zero_()
+    slot = torch.arange(none, device=out.device).reshape(E, C).masked_fill_(vals == 0, none)
+    pos = torch.full((E, n), none, dtype=torch.long, device=out.device).scatter_(1, idx, slot)  # (E, n)
+    order = torch.topk(pos, k, dim=0, largest=False).values  # (k, n): each token's live slots, in order
+    flat = torch.zeros((n, d), dtype=out.dtype, device=out.device)
+    for part in rows[order]:  # (n, d) each
+        flat = flat + part
+    return flat
+
+
+def _expert_compute(x_flat, w_cols, wg, wu, wd, cap: int, compute_dtype, top_k: int):
+    """Top-C dispatch → batched expert FFN → weighted combine.
+
+    x_flat: (N, d); w_cols: (N, E) combine weights, at most ``top_k``
+    nonzero a row; wg/wu/wd: (E, d, f)/(E, d, f)/(E, f, d).  Returns (N, d)
+    in ``compute_dtype``."""
     n, d = x_flat.shape
     e = w_cols.shape[1]
     c = min(cap, n)
     vals, idx = _topk(w_cols.T, c)  # (E, C) each
-    flat_idx = idx.reshape(-1)
-    xe = x_flat[flat_idx].reshape(e, c, d).to(compute_dtype)
+    xe = x_flat[idx.reshape(-1)].reshape(e, c, d).to(compute_dtype)
     h = F.silu(torch.bmm(xe, wg.to(compute_dtype))) * torch.bmm(xe, wu.to(compute_dtype))
-    out = torch.bmm(h, wd.to(compute_dtype))
-    out = out * vals[..., None].to(compute_dtype)  # zero-weight slots are inert
-    flat = torch.zeros((n, d), dtype=compute_dtype, device=x_flat.device)
-    return flat.index_add_(0, flat_idx, out.reshape(-1, d))
+    return _combine(torch.bmm(h, wd.to(compute_dtype)), idx, vals, n, top_k)
 
 
 def moe_apply(p: MoE, x, cfg: ModelConfig):
@@ -181,7 +210,8 @@ def moe_apply(p: MoE, x, cfg: ModelConfig):
     n = B * T
     x_flat = x.reshape(n, d)
     w_sparse, aux = _routing(p.router, x, m)
-    out = _expert_compute(x_flat, w_sparse, p.w_gate, p.w_up, p.w_down, capacity(n, m), compute_dtype)
+    out = _expert_compute(x_flat, w_sparse, p.w_gate, p.w_up, p.w_down, capacity(n, m), compute_dtype,
+                          m.top_k)
     if p.shared is not None:
         out = out + L.mlp_apply(p.shared, x_flat, act=cfg.mlp_act, compute_dtype=compute_dtype)
     return out.reshape(B, T, d).to(x.dtype), aux

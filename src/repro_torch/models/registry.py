@@ -3,7 +3,8 @@ reference's ``models/registry.py``, which is pure Python but pulls in the
 reference's model stack when its configs are imported).
 
 The layer stack is ``scan_unit × scan_repeats + tail``.  The port runs the
-dense ``attn_mlp`` and the MoE ``attn_moe`` families; the other
+dense ``attn_mlp``, the MoE ``attn_moe`` and the xLSTM ``mlstm``/``slstm``
+families; the other
 architectures of the reference are listed in :data:`UNPORTED` and
 :func:`get_config` raises for them with the ROADMAP item that will port
 them.
@@ -94,7 +95,6 @@ class ModelConfig:
 # Architectures of the reference that the port does not run yet, with the
 # ROADMAP item (queue 1) that ports them.
 UNPORTED = {
-    "xlstm-1.3b": "item 13.2 (xLSTM blocks, mlstm/slstm)",
     "recurrentgemma-9b": "item 13.3 (RG-LRU and local attention, rglru_mlp/lattn_mlp)",
     "musicgen-large": "item 13.4 (modality frontends: codebook streams)",
     "internvl2-1b": "item 13.4 (modality frontends: prefix embeddings)",

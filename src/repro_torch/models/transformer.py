@@ -1,8 +1,12 @@
-"""Decoder assembly for the ``attn_mlp`` and ``attn_moe`` families (the
-serving subset of the reference's ``models/transformer.py``).
+"""Decoder assembly for the ``attn_mlp``, ``attn_moe``, ``mlstm`` and
+``slstm`` block types (the serving subset of the reference's
+``models/transformer.py``).
 
-The model is an ``nn.Module`` tree: an embedding, one :class:`Block` per
-layer in a ``ModuleList``, a final norm and a head.  The reference stacks
+The model is an ``nn.Module`` tree: an embedding, one block per layer in a
+``ModuleList`` (:class:`Block` for attention layers,
+:class:`~repro_torch.models.xlstm.MLSTMBlock` and
+:class:`~repro_torch.models.xlstm.SLSTMBlock` for the xLSTM ones), a final
+norm and a head.  The reference stacks
 the layers' parameters along a leading ``reps`` axis and runs ``lax.scan``;
 here a Python loop walks the blocks (``convert.transformer_params_from_jax``
 unstacks the reference's tree).  Parameters are held in ``param_dtype``, and
@@ -13,12 +17,16 @@ every matmul casts its weight to ``compute_dtype`` as the reference does;
 Entry points:
   * :func:`forward_train` — (B, T) tokens → logits and the layers' summed
     MoE aux loss (forward only for now; the decode oracle of the tests)
-  * :func:`prefill` / :func:`decode_step` — serving with a per-layer K/V
-    cache; ``decode_step`` writes the cache in place
+  * :func:`prefill` / :func:`decode_step` — serving with a per-layer cache:
+    K/V for attention layers, which ``decode_step`` writes in place, and
+    the recurrent state of an xLSTM layer, which it replaces.  As in the
+    reference, ``prefill`` returns ``{}`` as a recurrent layer's cache: an
+    xLSTM model is served by teacher-forcing the prompt through
+    ``decode_step`` (``serve.decode.greedy_generate``).
 
-xLSTM, RG-LRU and local-attention blocks, the modality frontends,
-``loss_fn`` and meshes are not ported yet; they raise with the ROADMAP item
-that ports them.
+RG-LRU and local-attention blocks, the modality frontends, ``loss_fn`` and
+meshes are not ported yet; they raise with the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from torch import nn
 from . import attention as A
 from . import layers as L
 from . import moe as M
+from . import xlstm as X
 from .registry import ModelConfig
 
 __all__ = [
@@ -48,12 +57,10 @@ __all__ = [
     "prefill",
 ]
 
-_BLOCKS = ("attn_mlp", "attn_moe")  # the block types the port runs
+_BLOCKS = ("attn_mlp", "attn_moe", "mlstm", "slstm")  # the block types the port runs
 # Block types of the reference that the port does not run yet, with the
 # ROADMAP item (queue 1) that ports them.
 _UNPORTED_BLOCKS = {
-    "mlstm": "item 13.2 (xLSTM blocks)",
-    "slstm": "item 13.2 (xLSTM blocks)",
     "rglru_mlp": "item 13.3 (RG-LRU and local attention)",
     "lattn_mlp": "item 13.3 (RG-LRU and local attention)",
 }
@@ -109,6 +116,14 @@ class Block(nn.Module):
             self.mlp = L.mlp_init(cfg.d_model, cfg.d_ff, gated=cfg.mlp_act != "gelu", **kw)
 
 
+def _block(cfg: ModelConfig, block_type: str, **kw) -> nn.Module:
+    if block_type == "mlstm":
+        return X.MLSTMBlock(cfg, **kw)
+    if block_type == "slstm":
+        return X.SLSTMBlock(cfg, **kw)
+    return Block(cfg, block_type, **kw)
+
+
 class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device, generator):
         super().__init__()
@@ -117,9 +132,8 @@ class Transformer(nn.Module):
         d, V = cfg.d_model, cfg.vocab
         embed = torch.randn((V, d), generator=generator, device=device, dtype=dtype)
         self.embed = nn.Parameter(embed.mul_(0.02), requires_grad=False)
-        self.blocks = nn.ModuleList(
-            Block(cfg, bt, dtype=dtype, device=device, generator=generator) for bt in cfg.block_types
-        )
+        self.blocks = nn.ModuleList(_block(cfg, bt, dtype=dtype, device=device, generator=generator)
+                                    for bt in cfg.block_types)
         self.final_norm = L.rmsnorm_init(d, dtype=dtype, device=device)
         if not cfg.tie_embeddings:
             self.lm_head = L.dense_init(d, V, dtype=dtype, device=device, generator=generator, scale=0.02)
@@ -143,17 +157,23 @@ def model_from_state_dict(cfg: ModelConfig, state_dict) -> Transformer:
     return model
 
 
+# Parameters the forward reads in f32 whatever the compute dtype.
+_READ_IN_F32 = ("norm", "moe.router", ".r_z", ".r_i", ".r_f", ".r_o")
+
+
 def cast_params(model: Transformer, cfg: ModelConfig) -> Transformer:
     """A model whose embedding and matmul weights are held in
     ``compute_dtype``: the values every per-call cast would give, made once.
-    The norm scales and the MoE routers, which the forward reads in f32,
-    are shared as they are (a rounded router would move routing decisions).
+    The norm scales, the MoE routers and the sLSTM's recurrent matrices
+    ``r_{z,i,f,o}``, which the forward reads in f32, are shared as they are
+    (a rounded router would move routing decisions, a rounded recurrence
+    would round every step of the cell).
     It serves a tree held in f32, such as one carried from the reference;
     the MoE launcher and the smoke script draw their weights in the compute
     dtype and never call it."""
     cd = _compute_dtype(cfg)
     sd = {
-        name: t if name.endswith(("norm", "moe.router")) else t.to(cd)
+        name: t if name.endswith(_READ_IN_F32) else t.to(cd)
         for name, t in model.state_dict().items()
     }
     return model_from_state_dict(cfg, sd)
@@ -171,8 +191,13 @@ def _ffn(p: Block, xn2, cfg: ModelConfig):
     return out.to(xn2.dtype), None
 
 
-def _block_apply(p: Block, x, cfg: ModelConfig, ctx: ModelContext, positions):
-    """Training/prefill forward of one block.  Returns (x, aux or None, cache)."""
+def _block_apply(p, x, cfg: ModelConfig, ctx: ModelContext, positions):
+    """Training/prefill forward of one block.  Returns (x, aux or None,
+    cache: K/V for attention, ``{}`` for a recurrent block)."""
+    if p.block_type == "mlstm":
+        return X.mlstm_apply(p, x, cfg), None, {}
+    if p.block_type == "slstm":
+        return X.slstm_apply(p, x, cfg), None, {}
     xn = L.rmsnorm(x, p.attn_norm, eps=cfg.rms_eps)
     a, (k, v) = A.attn_apply(p.attn, xn, cfg, positions=positions, impl=ctx.attn_impl)
     x = x + a
@@ -180,8 +205,12 @@ def _block_apply(p: Block, x, cfg: ModelConfig, ctx: ModelContext, positions):
     return x + f, aux, {"k": k, "v": v}
 
 
-def _block_decode(p: Block, x_t, cache, cur_len: int, cfg: ModelConfig, ctx: ModelContext):
+def _block_decode(p, x_t, cache, cur_len: int, cfg: ModelConfig, ctx: ModelContext):
     """One-token decode of one block.  Returns (x_t, cache)."""
+    if p.block_type == "mlstm":
+        return X.mlstm_decode_step(p, cache, x_t, cfg)
+    if p.block_type == "slstm":
+        return X.slstm_decode_step(p, cache, x_t, cfg)
     xn = L.rmsnorm(x_t, p.attn_norm, eps=cfg.rms_eps)
     a, ck, cv = A.attn_decode_step(p.attn, xn, cache["k"], cache["v"], cur_len, cfg)
     x_t = x_t + a
@@ -226,23 +255,30 @@ def forward_train(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext
 # ------------------------------------------------------------------ serve
 
 
-def init_cache(cfg: ModelConfig, B: int, max_len: int, *, device) -> list[dict]:
-    """One {"k", "v"} pair of zeros (B, max_len, KV, dh) in compute dtype per
-    layer (the reference stacks them along a leading ``reps`` axis)."""
-    _check_supported(cfg)
+def _block_cache_init(bt: str, cfg: ModelConfig, B: int, max_len: int, device) -> dict:
+    if bt == "mlstm":
+        return X.mlstm_init_state(cfg, B, device=device)
+    if bt == "slstm":
+        return X.slstm_init_state(cfg, B, device=device)
     shape = (B, max_len, cfg.n_kv_heads, cfg.head_dim)
     cd = _compute_dtype(cfg)
-    return [
-        {"k": torch.zeros(shape, dtype=cd, device=device), "v": torch.zeros(shape, dtype=cd, device=device)}
-        for _ in range(cfg.n_layers)
-    ]
+    return {"k": torch.zeros(shape, dtype=cd, device=device), "v": torch.zeros(shape, dtype=cd, device=device)}
+
+
+def init_cache(cfg: ModelConfig, B: int, max_len: int, *, device) -> list[dict]:
+    """One cache per layer (the reference stacks them along a leading
+    ``reps`` axis): a {"k", "v"} pair of zeros (B, max_len, KV, dh) in
+    compute dtype for an attention layer, the zero recurrent state in f32
+    for an xLSTM one (mLSTM ``{C, n, m, conv}``, sLSTM ``{h, c, n, m}``)."""
+    _check_supported(cfg)
+    return [_block_cache_init(bt, cfg, B, max_len, device) for bt in cfg.block_types]
 
 
 @torch.no_grad()
 def decode_step(model: Transformer, cache, tokens_t, cur_len: int, cfg: ModelConfig, ctx: ModelContext):
     """One decode step.  tokens_t: (B, 1); cur_len: the count of tokens
-    already in the cache.  Writes the cache in place; returns (logits_t
-    (B, 1, V), cache)."""
+    already in the cache.  Writes an attention layer's K/V in place and
+    replaces a recurrent layer's state; returns (logits_t (B, 1, V), cache)."""
     x = model.embed[tokens_t].to(_compute_dtype(cfg))
     new_cache = []
     for blk, c in zip(model.blocks, cache):
@@ -254,7 +290,8 @@ def decode_step(model: Transformer, cache, tokens_t, cur_len: int, cfg: ModelCon
 @torch.no_grad()
 def prefill(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
     """Prefill forward: the next-token logits (B, 1, V) and the per-layer
-    K/V cache (B, T, KV, dh).  Only the last position reaches the head."""
+    cache, K/V (B, T, KV, dh) for attention and ``{}`` for a recurrent
+    layer.  Only the last position reaches the head."""
     x, _ = _embed(model, batch, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     cache = []

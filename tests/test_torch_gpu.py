@@ -43,6 +43,12 @@ The mesh executor on the card: a world of one over NCCL and two ranks over
 gloo on one card run Algorithm 1 within 1e-5 of the local executor, with
 both kernels launched on every rank.
 
+The MoE combine on the card gives the same bits on every run, equal to the
+serial expert-by-expert sum on the CPU.  The xLSTM blocks run no kernel of
+the port: a block at full width in f32 on the card lies within 1e-5 of its
+scale of the same block on the CPU (cuBLAS and the CPU's GEMMs sum in other
+orders).
+
 Flash attention: f32 inputs rtol 1e-5, atol 1e-5 (the kernel sums three
 bf16 pieces of each f32 value on the tensor cores, about 2^-24 of each
 product, in another order than the plain version's f32 GEMMs); bf16 inputs
@@ -500,6 +506,71 @@ def test_moe_prefill_on_card_matches_its_cpu_run_by_the_flip_rule(cuda_device):
     torch.testing.assert_close(logits.float().cpu(), want.float(), rtol=2e-2, atol=2e-2)
     for li in range(cfg.n_layers):
         assert gap(cache, li, "k") <= 2e-2 and gap(cache, li, "v") <= 2e-2, (li, differ)
+
+
+def _serial_combine(weighted, idx, n):
+    """The reference's serial scatter-add on the CPU, expert by expert (one
+    expert's kept tokens are distinct: one rounded add a row a step)."""
+    flat = torch.zeros((n, weighted.shape[-1]), dtype=weighted.dtype)
+    for e in range(weighted.shape[0]):
+        flat[idx[e]] = flat[idx[e]] + weighted[e]
+    return flat
+
+
+@pytest.mark.gpu
+def test_moe_combine_on_card_is_deterministic_and_serial(cuda_device):
+    """The MoE combine at 4096 tokens, 64 experts top-6, capacity 480 (it
+    binds at the busy experts, and quiet ones keep zero-weight slots), bf16:
+    two runs on the card equal bit for bit, and equal to the serial sum on
+    the CPU of the same outputs and kept tokens."""
+    n, E, k, d = 4096, 64, 6, 512
+    g = torch.Generator().manual_seed(21)
+    scores = torch.rand((n, E), generator=g) * torch.linspace(0.5, 1.5, E)  # busy and quiet experts
+    vals, experts = M._topk(scores, k)
+    w = torch.zeros((n, E)).scatter_(1, experts, vals)
+    cap = M.capacity(n, deepseek_moe_16b.config().moe)
+    load = (w > 0).sum(0)
+    assert cap == 480 and int(load.max()) > cap and int(load.min()) < cap
+    vals, idx = M._topk(w.T, cap)
+    out = torch.randn((E, cap, d), generator=g).bfloat16()
+    want = _serial_combine(out * vals[..., None].bfloat16(), idx, n)
+    runs = [M._combine(out.to(cuda_device), idx.to(cuda_device), vals.to(cuda_device), n, k) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert runs[0].dtype == torch.bfloat16 and torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0].cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["mlstm", "slstm"])
+def test_xlstm_block_at_full_width_on_card_matches_cpu(cuda_device, kind):
+    """One block of xlstm-1.3b at full width (d_model 2048, 4 heads: mLSTM
+    heads of 1024) in f32: 512 tokens through the forward (two chunks of
+    256 for the mLSTM), then 4 decode steps from its zero state; outputs and
+    states on the card within 1e-5 of their scale of the CPU's (TF32 off)."""
+    from repro_torch.models import xlstm as X
+    from repro_torch.models.registry import get_config
+
+    cfg = get_config("xlstm-1.3b", compute_dtype="float32")
+    block = X.MLSTMBlock if kind == "mlstm" else X.SLSTMBlock
+    cpu = block(cfg, dtype=torch.float32, device="cpu", generator=torch.Generator().manual_seed(22))
+    card = block(cfg, dtype=torch.float32, device="meta", generator=None)
+    card.load_state_dict({name: t.to(cuda_device) for name, t in cpu.state_dict().items()}, assign=True)
+    apply = X.mlstm_apply if kind == "mlstm" else X.slstm_apply
+    step = X.mlstm_decode_step if kind == "mlstm" else X.slstm_decode_step
+    init = X.mlstm_init_state if kind == "mlstm" else X.slstm_init_state
+    x = torch.randn((1, 512, cfg.d_model), generator=torch.Generator().manual_seed(23))
+
+    def gap(a, b):
+        return float((a.cpu() - b).abs().max() / b.abs().max())
+
+    with torch.no_grad():
+        assert gap(apply(card, x.to(cuda_device), cfg), apply(cpu, x, cfg)) <= 1e-5
+        s_cpu, s_card = init(cfg, 1, device="cpu"), init(cfg, 1, device=cuda_device)
+        for t in range(4):
+            o_cpu, s_cpu = step(cpu, s_cpu, x[:, t : t + 1], cfg)
+            o_card, s_card = step(card, s_card, x[:, t : t + 1].to(cuda_device), cfg)
+            assert gap(o_card, o_cpu) <= 1e-5, t
+            assert max(gap(s_card[key], s_cpu[key]) for key in s_cpu if s_cpu[key].abs().max() > 0) <= 1e-5, t
 
 
 # ------------------------------------------------- the resilience runtime

@@ -213,6 +213,74 @@ def test_capacity_binds_on_duplicate_rows_as_the_reference(arch):
     np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
 
 
+def _combine_case(seed, n=24, E=6, k=4):
+    """Combine weights (n, E) with k nonzero, non-dyadic weights a row:
+    every token gets k contributions, the capacity binds at busy experts,
+    and quiet experts keep zero-weight slots."""
+    rng = np.random.default_rng(seed)
+    w = np.zeros((n, E), np.float32)
+    for t in range(n):
+        w[t, rng.choice(E, k, replace=False)] = rng.uniform(0.05, 1.0, size=k)
+    w[:, 0] *= (np.arange(n) < n // 2)  # expert 0 serves half the tokens: zero-weight slots
+    return w, 14  # under the busiest experts' load (n·k/E = 16 a expert on average)
+
+
+def _serial_combine(weighted, idx, n):
+    """The serial scatter-add, expert by expert: one expert's kept tokens
+    are distinct, so each step adds once to each of its rows and rounds.
+    (``index_add_`` on the CPU sums a row's bf16 contributions in f32 and
+    rounds once, so it is not this order's oracle.)"""
+    flat = torch.zeros((n, weighted.shape[-1]), dtype=weighted.dtype)
+    for e in range(weighted.shape[0]):
+        flat[idx[e]] = flat[idx[e]] + weighted[e]
+    return flat
+
+
+def test_combine_adds_in_the_reference_serial_order_bit_for_bit():
+    """bf16 expert outputs summed into their tokens as the reference's
+    ``flat.at[idx].add`` sums them: expert by expert, rounding after each
+    add; equal bit for bit, and to the serial expert-by-expert sum, while
+    the same sums taken in reverse expert order differ."""
+    k = 4
+    w, cap = _combine_case(17, k=k)
+    n, E = w.shape
+    c = min(cap, n)
+    jvals, jidx = jax.lax.top_k(jnp.asarray(w).T, c)
+    assert int((np.asarray(jvals) == 0).sum()) > 0  # inert slots
+    out = torch.from_numpy(np.random.default_rng(18).normal(size=(E, c, 16)).astype(np.float32)).bfloat16()
+    idx, vals = torch.from_numpy(np.array(jidx)).long(), torch.from_numpy(np.array(jvals))
+    got = M._combine(out, idx, vals, n, k)
+    weighted = out * vals[..., None].bfloat16()
+    jout = jnp.asarray(weighted.float().numpy(), jnp.bfloat16)
+    want = jnp.zeros((n, 16), jnp.bfloat16).at[jidx.reshape(-1)].add(jout.reshape(-1, 16))
+    assert got.dtype == torch.bfloat16 and got.shape == (n, 16)
+    np.testing.assert_array_equal(got.float().numpy(), _np(want))
+    assert torch.equal(got, _serial_combine(weighted, idx, n))
+    assert not torch.equal(got, _serial_combine(weighted.flip(0), idx.flip(0), n))  # the order shows in the bits
+
+
+def test_expert_compute_is_the_reference_bit_for_bit_in_bf16():
+    """The whole ``_expert_compute`` in bf16, port against reference, at a
+    shape where several experts keep each token.  The inputs keep every
+    step before the combine exact or singly rounded on both sides: integer
+    tokens and weights put each gate pre-activation at 8 or more, where the
+    silu of both packages returns its input, and the products sum exactly
+    in f32; so the outputs differ only if the combine's order does."""
+    k = 4
+    w, cap = _combine_case(19, k=k)
+    n, E = w.shape
+    d, f = 8, 6
+    rng = np.random.default_rng(20)
+    x = rng.integers(1, 3, size=(n, d)).astype(np.float32)
+    wg, wu = (rng.integers(1, 3, size=(E, d, f)).astype(np.float32) for _ in range(2))
+    wd = rng.integers(-2, 3, size=(E, f, d)).astype(np.float32)
+    got = M._expert_compute(*(torch.from_numpy(a) for a in (x, w, wg, wu, wd)), cap, torch.bfloat16, k)
+    want = JM._expert_compute(*(jnp.asarray(a) for a in (x, w, wg, wu, wd)), cap, jnp.bfloat16)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(), _np(want))
+    assert int((torch.from_numpy(w) > 0).sum(0).max()) > min(cap, n)  # the capacity binds somewhere
+
+
 def test_recorded_routing_replays_a_runs_selections():
     """A run given its own selections gives the same bits; another input
     given them makes exactly those selections, with its own weights."""
