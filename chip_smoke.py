@@ -10,8 +10,9 @@ placement), runs Algorithm 1, the session and the streaming tree through
 the torch.distributed mesh executor (a world of one over NCCL, two ranks
 over gloo), runs the streaming clustering service (the coreset tree, the
 query engine, the micro-batching frontend) on the same 1M points,
-serves qwen3-4b, the MoE model deepseek-moe-16b and the xLSTM model
-xlstm-1.3b at full width and depth (prefill and greedy decode) and
+serves qwen3-4b, the MoE model deepseek-moe-16b, the xLSTM model
+xlstm-1.3b and the RG-LRU / local-attention model recurrentgemma-9b at
+full width and depth (prefill and greedy decode) and
 moonshot-v1-16b-a3b at full width, and fails loudly: there is no CPU
 fallback and no caught phase.  Every phase prints its seconds beside the card's name and
 power limit.
@@ -156,7 +157,29 @@ Phases:
                  exceed it, bf16 at 8 and at 48 layers printed; (c) greedy_generate, batch 4, prompt 16,
                  gen 32, 0 kernel launches, the recurrent state's bytes;
                  (d) one prefill and 8 decode steps under torch.profiler
-  16. timing     each kernel, its plain version and one library call
+  16. serve rglru  recurrentgemma-9b (38 layers: 26 RG-LRU, 12 local
+                 attention over a window of 2048, 16 heads over 1 KV head
+                 of 256, d_model 4096, vocab 256000; 10,444,984,320
+                 parameters, the count held to the one from the widths),
+                 drawn as the serving launcher draws it (matmul weights
+                 in bf16, norms and lam in f32): (a) prefill of 4 x 4096
+                 tokens (twice the window: the K/V clip and the skipped
+                 key blocks bind): seconds, tokens/s, peak memory, 0 kernel
+                 launches, finite logits (4, 1, 256000), a (4, 2048, 1,
+                 256) K and V cache a local layer, {} a recurrent one;
+                 (b) the windowed chunked attention against a masked dense
+                 oracle: f32 at (1, 4096, 16, 1, 256) within rtol 2e-5,
+                 atol 2e-4, bf16 at (4, 4096, 16, 1, 256) within 2e-2 of
+                 the oracle's scale, timed; (c) the ring: 2112 tokens
+                 teacher-forced through decode_step against forward_train
+                 in f32 at full width, depth 5 (one unit and the tail),
+                 within 1e-4 of the logits' scale over all positions and
+                 over positions >= 2048 (the ring wrapped), and the same
+                 decode at window 4096 must part by more; (d)
+                 greedy_generate, batch 4, prompt 16, gen 32, 0 kernel
+                 launches, the cache's bytes; (e) one prefill and 8 decode
+                 steps under torch.profiler
+  17. timing     each kernel, its plain version and one library call
                  (weighted_segsum also at the coordinator's (1, 2560, 256,
                  128), with its launches in Algorithm 1 by shape); the
                  bound of rows assign_min and pairwise_sqdist is three TF32
@@ -179,6 +202,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -488,6 +512,213 @@ def serve_xlstm(seed: int, card: str) -> None:
     print(f"xLSTM decode device busy {1e3 * busy / 8:.3f} ms per step of {1e3 * dec_s / steps:.3f} ms "
           f"unprofiled (idle share {1 - busy / 8 / (dec_s / steps):.3f})")
     print(f"xlstm-1.3b max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  [{card}]")
+    del served
+    torch.cuda.empty_cache()
+
+
+def rglru_param_count(cfg) -> int:
+    """The parameters of an RG-LRU / local-attention model from its
+    config's widths."""
+    d, dr, W, f = cfg.d_model, cfg.d_rnn or cfg.d_model, cfg.conv_width, cfg.d_ff
+    H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    rglru = 2 * d + 3 * d * dr + W * dr + dr + 2 * (dr * dr + dr) + dr + 3 * d * f
+    lattn = 2 * d + 2 * d * H * dh + 2 * d * KV * dh + 3 * d * f
+    kinds = cfg.block_types
+    head = 0 if cfg.tie_embeddings else d * cfg.vocab
+    return kinds.count("rglru_mlp") * rglru + kinds.count("lattn_mlp") * lattn + cfg.vocab * d + head + d
+
+
+def windowed_oracle(q, k, v, window):
+    """Dense attention with the causal and window masks, in f32, one batch
+    row at a time: the oracle of the chunked attention."""
+    import torch
+
+    T_len, g = q.shape[1], q.shape[2] // k.shape[2]
+    pos = torch.arange(T_len, device=q.device)
+    mask = (pos[:, None] >= pos[None, :]) & (pos[None, :] > pos[:, None] - window)
+    out = []
+    for b in range(q.shape[0]):
+        kb, vb = k[b].float().repeat_interleave(g, 1), v[b].float().repeat_interleave(g, 1)
+        s = torch.einsum("thd,shd->hts", q[b].float(), kb) * q.shape[-1] ** -0.5
+        p = torch.softmax(s.masked_fill_(~mask, float("-inf")), dim=-1)
+        del s
+        out.append(torch.einsum("hts,shd->thd", p, vb))
+        del p
+    return torch.stack(out)
+
+
+def serve_rglru(seed: int, card: str) -> None:
+    """Phase "serve rglru": recurrentgemma-9b at full width and depth drawn
+    as the serving launcher draws it; the windowed attention against a
+    masked dense oracle; the ring decode against the forward in f32 at
+    depth 5; greedy decode; a profile.  No kernel of the port runs on this
+    path (the reference's windowed attention and RG-LRU scan are XLA ops)."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    from repro_torch.serve import decode as D
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    ctx = T.ModelContext()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # (a) 38 layers (26 RG-LRU, 12 local attention), drawn as the launcher
+    # draws them: the embedding and the matmul weights in bf16, the norms
+    # and lam in f32.
+    cfg = get_config("recurrentgemma-9b")
+    B_s, T_s, prompt_len, gen_len = 4, 4096, 16, 32
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    served = launch_serve.init_model(cfg, dev, seed)
+    sync()
+    n_params = T.param_count(served)
+    kinds = cfg.block_types
+    f32 = {name for name, t in served.state_dict().items() if t.dtype == torch.float32}
+    print(f"recurrentgemma-9b: {n_params:,} parameters ({kinds.count('rglru_mlp')} RG-LRU and "
+          f"{kinds.count('lattn_mlp')} local-attention layers, d_model {cfg.d_model}, {cfg.n_heads} heads over "
+          f"{cfg.n_kv_heads} KV head of {cfg.head_dim}, window {cfg.window}, d_rnn {cfg.d_rnn}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}); drawn on the card in {time.perf_counter() - t0:.3f} s (already on the card "
+          f"{base:.3f} GiB); {torch.cuda.memory_allocated() / 2**30 - base:.3f} GiB; {len(f32)} tensors in f32 "
+          f"({sum(served.state_dict()[n].numel() for n in f32):,} values), the rest bf16  [{card}]")
+    if n_params != rglru_param_count(cfg) or n_params != 10_444_984_320:
+        raise AssertionError(f"recurrentgemma-9b holds {n_params} parameters, its widths give "
+                             f"{rglru_param_count(cfg)}")
+    if f32 != {n for n in served.state_dict() if n.endswith(T._READ_IN_F32)} or not any(
+            n.endswith(".lam") for n in f32):
+        raise AssertionError("the launcher's f32 parameters are not the ones the forward reads in f32")
+    tokens = torch.randint(0, cfg.vocab, (B_s, T_s), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+    prefill = D.make_prefill_fn(cfg, ctx)
+    prefill(served, {"tokens": tokens[:, :64]})  # warm-up
+    sync()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(served, {"tokens": tokens})
+    sync()
+    prefill_s = time.perf_counter() - t0
+    counts = dispatch.launch_counts()
+    print(f"(a) prefill {B_s} x {T_s} tokens: {prefill_s:.3f} s  ({B_s * T_s / prefill_s:.0f} tokens/s)  "
+          f"launches {counts}  peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  [{card}]")
+    if sum(counts.values()) != 0:
+        raise AssertionError(f"RecurrentGemma prefill launched {counts}; its path runs no kernel of the port")
+    if logits.shape != (B_s, 1, cfg.vocab) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"RecurrentGemma prefill logits of shape {tuple(logits.shape)} or not finite")
+    ring = (B_s, cfg.window, cfg.n_kv_heads, cfg.head_dim)
+    for li, (c, bt) in enumerate(zip(cache, kinds)):
+        want = {"k": ring, "v": ring} if bt == "lattn_mlp" else {}
+        if {key: tuple(t.shape) for key, t in c.items()} != want:
+            raise AssertionError(f"layer {li} ({bt}): prefill cache {({k: tuple(t.shape) for k, t in c.items()})}")
+    del logits, cache
+
+    # (b) the windowed attention on the card against the masked dense oracle
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    H, KV, dh, W = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
+
+    def qkv(B, dtype):
+        return [torch.randn((B, T_s, h, dh), generator=g, device=dev).to(dtype) for h in (H, KV, KV)]
+
+    q, k, v = qkv(1, torch.float32)
+    dispatch.reset_launch_counts()
+    got = fa_ops.flash_attention(q, k, v, causal=True, window=W)
+    want = windowed_oracle(q, k, v, W)
+    err = float((got - want).abs().max())
+    ok = bool(((got - want).abs() <= 2e-4 + 2e-5 * want.abs()).all())
+    print(f"(b) windowed chunked attention f32 (1, {T_s}, {H}, {KV}, {dh}), window {W}, TF32 off: max|a-b| "
+          f"{err:.3e} (rtol 2e-5, atol 2e-4: {ok}), launches {dispatch.launch_counts()}  [{card}]")
+    if not ok or sum(dispatch.launch_counts().values()):
+        raise AssertionError("(b) f32 windowed attention outside rtol 2e-5 / atol 2e-4 of the oracle, or a launch")
+    q, k, v = qkv(B_s, torch.bfloat16)
+    got = fa_ops.flash_attention(q, k, v, causal=True, window=W)
+    want = windowed_oracle(q, k, v, W)
+    gap = float((got.float() - want).abs().max() / want.abs().max())
+    ms = cuda_ms(lambda: fa_ops.flash_attention(q, k, v, causal=True, window=W), 3)
+    # The work it needs: scores and p·v over the T·W causal window band.
+    band = sum(min(t + 1, W) for t in range(T_s))
+    flops = 4.0 * B_s * H * dh * band
+    print(f"(b) windowed chunked attention bf16 ({B_s}, {T_s}, {H}, {KV}, {dh}): max|a-b|/max|b| {gap:.3e} "
+          f"(limit 2e-2); {ms:.3f} ms a call, {flops / 1e12:.3f} TFLOP of the window band (f32 bound "
+          f"{1e3 * flops / PEAK_FP32_FLOPS:.3f} ms)  [{card}]")
+    if gap > 2e-2:
+        raise AssertionError(f"(b) bf16 windowed attention parts from the oracle by {gap:.3e} of its scale")
+    del q, k, v, got, want
+
+    # (c) the ring: 2112 tokens teacher-forced through decode_step (the ring
+    # of 2048 wraps at 2048) against forward_train, f32, depth 5 (one unit
+    # and the tail), batch 1; then a control with the window at 4096.
+    n_ring = 2112
+    cfg5 = get_config("recurrentgemma-9b", n_layers=5, compute_dtype="float32")
+    model5 = T.init_params(cfg5, generator=torch.Generator(device=dev).manual_seed(seed))
+    toks = tokens[:1, :n_ring]
+    t0 = time.perf_counter()
+    full, _, _ = T.forward_train(model5, {"tokens": toks}, cfg5, ctx)
+    sync()
+    fwd_s = time.perf_counter() - t0
+
+    def ring_gaps(c):
+        cache = T.init_cache(c, 1, n_ring, device=dev)
+        diff = torch.zeros(n_ring, device=dev)
+        for t in range(n_ring):
+            lg, cache = T.decode_step(model5, cache, toks[:, t : t + 1], t, c, ctx)
+            diff[t] = (lg[0, 0] - full[0, t]).abs().max()
+        return diff
+
+    scale = float(full.abs().max())
+    wrap = float(full[:, W:].abs().max())
+    t0 = time.perf_counter()
+    diff = ring_gaps(cfg5)
+    sync()
+    dec_s = time.perf_counter() - t0
+    all_gap, wrap_gap = float(diff.max()) / scale, float(diff[W:].max()) / wrap
+    control = float(ring_gaps(dataclasses.replace(cfg5, window=2 * W))[W:].max()) / wrap
+    print(f"(c) ring, f32 at depth 5: forward_train {fwd_s:.3f} s, {n_ring} decode steps {dec_s:.3f} s; logits "
+          f"max|a-b|/max|b| {all_gap:.3e} over all positions, {wrap_gap:.3e} over positions >= {W} (limit 1e-4); "
+          f"control, the decode at window {2 * W}: {control:.3e} over positions >= {W} (must exceed 1e-4)  [{card}]")
+    if not (all_gap <= 1e-4 and wrap_gap <= 1e-4 and control > 1e-4):
+        raise AssertionError(f"(c) ring decode gaps {all_gap:.3e} / {wrap_gap:.3e}, control {control:.3e}")
+    del model5, full
+    torch.cuda.empty_cache()
+
+    # (d) greedy decode: RG-LRU states and rings of local K/V
+    prompt = tokens[:, :prompt_len].contiguous()
+    D.greedy_generate(served, cfg, prompt[:, :2], steps=2)  # warm-up
+    dispatch.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    out = D.greedy_generate(served, cfg, prompt, steps=gen_len)
+    sync()
+    dec_s = time.perf_counter() - t0
+    counts = dispatch.launch_counts()
+    steps = prompt_len + gen_len
+
+    def cache_bytes(max_len):
+        c = T.init_cache(cfg, B_s, max_len, device="meta")
+        return sum(t.numel() * t.element_size() for layer in c for t in layer.values())
+
+    print(f"(d) greedy_generate batch {B_s}, prompt {prompt_len}, gen {gen_len}: {dec_s:.3f} s, "
+          f"{B_s * gen_len / dec_s:.1f} generated tokens/s ({1e3 * dec_s / steps:.2f} ms/step)  launches {counts}; "
+          f"cache {cache_bytes(steps) / 2**20:.3f} MiB at max_len {steps}, "
+          f"{cache_bytes(cfg.window) / 2**20:.3f} MiB once the rings are full  [{card}]")
+    if sum(counts.values()) != 0:
+        raise AssertionError(f"RecurrentGemma decode launched {counts}")
+    if out.shape != (B_s, gen_len) or bool((out < 0).any() or (out >= cfg.vocab).any()):
+        raise AssertionError(f"greedy_generate returned {tuple(out.shape)} or ids outside the vocab")
+    print(f"row 0: {out[0].tolist()}")
+
+    # (e) where the time goes
+    busy = profiled(f"RecurrentGemma prefill {B_s} x {T_s}", lambda: prefill(served, {"tokens": tokens}), top=12)
+    print(f"RecurrentGemma prefill device busy {busy:.3f} s of {prefill_s:.3f} s unprofiled "
+          f"(idle share {1 - busy / prefill_s:.3f})  [{card}]")
+    busy = profiled("RecurrentGemma greedy_generate, prompt 4, gen 4 (8 steps)",
+                    lambda: D.greedy_generate(served, cfg, prompt[:, :4], steps=4), top=12)
+    print(f"RecurrentGemma decode device busy {1e3 * busy / 8:.3f} ms per step of {1e3 * dec_s / steps:.3f} ms "
+          f"unprofiled (idle share {1 - busy / 8 / (dec_s / steps):.3f})  [{card}]")
+    print(f"recurrentgemma-9b max_memory_allocated: {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  [{card}]")
     del served
     torch.cuda.empty_cache()
 
@@ -1852,6 +2083,9 @@ def main() -> int:
 
     with phase("serve xlstm"):
         serve_xlstm(args.seed, card)
+
+    with phase("serve rglru"):
+        serve_rglru(args.seed, card)
 
     with phase("timing"):
         B, m, d = xs_d.shape

@@ -106,21 +106,27 @@ def transformer_params_from_jax(tree) -> dict[str, torch.Tensor]:
     dict of :class:`repro_torch.models.transformer.Transformer` (CPU tensors).
 
     The leaves of ``tree["unit"]["slot<i>"]`` carry a leading ``reps`` axis;
-    layer ``r·len(unit) + i`` is rep ``r`` of slot ``i``.  Nested dicts give
-    dotted names, so an ``attn_moe`` layer's subtree lands as
+    layer ``r·len(unit) + i`` is rep ``r`` of slot ``i``, and the tail's
+    ``tail<i>`` is layer ``reps·len(unit) + i``.  Nested dicts give dotted
+    names, so an ``attn_moe`` layer's subtree lands as
     ``blocks.<l>.moe.router``, ``blocks.<l>.moe.w_gate`` …
-    ``blocks.<l>.moe.shared.down``, the names of :class:`~repro_torch.models.moe.MoE`.
+    ``blocks.<l>.moe.shared.down``, the names of :class:`~repro_torch.models.moe.MoE`,
+    and an ``rglru_mlp`` layer's as ``blocks.<l>.conv.w``, ``blocks.<l>.lam``,
+    ``blocks.<l>.mlp.gate`` …, those of :class:`~repro_torch.models.rglru.RGLRUBlock`.
     """
-    if "tail" in tree:
-        raise NotImplementedError("transformer_params_from_jax: tail blocks are not ported yet")
     sd = {}
     unit = tree["unit"]
     n_slots = len(unit)
+    n_body = 0
     for si in range(n_slots):
         for name, leaf in _flatten(unit[f"slot{si}"]):
             leaf = np.asarray(leaf)
+            n_body = leaf.shape[0] * n_slots
             for r in range(leaf.shape[0]):
                 sd[f"blocks.{r * n_slots + si}.{name}"] = _tensor(leaf[r])
+    for ti in range(len(tree.get("tail", {}))):
+        for name, leaf in _flatten(tree["tail"][f"tail{ti}"]):
+            sd[f"blocks.{n_body + ti}.{name}"] = _tensor(leaf)
     for name in ("embed", "final_norm", "lm_head"):
         if name in tree:
             sd[name] = _tensor(tree[name])
@@ -128,30 +134,33 @@ def transformer_params_from_jax(tree) -> dict[str, torch.Tensor]:
 
 
 def cache_from_jax(tree, n_layers: int | None = None) -> list[dict[str, torch.Tensor]]:
-    """The reference's cache {"unit": {"slot<i>": {...}}}, whose leaves carry a
-    leading ``reps`` axis → the port's per-layer list of dicts: layer
-    ``r·len(unit) + i`` takes rep ``r`` of every leaf of slot ``i``.  An
-    attention slot gives {"k", "v"} (B, S, KV, dh), an mLSTM slot
-    {"C", "n", "m", "conv"}, an sLSTM slot {"h", "c", "n", "m"}, and a
-    recurrent slot of the reference's ``prefill``, ``{}``, gives ``{}``.
-    ``n_layers`` is needed only when every slot is ``{}``."""
-    if "tail" in tree:
-        raise NotImplementedError("cache_from_jax: tail blocks are not ported yet")
+    """The reference's cache {"unit": {"slot<i>": {...}}, "tail": {"tail<i>":
+    {...}}}, whose unit leaves carry a leading ``reps`` axis → the port's
+    per-layer list of dicts: layer ``r·len(unit) + i`` takes rep ``r`` of
+    every leaf of slot ``i``, and the tail's ``tail<i>`` follows the body.
+    An attention slot gives {"k", "v"} (B, S, KV, dh), an mLSTM slot
+    {"C", "n", "m", "conv"}, an sLSTM slot {"h", "c", "n", "m"}, an RG-LRU
+    slot {"h", "conv"}, and a recurrent slot of the reference's
+    ``prefill``, ``{}``, gives ``{}``.  ``n_layers`` is needed only when
+    every unit slot is ``{}``."""
     unit = tree["unit"]
+    tail = [tree["tail"][f"tail{ti}"] for ti in range(len(tree.get("tail", {})))]
     n_slots = len(unit)
     leaves = [np.asarray(leaf) for slot in unit.values() for leaf in slot.values()]
     if leaves:
-        n = leaves[0].shape[0] * n_slots
+        n = leaves[0].shape[0] * n_slots + len(tail)
         if n_layers is not None and n_layers != n:
             raise ValueError(f"cache_from_jax: the cache holds {n} layers, not {n_layers}")
     elif n_layers is None:
-        raise ValueError("cache_from_jax: every slot is empty; pass n_layers")
+        raise ValueError("cache_from_jax: every unit slot is empty; pass n_layers")
     else:
         n = n_layers
-    return [
+    n_body = n - len(tail)
+    body = [
         {key: _tensor(np.asarray(leaf)[li // n_slots]) for key, leaf in unit[f"slot{li % n_slots}"].items()}
-        for li in range(n)
+        for li in range(n_body)
     ]
+    return body + [{key: _tensor(leaf) for key, leaf in c.items()} for c in tail]
 
 
 def cache_to_jax(cache) -> dict:

@@ -5,6 +5,10 @@ Each op registers two implementations:
 * ``cuda``      — the hand-written Hopper kernel (``csrc/``), CUDA tensors only;
 * ``torch_ref`` — the plain PyTorch version, the kernel's oracle.
 
+Attention registers a third, ``torch_chunked``: the plain chunked attention
+that takes every sliding-window call, on every device (the kernel has no
+window, as the reference's Pallas kernel has none).
+
 ``impl="auto"`` follows the tensors: a CUDA tensor gets the kernel, a CPU
 tensor the plain version.  There is no fallback: a CUDA tensor either
 launches the kernel or raises.  ``impl="torch_ref"`` on a CUDA tensor is for
@@ -32,7 +36,7 @@ __all__ = [
     "resolve",
 ]
 
-IMPLS = ("cuda", "torch_ref")
+IMPLS = ("cuda", "torch_ref", "torch_chunked")
 
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}
 _COUNTERS: Dict[str, "LaunchCounter"] = {}

@@ -1,15 +1,20 @@
 """Serving launcher: batched decode for a registered architecture, dense,
-MoE or xLSTM (the counterpart of the reference's ``launch/serve.py``).
+MoE, xLSTM or RecurrentGemma (the counterpart of the reference's
+``launch/serve.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --scale smoke \\
         --batch 4 --prompt-len 16 --gen 32 --device cpu
 
 Runs on the card by default (``--device cuda``); ``--scale full`` is the
-architecture's own config.  Weights are random from a fixed seed, drawn
-directly in the compute dtype that the matmuls read (the reference draws
-f32 and casts per call; drawn so, deepseek-moe-16b's 16.9 B parameters fit
-one 80 GB card, where an f32 tree and its bf16 copy would not).  The
-tokens/s is timed on the device's clock (after a synchronize on the card).
+architecture's own config.  Weights are random from a fixed seed.  The
+reference draws every parameter in f32 and casts the matmul weights per
+call; here the embedding and the matmul weights are drawn directly in the
+compute dtype that the matmuls read, and the parameters the forward reads
+in f32 (norm scales, MoE routers, the sLSTM's recurrences, the RG-LRU's
+``lam``: ``models.transformer._READ_IN_F32``) in f32, as the reference
+holds them.  Drawn so, deepseek-moe-16b's 16.9 B parameters fit one 80 GB
+card, where an f32 tree and its bf16 copy would not.  The tokens/s is timed
+on the device's clock (after a synchronize on the card).
 """
 
 from __future__ import annotations
@@ -59,6 +64,14 @@ def scaled_config(arch: str, scale: str):
     return cfg.validate()
 
 
+def init_model(cfg, device, seed: int = 0) -> T.Transformer:
+    """The launcher's model: random weights from ``seed`` on ``device``,
+    the embedding and the matmul weights in the compute dtype, the
+    parameters the forward reads in f32 in ``cfg.param_dtype``."""
+    return T.init_params(cfg, generator=torch.Generator(device=device).manual_seed(seed),
+                         matmul_dtype=getattr(torch, cfg.compute_dtype))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-4b")
@@ -71,9 +84,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     cfg = scaled_config(args.arch, args.scale)
-    cfg = dataclasses.replace(cfg, param_dtype=cfg.compute_dtype)
     device = resolve_device(args.device)
-    model = T.init_params(cfg, generator=torch.Generator(device=device).manual_seed(0))
+    model = init_model(cfg, device)
     gen = torch.Generator(device=device).manual_seed(1)
     prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen, device=device)
 

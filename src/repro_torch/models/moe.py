@@ -47,7 +47,7 @@ class MoE(nn.Module):
     MLP of the shared experts at width f·num_shared (``None`` without
     them).  The reference's initialisation laws."""
 
-    def __init__(self, cfg: ModelConfig, *, dtype, device, generator):
+    def __init__(self, cfg: ModelConfig, *, dtype, device, generator, f32_read_dtype=None):
         super().__init__()
         m = cfg.moe
         d, f, E = cfg.d_model, m.d_expert, m.num_experts
@@ -57,7 +57,8 @@ class MoE(nn.Module):
             w = torch.randn((E, din, dout), **kw)
             return nn.Parameter(w.mul_(1.0 / math.sqrt(din)), requires_grad=False)
 
-        self.router = L.dense_init(d, E, scale=0.02, **kw)
+        self.router = L.dense_init(d, E, scale=0.02, dtype=f32_read_dtype or dtype, device=device,
+                                   generator=generator)
         self.w_gate = experts(d, f)
         self.w_up = experts(d, f)
         self.w_down = experts(f, d)

@@ -1,32 +1,36 @@
-"""Decoder assembly for the ``attn_mlp``, ``attn_moe``, ``mlstm`` and
-``slstm`` block types (the serving subset of the reference's
-``models/transformer.py``).
+"""Decoder assembly for the ``attn_mlp``, ``attn_moe``, ``mlstm``,
+``slstm``, ``rglru_mlp`` and ``lattn_mlp`` block types (the serving subset
+of the reference's ``models/transformer.py``).
 
 The model is an ``nn.Module`` tree: an embedding, one block per layer in a
-``ModuleList`` (:class:`Block` for attention layers,
+``ModuleList`` (:class:`Block` for attention layers, global or local,
 :class:`~repro_torch.models.xlstm.MLSTMBlock` and
-:class:`~repro_torch.models.xlstm.SLSTMBlock` for the xLSTM ones), a final
-norm and a head.  The reference stacks
-the layers' parameters along a leading ``reps`` axis and runs ``lax.scan``;
-here a Python loop walks the blocks (``convert.transformer_params_from_jax``
-unstacks the reference's tree).  Parameters are held in ``param_dtype``, and
-every matmul casts its weight to ``compute_dtype`` as the reference does;
-:func:`cast_params` makes, once, a copy whose matmul weights already are in
-``compute_dtype``, so the casts do nothing.
+:class:`~repro_torch.models.xlstm.SLSTMBlock` for the xLSTM ones,
+:class:`~repro_torch.models.rglru.RGLRUBlock` for the RG-LRU ones), a final
+norm and a head.  The reference stacks the body's layers' parameters along
+a leading ``reps`` axis and runs ``lax.scan``, then its ``tail`` blocks;
+here a Python loop walks the blocks, the tail last
+(``convert.transformer_params_from_jax`` unstacks the reference's tree).
+Parameters are held in ``param_dtype``, and every matmul casts its weight
+to ``compute_dtype`` as the reference does; :func:`cast_params` makes,
+once, a copy whose matmul weights already are in ``compute_dtype``, so the
+casts do nothing.  :func:`init_params` can draw the embedding and the
+matmul weights in another dtype than the parameters the forward reads in
+f32 (:data:`_READ_IN_F32`), as the serving launcher does.
 
 Entry points:
   * :func:`forward_train` — (B, T) tokens → logits and the layers' summed
     MoE aux loss (forward only for now; the decode oracle of the tests)
   * :func:`prefill` / :func:`decode_step` — serving with a per-layer cache:
     K/V for attention layers, which ``decode_step`` writes in place, and
-    the recurrent state of an xLSTM layer, which it replaces.  As in the
-    reference, ``prefill`` returns ``{}`` as a recurrent layer's cache: an
-    xLSTM model is served by teacher-forcing the prompt through
+    the recurrent state of an xLSTM or RG-LRU layer, which it replaces.
+    A local-attention layer's cache is a ring of the window's size.  As in
+    the reference, ``prefill`` returns ``{}`` as a recurrent layer's cache:
+    a recurrent model is served by teacher-forcing the prompt through
     ``decode_step`` (``serve.decode.greedy_generate``).
 
-RG-LRU and local-attention blocks, the modality frontends, ``loss_fn`` and
-meshes are not ported yet; they raise with the ROADMAP item that ports
-them.
+The modality frontends, ``loss_fn`` and meshes are not ported yet; they
+raise with the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from torch import nn
 from . import attention as A
 from . import layers as L
 from . import moe as M
+from . import rglru as G
 from . import xlstm as X
 from .registry import ModelConfig
 
@@ -57,19 +62,15 @@ __all__ = [
     "prefill",
 ]
 
-_BLOCKS = ("attn_mlp", "attn_moe", "mlstm", "slstm")  # the block types the port runs
-# Block types of the reference that the port does not run yet, with the
-# ROADMAP item (queue 1) that ports them.
-_UNPORTED_BLOCKS = {
-    "rglru_mlp": "item 13.3 (RG-LRU and local attention)",
-    "lattn_mlp": "item 13.3 (RG-LRU and local attention)",
-}
+_BLOCKS = ("attn_mlp", "attn_moe", "lattn_mlp", "mlstm", "slstm", "rglru_mlp")  # every block type of the reference
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelContext:
     """Implementation switches.  ``attn_impl`` is ``auto`` (the kernel on
-    the card, the plain version on the CPU), ``cuda`` or ``torch_ref``."""
+    the card, the plain version on the CPU; a local-attention layer's
+    window takes the chunked attention on both), ``cuda``, ``torch_ref``
+    or ``torch_chunked`` (``cuda`` and ``torch_ref`` refuse a window)."""
 
     attn_impl: str = "auto"
     mesh: Any = None
@@ -84,9 +85,7 @@ class ModelContext:
 def _check_supported(cfg: ModelConfig) -> None:
     for bt in cfg.block_types:
         if bt not in _BLOCKS:
-            raise NotImplementedError(
-                f"{cfg.name}: block type {bt!r} is not ported yet: ROADMAP queue 1, "
-                f"{_UNPORTED_BLOCKS.get(bt, 'item 13')}")
+            raise ValueError(f"{cfg.name}: unknown block type {bt!r}")
     if cfg.num_codebooks > 0 or cfg.num_prefix_tokens > 0:
         raise NotImplementedError(
             f"{cfg.name}: modality frontends are not ported yet: ROADMAP queue 1, item 13.4")
@@ -100,18 +99,20 @@ def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 class Block(nn.Module):
-    """One layer: pre-norm GQA attention, then a pre-norm MLP
-    (``attn_mlp``) or routed experts (``attn_moe``, parameters ``moe``)."""
+    """One layer: pre-norm GQA attention, global or over ``cfg.window``
+    (``lattn_mlp``), then a pre-norm MLP (``attn_mlp``, ``lattn_mlp``) or
+    routed experts (``attn_moe``, parameters ``moe``)."""
 
-    def __init__(self, cfg: ModelConfig, block_type: str, *, dtype, device, generator):
+    def __init__(self, cfg: ModelConfig, block_type: str, *, dtype, device, generator, f32_read_dtype=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device, generator=generator)
+        rd = f32_read_dtype or dtype
         self.block_type = block_type
-        self.attn_norm = L.rmsnorm_init(cfg.d_model, dtype=dtype, device=device)
-        self.attn = A.attn_init(cfg, **kw)
-        self.mlp_norm = L.rmsnorm_init(cfg.d_model, dtype=dtype, device=device)
+        self.attn_norm = L.rmsnorm_init(cfg.d_model, dtype=rd, device=device)
+        self.attn = A.attn_init(cfg, f32_read_dtype=rd, **kw)
+        self.mlp_norm = L.rmsnorm_init(cfg.d_model, dtype=rd, device=device)
         if block_type == "attn_moe":
-            self.moe = M.MoE(cfg, **kw)
+            self.moe = M.MoE(cfg, f32_read_dtype=rd, **kw)
         else:
             self.mlp = L.mlp_init(cfg.d_model, cfg.d_ff, gated=cfg.mlp_act != "gelu", **kw)
 
@@ -121,28 +122,40 @@ def _block(cfg: ModelConfig, block_type: str, **kw) -> nn.Module:
         return X.MLSTMBlock(cfg, **kw)
     if block_type == "slstm":
         return X.SLSTMBlock(cfg, **kw)
+    if block_type == "rglru_mlp":
+        return G.RGLRUBlock(cfg, **kw)
     return Block(cfg, block_type, **kw)
 
 
 class Transformer(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device, generator):
+    """The model.  Its embedding and matmul weights are drawn in
+    ``matmul_dtype`` (``param_dtype`` by default), the parameters the
+    forward reads in f32 (:data:`_READ_IN_F32`) in ``param_dtype``."""
+
+    def __init__(self, cfg: ModelConfig, *, device, generator, matmul_dtype=None):
         super().__init__()
         _check_supported(cfg)
-        dtype = getattr(torch, cfg.param_dtype)
+        rd = getattr(torch, cfg.param_dtype)
+        dtype = matmul_dtype or rd
         d, V = cfg.d_model, cfg.vocab
         embed = torch.randn((V, d), generator=generator, device=device, dtype=dtype)
         self.embed = nn.Parameter(embed.mul_(0.02), requires_grad=False)
-        self.blocks = nn.ModuleList(_block(cfg, bt, dtype=dtype, device=device, generator=generator)
-                                    for bt in cfg.block_types)
-        self.final_norm = L.rmsnorm_init(d, dtype=dtype, device=device)
+        self.blocks = nn.ModuleList(
+            _block(cfg, bt, dtype=dtype, device=device, generator=generator, f32_read_dtype=rd)
+            for bt in cfg.block_types)
+        self.final_norm = L.rmsnorm_init(d, dtype=rd, device=device)
         if not cfg.tie_embeddings:
             self.lm_head = L.dense_init(d, V, dtype=dtype, device=device, generator=generator, scale=0.02)
 
 
-def init_params(cfg: ModelConfig, *, generator: torch.Generator) -> Transformer:
+def init_params(cfg: ModelConfig, *, generator: torch.Generator, matmul_dtype=None) -> Transformer:
     """Random weights drawn from ``generator`` directly on its device (the
-    reference's initialisation laws, not its random stream)."""
-    return Transformer(cfg, device=generator.device, generator=generator)
+    reference's initialisation laws, not its random stream): the embedding
+    and the matmul weights in ``matmul_dtype`` (``cfg.param_dtype`` by
+    default), the parameters the forward reads in f32 in
+    ``cfg.param_dtype``.  Each is drawn in its own dtype, so no copy of the
+    tree in another dtype is ever held."""
+    return Transformer(cfg, device=generator.device, generator=generator, matmul_dtype=matmul_dtype)
 
 
 def param_count(model: nn.Module) -> int:
@@ -157,20 +170,21 @@ def model_from_state_dict(cfg: ModelConfig, state_dict) -> Transformer:
     return model
 
 
-# Parameters the forward reads in f32 whatever the compute dtype.
-_READ_IN_F32 = ("norm", "moe.router", ".r_z", ".r_i", ".r_f", ".r_o")
+# Parameters the forward reads in f32 whatever the compute dtype (the
+# suffixes of their names).
+_READ_IN_F32 = ("norm", "moe.router", ".r_z", ".r_i", ".r_f", ".r_o", ".lam")
 
 
 def cast_params(model: Transformer, cfg: ModelConfig) -> Transformer:
     """A model whose embedding and matmul weights are held in
     ``compute_dtype``: the values every per-call cast would give, made once.
-    The norm scales, the MoE routers and the sLSTM's recurrent matrices
-    ``r_{z,i,f,o}``, which the forward reads in f32, are shared as they are
-    (a rounded router would move routing decisions, a rounded recurrence
-    would round every step of the cell).
+    The norm scales, the MoE routers, the sLSTM's recurrent matrices
+    ``r_{z,i,f,o}`` and the RG-LRU's ``lam``, which the forward reads in
+    f32, are shared as they are (a rounded router would move routing
+    decisions, a rounded recurrence would round every step of the cell).
     It serves a tree held in f32, such as one carried from the reference;
-    the MoE launcher and the smoke script draw their weights in the compute
-    dtype and never call it."""
+    the serving launcher draws its weights in their dtypes
+    (``init_params(matmul_dtype=...)``) and never calls it."""
     cd = _compute_dtype(cfg)
     sd = {
         name: t if name.endswith(_READ_IN_F32) else t.to(cd)
@@ -191,6 +205,12 @@ def _ffn(p: Block, xn2, cfg: ModelConfig):
     return out.to(xn2.dtype), None
 
 
+def _window(p, cfg: ModelConfig):
+    """The attention window of a layer: ``cfg.window`` for local attention,
+    read at every call as the reference does."""
+    return cfg.window if p.block_type == "lattn_mlp" else None
+
+
 def _block_apply(p, x, cfg: ModelConfig, ctx: ModelContext, positions):
     """Training/prefill forward of one block.  Returns (x, aux or None,
     cache: K/V for attention, ``{}`` for a recurrent block)."""
@@ -198,10 +218,19 @@ def _block_apply(p, x, cfg: ModelConfig, ctx: ModelContext, positions):
         return X.mlstm_apply(p, x, cfg), None, {}
     if p.block_type == "slstm":
         return X.slstm_apply(p, x, cfg), None, {}
+    if p.block_type == "rglru_mlp":
+        return G.rglru_apply(p, x, cfg), None, {}
+    window = _window(p, cfg)
     xn = L.rmsnorm(x, p.attn_norm, eps=cfg.rms_eps)
-    a, (k, v) = A.attn_apply(p.attn, xn, cfg, positions=positions, impl=ctx.attn_impl)
+    a, (k, v) = A.attn_apply(p.attn, xn, cfg, positions=positions, window=window, impl=ctx.attn_impl)
     x = x + a
     f, aux = _ffn(p, L.rmsnorm(x, p.mlp_norm, eps=cfg.rms_eps), cfg)
+    if window is not None:
+        # The reference keeps the last min(window, T) positions: position
+        # T − W + i lands in slot i, where decode's ring puts it only when
+        # T % W == 0 (ROADMAP queue 3; no path decodes on from a prefill).
+        keep = min(window, k.shape[1])
+        k, v = k[:, -keep:], v[:, -keep:]
     return x + f, aux, {"k": k, "v": v}
 
 
@@ -211,8 +240,10 @@ def _block_decode(p, x_t, cache, cur_len: int, cfg: ModelConfig, ctx: ModelConte
         return X.mlstm_decode_step(p, cache, x_t, cfg)
     if p.block_type == "slstm":
         return X.slstm_decode_step(p, cache, x_t, cfg)
+    if p.block_type == "rglru_mlp":
+        return G.rglru_decode_step(p, cache, x_t, cfg)
     xn = L.rmsnorm(x_t, p.attn_norm, eps=cfg.rms_eps)
-    a, ck, cv = A.attn_decode_step(p.attn, xn, cache["k"], cache["v"], cur_len, cfg)
+    a, ck, cv = A.attn_decode_step(p.attn, xn, cache["k"], cache["v"], cur_len, cfg, window=_window(p, cfg))
     x_t = x_t + a
     f, _ = _ffn(p, L.rmsnorm(x_t, p.mlp_norm, eps=cfg.rms_eps), cfg)
     return x_t + f, {"k": ck, "v": cv}
@@ -260,16 +291,21 @@ def _block_cache_init(bt: str, cfg: ModelConfig, B: int, max_len: int, device) -
         return X.mlstm_init_state(cfg, B, device=device)
     if bt == "slstm":
         return X.slstm_init_state(cfg, B, device=device)
-    shape = (B, max_len, cfg.n_kv_heads, cfg.head_dim)
     cd = _compute_dtype(cfg)
+    if bt == "rglru_mlp":
+        return G.rglru_init_state(cfg, B, device=device, dtype=cd)
+    S = min(cfg.window or max_len, max_len) if bt == "lattn_mlp" else max_len
+    shape = (B, S, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cd, device=device), "v": torch.zeros(shape, dtype=cd, device=device)}
 
 
 def init_cache(cfg: ModelConfig, B: int, max_len: int, *, device) -> list[dict]:
     """One cache per layer (the reference stacks them along a leading
-    ``reps`` axis): a {"k", "v"} pair of zeros (B, max_len, KV, dh) in
-    compute dtype for an attention layer, the zero recurrent state in f32
-    for an xLSTM one (mLSTM ``{C, n, m, conv}``, sLSTM ``{h, c, n, m}``)."""
+    ``reps`` axis): a {"k", "v"} pair of zeros (B, S, KV, dh) in compute
+    dtype for an attention layer, S = max_len, or min(window, max_len) for
+    a local one; the zero recurrent state in f32 for an xLSTM one (mLSTM
+    ``{C, n, m, conv}``, sLSTM ``{h, c, n, m}``), and for an RG-LRU one
+    ``{h}`` in f32 and ``{conv}`` in compute dtype."""
     _check_supported(cfg)
     return [_block_cache_init(bt, cfg, B, max_len, device) for bt in cfg.block_types]
 
@@ -290,8 +326,9 @@ def decode_step(model: Transformer, cache, tokens_t, cur_len: int, cfg: ModelCon
 @torch.no_grad()
 def prefill(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
     """Prefill forward: the next-token logits (B, 1, V) and the per-layer
-    cache, K/V (B, T, KV, dh) for attention and ``{}`` for a recurrent
-    layer.  Only the last position reaches the head."""
+    cache, K/V (B, T, KV, dh) for attention (the last min(window, T)
+    positions for local attention) and ``{}`` for a recurrent layer.  Only
+    the last position reaches the head."""
     x, _ = _embed(model, batch, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     cache = []

@@ -76,12 +76,13 @@ class MLSTMBlock(nn.Module):
 
     block_type = "mlstm"
 
-    def __init__(self, cfg: ModelConfig, *, dtype, device, generator):
+    def __init__(self, cfg: ModelConfig, *, dtype, device, generator, f32_read_dtype=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device, generator=generator)
+        rd = f32_read_dtype or dtype
         d, H = cfg.d_model, cfg.n_heads
         di = int(cfg.mlstm_proj_factor * d)
-        self.norm = L.rmsnorm_init(d, dtype=dtype, device=device)
+        self.norm = L.rmsnorm_init(d, dtype=rd, device=device)
         self.w_up = L.dense_init(d, 2 * di, **kw)
         self.conv = L.causal_conv1d_init(di, cfg.conv_width, **kw)
         self.wq = L.dense_init(di, di, **kw)
@@ -91,7 +92,7 @@ class MLSTMBlock(nn.Module):
         self.b_i = L._param(torch.zeros((H,), dtype=dtype, device=device))
         self.w_f = L.dense_init(di, H, scale=0.02, **kw)
         self.b_f = L._param(torch.full((H,), 3.0, dtype=dtype, device=device))
-        self.hnorm = L.rmsnorm_init(di, dtype=dtype, device=device)
+        self.hnorm = L.rmsnorm_init(di, dtype=rd, device=device)
         self.w_down = L.dense_init(di, d, **kw)
 
 
@@ -249,21 +250,22 @@ class SLSTMBlock(nn.Module):
 
     block_type = "slstm"
 
-    def __init__(self, cfg: ModelConfig, *, dtype, device, generator):
+    def __init__(self, cfg: ModelConfig, *, dtype, device, generator, f32_read_dtype=None):
         super().__init__()
         kw = dict(dtype=dtype, device=device, generator=generator)
+        rd = f32_read_dtype or dtype
         d, H = cfg.d_model, cfg.n_heads
         dh = d // H
-        self.norm = L.rmsnorm_init(d, dtype=dtype, device=device)
+        self.norm = L.rmsnorm_init(d, dtype=rd, device=device)
         for g in _GATES:
             setattr(self, f"w_{g}", L.dense_init(d, d, scale=0.02 if g in ("i", "f") else None, **kw))
-            r = torch.randn((H, dh, dh), **kw)
+            r = torch.randn((H, dh, dh), generator=generator, device=device, dtype=rd)
             setattr(self, f"r_{g}", L._param(r.div_(math.sqrt(dh)).mul_(0.5)))
             b = torch.full((d,), 3.0 if g == "f" else 0.0, dtype=dtype, device=device)
             setattr(self, f"b_{g}", L._param(b))
-        self.hnorm = L.rmsnorm_init(d, dtype=dtype, device=device)
+        self.hnorm = L.rmsnorm_init(d, dtype=rd, device=device)
         self.w_out = L.dense_init(d, d, **kw)
-        self.ffn_norm = L.rmsnorm_init(d, dtype=dtype, device=device)
+        self.ffn_norm = L.rmsnorm_init(d, dtype=rd, device=device)
         self.ffn = L.mlp_init(d, int(cfg.slstm_proj_factor * d), gated=True, **kw)
 
 

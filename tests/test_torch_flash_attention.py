@@ -84,14 +84,18 @@ def test_flash_plain_matches_jax_chunked_when_T_below_S(B, T, S, H, KV, dh, dtyp
 
 def test_flash_impls_and_refusals():
     q, k, v = (torch.from_numpy(a) for a in _flash_inputs(1, 8, 8, 4, 2, 16, seed=0))
-    assert dispatch.impl_names("flash_attention") == ("cuda", "torch_ref")
+    assert dispatch.impl_names("flash_attention") == ("cuda", "torch_chunked", "torch_ref")
     before = dispatch.launch_counts()["flash_attention"]
     fa_ops.flash_attention(q, k, v)  # the plain version on the CPU: no launch
+    windowed = fa_ops.flash_attention(q, k, v, window=4)  # the chunked attention, on every device
     assert dispatch.launch_counts()["flash_attention"] == before
+    torch.testing.assert_close(windowed, fa_ops.chunked_attention(q, k, v, window=4), rtol=0, atol=0)
+    assert not torch.allclose(windowed, fa_ops.flash_attention(q, k, v))  # the window binds at T = 8
     with pytest.raises(ValueError, match="needs CUDA tensors"):
         fa_ops.flash_attention(q, k, v, impl="cuda")
-    with pytest.raises(NotImplementedError, match="item 13.3"):
-        fa_ops.flash_attention(q, k, v, window=4)
+    for impl in ("cuda", "torch_ref"):  # neither has a window: refused, never rerouted
+        with pytest.raises(ValueError, match="has no sliding window"):
+            fa_ops.flash_attention(q, k, v, window=4, impl=impl)
     with pytest.raises(ValueError, match="do not match"):
         fa_ops.flash_attention(q[..., :3, :], k, v)
     with pytest.raises(ValueError, match="one CUDA device"):  # the wrapper never falls back

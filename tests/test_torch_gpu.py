@@ -47,7 +47,10 @@ The MoE combine on the card gives the same bits on every run, equal to the
 serial expert-by-expert sum on the CPU.  The xLSTM blocks run no kernel of
 the port: a block at full width in f32 on the card lies within 1e-5 of its
 scale of the same block on the CPU (cuBLAS and the CPU's GEMMs sum in other
-orders).
+orders).  Nor do RecurrentGemma's: the windowed chunked attention on the
+card against the masked dense oracle (rtol 2e-5, atol 2e-4, the band of
+the reference's chunked tests), the smoke model's ring decode against its
+forward and its CPU run at 1e-5 of the logits' scale.
 
 Flash attention: f32 inputs rtol 1e-5, atol 1e-5 (the kernel sums three
 bf16 pieces of each f32 value on the tensor cores, about 2^-24 of each
@@ -571,6 +574,66 @@ def test_xlstm_block_at_full_width_on_card_matches_cpu(cuda_device, kind):
             o_card, s_card = step(card, s_card, x[:, t : t + 1].to(cuda_device), cfg)
             assert gap(o_card, o_cpu) <= 1e-5, t
             assert max(gap(s_card[key], s_cpu[key]) for key in s_cpu if s_cpu[key].abs().max() > 0) <= 1e-5, t
+
+
+@pytest.mark.gpu
+def test_windowed_chunked_attention_on_card_matches_the_masked_oracle(cuda_device):
+    """RecurrentGemma's local attention at its head width (16 heads over 1
+    KV head of 256), T = 2048, window 512, f32: the chunked attention on
+    the card (skipping key blocks outside each chunk's window) against the
+    dense masked oracle, at the band of tests/test_kernels.py's windowed
+    chunked test (rtol 2e-5, atol 2e-4), with no kernel launch."""
+    B, T_len, H, KV, dh, W = 1, 2048, 16, 1, 256, 512
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _flash_inputs(B, T_len, T_len, H, KV, dh, seed=31))
+    before = dict(dispatch.launch_counts())
+    got = fa_ops.flash_attention(q, k, v, causal=True, window=W)
+    assert dispatch.launch_counts() == before
+    s = torch.einsum("bthd,bshd->bhts", q, k.repeat_interleave(H // KV, 2)) * dh**-0.5
+    pos = torch.arange(T_len, device=cuda_device)
+    mask = (pos[:, None] >= pos[None, :]) & (pos[None, :] > pos[:, None] - W)
+    p = torch.softmax(s.masked_fill(~mask, float("-inf")), dim=-1)
+    want = torch.einsum("bhts,bshd->bthd", p, v.repeat_interleave(H // KV, 2))
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-4)
+    with pytest.raises(ValueError, match="has no sliding window"):
+        fa_ops.flash_attention(q, k, v, window=W, impl="cuda")
+
+
+@pytest.mark.gpu
+def test_recurrentgemma_ring_decode_on_card(cuda_device):
+    """recurrentgemma-9b's smoke model (window 32) in f32 on the card: 80
+    tokens teacher-forced through decode_step (the ring wraps twice)
+    against forward_train, within 1e-5 of the logits' scale (the CPU gives
+    2.2e-6), and each step's logits against the same model's CPU decode at
+    1e-5 of the scale; no kernel launch.  The same decode with the window
+    raised to 128 (no wrap) parts from the window-32 forward past the
+    window: the ring is what binds."""
+    import dataclasses
+
+    from repro_torch.configs import recurrentgemma_9b
+
+    cfg = dataclasses.replace(recurrentgemma_9b.smoke_config(), compute_dtype="float32")
+    cpu = T.init_params(cfg, generator=torch.Generator().manual_seed(20))
+    card = T.model_from_state_dict(cfg, {name: t.to(cuda_device) for name, t in cpu.state_dict().items()})
+    n = 80
+    tokens = torch.randint(0, cfg.vocab, (2, n), generator=torch.Generator().manual_seed(21))
+
+    def gap(a, b):
+        return float((a.cpu() - b.cpu()).abs().max() / b.cpu().abs().max())
+
+    def decode(model, c, toks):
+        cache, outs = T.init_cache(c, 2, n, device=toks.device), []
+        for t in range(n):
+            lg, cache = T.decode_step(model, cache, toks[:, t : t + 1], t, c, T.ModelContext())
+            outs.append(lg[:, 0])
+        return torch.stack(outs, 1)
+
+    before = dict(dispatch.launch_counts())
+    full, _, _ = T.forward_train(card, {"tokens": tokens.to(cuda_device)}, cfg, T.ModelContext())
+    stepped = decode(card, cfg, tokens.to(cuda_device))
+    assert dispatch.launch_counts() == before
+    assert gap(stepped, full) <= 1e-5 and gap(stepped, decode(cpu, cfg, tokens)) <= 1e-5
+    wide = decode(card, dataclasses.replace(cfg, window=128), tokens.to(cuda_device))
+    assert gap(wide[:, 32:], full[:, 32:]) > 1e-2
 
 
 # ------------------------------------------------- the resilience runtime

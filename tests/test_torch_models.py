@@ -231,7 +231,8 @@ def test_cast_params_holds_the_per_call_cast():
 
 def test_dense_configs_registered_with_reference_shapes():
     assert list_archs() == sorted(["qwen3-4b", "qwen3-8b", "qwen2.5-3b", "qwen3-1.7b",
-                                   "moonshot-v1-16b-a3b", "deepseek-moe-16b", "xlstm-1.3b"])
+                                   "moonshot-v1-16b-a3b", "deepseek-moe-16b", "xlstm-1.3b",
+                                   "recurrentgemma-9b"])
     from repro.models.registry import get_config as j_get_config
 
     for arch in list_archs():
@@ -254,9 +255,9 @@ def test_get_config_raises_for_non_dense(arch):
 
 def test_unported_blocks_and_mesh_raise():
     cfg = importlib.import_module("repro_torch.configs.qwen3_4b").smoke_config()
-    rglru = dataclasses.replace(cfg, scan_unit=("rglru_mlp",))
-    with pytest.raises(NotImplementedError, match="item 13.3"):
-        T.init_params(rglru, generator=torch.Generator())
+    codebooks = dataclasses.replace(cfg, num_codebooks=4)
+    with pytest.raises(NotImplementedError, match="item 13.4"):
+        T.init_params(codebooks, generator=torch.Generator())
     with pytest.raises(NotImplementedError, match="item 9"):
         T.ModelContext(mesh=object())
 
