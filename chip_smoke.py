@@ -11,9 +11,11 @@ the torch.distributed mesh executor (a world of one over NCCL, two ranks
 over gloo), runs the streaming clustering service (the coreset tree, the
 query engine, the micro-batching frontend) on the same 1M points,
 serves qwen3-4b, the MoE model deepseek-moe-16b, the xLSTM model
-xlstm-1.3b and the RG-LRU / local-attention model recurrentgemma-9b at
-full width and depth (prefill and greedy decode) and
-moonshot-v1-16b-a3b at full width, and fails loudly: there is no CPU
+xlstm-1.3b, the RG-LRU / local-attention model recurrentgemma-9b and the
+two modality frontends musicgen-large and internvl2-1b at full width and
+depth (prefill and greedy decode) and moonshot-v1-16b-a3b at full width,
+trains qwen3-1.7b at full width and depth and the launcher's 100m scale
+through the trainer's host path, and fails loudly: there is no CPU
 fallback and no caught phase.  Every phase prints its seconds beside the card's name and
 power limit.
 
@@ -29,7 +31,17 @@ Phases:
                  (4, 2048, 2048, 32, 8, 128) (the tma-wgmma kernel), the
                  T < S case (1, 16, 32, 4, 2, 16) and f32 (the mma-sync
                  one), and the MoE prefill shape (4, 2048, 2048, 16, 16,
-                 128) (group size 1); pairwise_sqdist at its edges
+                 128) (group size 1), the frontends' prefill shapes
+                 (4, 2048, 2048, 14, 2, 64) (group size 7) and (4, 2048,
+                 2048, 32, 32, 64); the autograd Function of flash
+                 (the kernel forward, the plain attention_bwd_ref
+                 backward) against torch.autograd.grad of the plain
+                 attention at qwen3-1.7b's training shape (8, 512, 512,
+                 16, 8, 128) bf16 (2e-2 of each gradient's scale) and a
+                 ragged f32 one (1e-4), timed beside
+                 scaled_dot_product_attention's forward plus backward,
+                 and the raw wrapper must refuse inputs that require
+                 grad; pairwise_sqdist at its edges
                  and at (1,000,000 x 128) x (256 x 128), the op's own path:
                  launch counts are read just around that call
   5. paper size  the twin of examples/quickstart.py; the p_a=0.2 run is
@@ -179,7 +191,41 @@ Phases:
                  greedy_generate, batch 4, prompt 16, gen 32, 0 kernel
                  launches, the cache's bytes; (e) one prefill and 8 decode
                  steps under torch.profiler
-  17. timing     each kernel, its plain version and one library call
+  17. serve frontends  musicgen-large (48 layers, d_model 2048, 32 heads
+                 over 32 of 64, 4 codebooks of 2048; 2,449,672,192
+                 parameters) and internvl2-1b (24 layers, d_model 896,
+                 14 heads over 2 of 64, 256 prefix embeddings, vocab
+                 151655; 629,663,872 parameters), each drawn as the
+                 serving launcher draws it, the count held to the
+                 widths': a prefill of 4 x 2048 (musicgen's (4, 4, 2048)
+                 tokens; internvl's 256 seeded prefix embeddings and 1792
+                 text tokens) with exactly 48 / 24 flash launches,
+                 tokens/s, profiled (busy, idle share); greedy_generate
+                 batch 4, prompt 16, gen 32, ms a step; decode against the
+                 teacher-forced forward_train in f32 at full width, depth
+                 4, 64 tokens, within rtol 2e-2, atol 2e-2 (the band of
+                 tests/test_models_smoke.py:142)
+  18. train full width  qwen3-1.7b (28 layers, d_model 2048; 2,031,739,904
+                 f32 parameters, bf16 compute) through Trainer's host path:
+                 4 groups, 4 shards, redundancy 2 cyclic, microbatch 1,
+                 seq_len 512, 8 steps under the deadline scenario, tokens
+                 over 8192 ids (DATA_VOCAB); each step's seconds, tokens/s,
+                 flash launches (exactly 28), host solves, loss; two more
+                 steps profiled (busy, idle share); the peak memory; every
+                 parameter's .grad present and nonzero after one backward;
+                 one step's gradient through the kernel against the plain
+                 attention at 2 layers of that width in f32, each
+                 parameter within 1e-4 of its scale
+  19. train 100m the launcher's 100m scale (qwen3-4b's family, d_model 768,
+                 12 layers, vocab 32768): 30 steps under the deadline
+                 scenario with a checkpoint every 10; the mean loss of the
+                 last 8 steps below the first 8's by 0.01 (the twin of
+                 tests/test_training.py:298); 15 steps, an interrupt, and
+                 a resume from the checkpoint to step 30 (its straggler
+                 stream advanced past the 15 steps taken): its losses
+                 within 1e-3 of the uninterrupted run's, bit for bit
+                 printed
+  20. timing     each kernel, its plain version and one library call
                  (weighted_segsum also at the coordinator's (1, 2560, 256,
                  128), with its launches in Algorithm 1 by shape); the
                  bound of rows assign_min and pairwise_sqdist is three TF32
@@ -189,7 +235,8 @@ Phases:
                  computed figures and the shapes go on the printed timing
                  lines, the kernels line holds the measured numbers and
                  bound_ms; flash is timed at the MoE shape too, and its row
-                 lists its launches by path
+                 lists its launches by path (the training steps' forward
+                 among them) and the autograd Function's numbers
 
 The last two lines are the card's name and power limit and
 {"ok": true, "device": {...}}; the line before them lists the kernels.
@@ -723,6 +770,363 @@ def serve_rglru(seed: int, card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# The Markov table of the token pipeline (data/tokens.py) is vocab x vocab
+# f64: 184 GB at qwen3-1.7b's vocab of 151,936 and 8.6 GB at the 100m
+# scale's 32,768.  The training phases draw their streams from the
+# reference's table over the first DATA_VOCAB ids (TrainerConfig.data_vocab).
+DATA_VOCAB = 8192
+
+
+def flash_grad_check(tag, shape, dtype, seed: int, card: str) -> dict:
+    """The autograd Function of flash attention (``ops.FlashAttentionFn``:
+    the kernel forward, the plain ``attention_bwd_ref`` backward) against
+    ``torch.autograd.grad`` of the plain ``attention_ref`` on the same
+    inputs: max|Δ| of dq, dk and dv within 2e-2 of each one's max in bf16
+    (the two forwards' outputs differ by a bf16 ulp, which enters
+    rowsum(dO∘O), and each gradient is rounded to bf16), 1e-4 in f32.  The
+    raw wrapper must raise on inputs that require grad.  Times forward plus
+    backward for the Function, the plain version and
+    scaled_dot_product_attention; returns the numbers."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+
+    dev = torch.device("cuda")
+    B, T_len, H, KV, dh = shape
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn((B, T_len, n, dh), generator=g, device=dev).to(dtype) for n in (H, KV, KV))
+    do = torch.randn((B, T_len, H, dh), generator=g, device=dev).to(dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = dispatch.launch_counts()["flash_attention"]
+    out = fa_ops.flash_attention(*leaves)
+    if dispatch.launch_counts()["flash_attention"] != before + 1 or out.grad_fn is None:
+        raise AssertionError(f"flash grad {tag}: the differentiable call did not launch the kernel once")
+    got = torch.autograd.grad(out, leaves, do)
+    want = torch.autograd.grad(fa_ops.flash_attention(*plain, impl="torch_ref"), plain, do)
+    torch.cuda.synchronize()
+    band = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    shares = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        if a.dtype != dtype or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"flash grad {tag}: {name} is {a.dtype} or not finite")
+        shares[name] = float((a.float() - b.float()).abs().max() / b.float().abs().max())
+    try:
+        fa_kernel.flash_attention_cuda(*leaves, causal=True, scale=dh ** -0.5)
+    except RuntimeError as e:
+        if "no gradient" not in str(e):
+            raise
+    else:
+        raise AssertionError("flash_attention_cuda ran on inputs that require grad")
+
+    def fwd_bwd(impl):
+        return lambda: torch.autograd.grad(fa_ops.flash_attention(*leaves, impl=impl), leaves, do)
+
+    qh, kh, vh = (t.detach().transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    doh = do.transpose(1, 2).contiguous()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def lib():
+        return torch.autograd.grad(sdpa(qh, kh, vh, is_causal=True, enable_gqa=True), (qh, kh, vh), doh)
+
+    peak = 989e12 if dtype == torch.bfloat16 else 67e12
+    fwd_ops = 4.0 * B * H * dh * (T_len * (T_len + 1) / 2)
+    esize = 2 if dtype == torch.bfloat16 else 4
+    fwd_bytes = esize * (2 * B * T_len * H * dh + 2 * B * T_len * KV * dh)
+    # backward: five products of one recompute (2.5 x the forward's); reads
+    # q, k, v, o, dO, writes dq, dk, dv
+    bwd_bytes = esize * (3 * B * T_len * H * dh + 2 * B * T_len * KV * dh + B * T_len * H * dh
+                         + 2 * B * T_len * KV * dh)
+    res = {
+        "shape": [B, T_len, T_len, H, KV, dh], "dtype": str(dtype)[6:], "grad_err_share": shares,
+        "fwd_bwd_ms": cuda_ms(fwd_bwd("auto"), 10),
+        "plain_fwd_bwd_ms": cuda_ms(fwd_bwd("torch_ref"), 3),
+        "sdpa_fwd_bwd_ms": cuda_ms(lib, 10),
+        "fwd_ms": cuda_ms(lambda: fa_ops.flash_attention(q, k, v), 10),
+        "fwd_bound_ms": 1e3 * max(fwd_ops / peak, fwd_bytes / 3.35e12),
+        "bwd_bound_ms": 1e3 * max(2.5 * fwd_ops / peak, bwd_bytes / 3.35e12),
+    }
+    res["bwd_ms"] = res["fwd_bwd_ms"] - res["fwd_ms"]
+    print(f"flash grad {tag}: (B,T,S,H,KV,dh)={tuple(res['shape'])} {res['dtype']}  max|d-d_plain|/max|d_plain| "
+          f"{ {k: f'{v:.2e}' for k, v in shares.items()} } (band {band:g}); fwd+bwd {res['fwd_bwd_ms']:.3f} ms "
+          f"(fwd {res['fwd_ms']:.3f}, bwd {res['bwd_ms']:.3f}), plain {res['plain_fwd_bwd_ms']:.3f} ms, "
+          f"sdpa fwd+bwd {res['sdpa_fwd_bwd_ms']:.3f} ms; bounds fwd {res['fwd_bound_ms']:.3f} ms, "
+          f"bwd {res['bwd_bound_ms']:.3f} ms  [{card}]")
+    if max(shares.values()) > band:
+        raise AssertionError(f"flash grad {tag}: gradients differ from the plain ones beyond {band:g}: {shares}")
+    return res
+
+
+def dense_param_count(cfg) -> int:
+    """The parameters of an attn_mlp model (with its frontend) from its
+    config's widths."""
+    d, H, KV, dh, f, V, K = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_ff, cfg.vocab,
+                             max(cfg.num_codebooks, 1))
+    attn = d * dh * (2 * H + 2 * KV) + (dh * (H + 2 * KV) if cfg.qkv_bias else 0) + (2 * dh if cfg.qk_norm else 0)
+    mlp = (2 if cfg.mlp_act == "gelu" else 3) * d * f
+    head = 0 if cfg.tie_embeddings else d * V * K
+    return cfg.n_layers * (attn + mlp + 2 * d) + K * V * d + head + d
+
+
+def serve_frontends(seed: int, card: str) -> dict:
+    """Phase "serve frontends": musicgen-large (4 codebook streams) and
+    internvl2-1b (256 prefix embeddings) at full width and depth, drawn as
+    the serving launcher draws them (bf16 matmul weights); a 4 x 2048
+    prefill through the kernel, profiled; greedy decode; decode against the
+    teacher-forced forward_train in f32 at depth 4.  Returns each prefill's
+    flash launches."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    from repro_torch.serve import decode as D
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    launches = {}
+    for arch, n_text in (("musicgen-large", 2048), ("internvl2-1b", 1792)):
+        cfg = get_config(arch)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        torch.cuda.reset_peak_memory_stats()
+        model = launch_serve.init_model(cfg, dev, seed)
+        n_params = T.param_count(model)
+        if n_params != dense_param_count(cfg):
+            raise AssertionError(f"{arch}: {n_params} parameters, the widths give {dense_param_count(cfg)}")
+        B, K, P = 4, cfg.num_codebooks, cfg.num_prefix_tokens
+        shape = (B, K, n_text) if K else (B, n_text)
+        batch = {"tokens": torch.randint(0, cfg.vocab, shape, generator=g, device=dev)}
+        if P:
+            batch["prefix_embeds"] = torch.randn((B, P, cfg.d_model), generator=g, device=dev).bfloat16()
+        prefill = D.make_prefill_fn(cfg, T.ModelContext())
+        prefill(model, {k: t[..., :64] if k == "tokens" else t for k, t in batch.items()})  # warm-up
+        sync()
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, cache = prefill(model, batch)
+        sync()
+        secs = time.perf_counter() - t0
+        counts = dispatch.launch_counts()
+        launches[arch] = counts["flash_attention"]
+        n_tok = B * (P + n_text)
+        want = (B, 1, K, cfg.vocab) if K else (B, 1, cfg.vocab)
+        print(f"{arch}: {n_params:,} parameters ({cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+              f"over {cfg.n_kv_heads}); prefill {B} x {P} + {n_text}: {secs:.3f} s ({n_tok / secs:.0f} tokens/s), "
+              f"launches {counts}, logits {tuple(logits.shape)}  [{card}]")
+        if counts["flash_attention"] != cfg.n_layers or tuple(logits.shape) != want:
+            raise AssertionError(f"{arch}: prefill launched flash {counts['flash_attention']} times "
+                                 f"(expected {cfg.n_layers}), logits {tuple(logits.shape)} (expected {want})")
+        if not bool(torch.isfinite(logits).all()) or cache[0]["k"].shape[1] != P + n_text:
+            raise AssertionError(f"{arch}: prefill logits not finite or a cache of {cache[0]['k'].shape[1]} positions")
+        del cache
+        busy = profiled(f"{arch} prefill", lambda: prefill(model, batch), top=6)
+        print(f"{arch} prefill device busy {busy:.3f} s of {secs:.3f} s unprofiled (idle share "
+              f"{1 - busy / secs:.3f})")
+        prompt = batch["tokens"][..., :16].contiguous()
+        dispatch.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        out = D.greedy_generate(model, cfg, prompt, steps=32)
+        sync()
+        dec = time.perf_counter() - t0
+        print(f"{arch} greedy_generate batch {B}, prompt 16, gen 32: {1e3 * dec / 48:.2f} ms/step over 48 steps, "
+              f"launches {dispatch.launch_counts()}, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+        if out.shape != (B, 32) or bool((out < 0).any() or (out >= cfg.vocab).any()):
+            raise AssertionError(f"{arch}: greedy_generate returned {tuple(out.shape)} or ids outside the vocab")
+        del model
+        # The twin of tests/test_models_smoke.py:142 at full width, depth 4, f32.
+        cfg4 = dataclasses.replace(cfg, n_layers=4, compute_dtype="float32")
+        m4 = T.init_params(cfg4, generator=torch.Generator(device=dev).manual_seed(seed))
+        n = 64
+        toks = torch.randint(0, cfg.vocab, (1, K, n) if K else (1, n), generator=g, device=dev)
+        full, _, _ = T.forward_train(m4, {"tokens": toks}, cfg4, T.ModelContext())
+        cache = T.init_cache(cfg4, 1, n, device=dev)
+        steps = []
+        for t in range(n):
+            lg, cache = T.decode_step(m4, cache, toks[..., t : t + 1], t, cfg4, T.ModelContext())
+            steps.append(lg[:, 0])
+        stepped = torch.stack(steps, dim=1)
+        gap = float((stepped - full).abs().max())
+        print(f"{arch} decode vs teacher-forced forward_train, f32, depth 4, {n} tokens: max|a-b| {gap:.3e}, "
+              f"of the scale {gap / float(full.abs().max()):.3e} (band: rtol 2e-2, atol 2e-2)")
+        if not bool(((stepped - full).abs() <= 2e-2 + 2e-2 * full.abs()).all()):
+            raise AssertionError(f"{arch}: decode parts from the teacher-forced forward beyond the 2e-2 band")
+        del m4, cache
+    return launches
+
+
+def _train_loop(trainer, state, sync, label, card, start_step=0):
+    """Run the trainer's loop on ``state``, timing each step on the host
+    clock (the card synchronised) and reading its flash launches; returns
+    (state, rows)."""
+    from repro_torch.kernels import dispatch
+
+    rows = []
+    tokens = trainer.tcfg.num_groups * trainer.plan.shards_per_group * trainer.tcfg.microbatch * trainer.tcfg.seq_len
+    sync()
+    dispatch.reset_launch_counts()
+    last = [time.perf_counter()]
+
+    def on_step(step, rec):
+        sync()
+        now = time.perf_counter()
+        flash = dispatch.launch_counts()["flash_attention"]
+        row = dict(step=step, seconds=now - last[0], flash=flash, loss=rec["loss"], stragglers=rec["stragglers"],
+                   host_solves=rec["host_solves"], grad_norm=rec["grad_norm"])
+        rows.append(row)
+        print(f"{label} step {step}: {row['seconds']:.3f} s, {tokens / row['seconds']:.0f} tokens/s, flash launches "
+              f"{flash}, stragglers {rec['stragglers']}, host solves {rec['host_solves']}, loss {rec['loss']!r}, "
+              f"grad_norm {rec['grad_norm']:.4f}  [{card}]")
+        dispatch.reset_launch_counts()
+        last[0] = time.perf_counter()
+
+    state = trainer.run(state, start_step=start_step, on_step=on_step)
+    return state, rows
+
+
+def train_full_width(seed: int, card: str) -> dict:
+    """Phase "train full width": qwen3-1.7b at full width and depth (f32
+    parameters, bf16 compute) through the Trainer's host path: 4 groups, 4
+    shards, redundancy 2 (cyclic), microbatch 1, seq_len 512, 8 steps under
+    the deadline scenario; each step's seconds, tokens/s, flash launches
+    (one a layer) and loss; two more steps profiled (busy time, idle share);
+    the peak memory; every parameter's .grad after one backward; and one
+    step's gradient through the kernel against the plain attention at two
+    layers of that width in f32."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    sync = torch.cuda.synchronize
+    cfg = get_config("qwen3-1.7b")
+    tcfg = TrainerConfig(num_groups=4, num_shards=4, redundancy=2, scheme="cyclic", microbatch=1, seq_len=512,
+                         steps=8, seed=seed, straggler_scenario="deadline", data_vocab=DATA_VOCAB)
+    n = dense_param_count(cfg)
+    print(f"qwen3-1.7b: {n:,} parameters; predicted peak: f32 parameters, m, v and gradients "
+          f"{16 * n / 1e9:.1f} GB, bf16 weight copies saved for the backward {2 * n / 1e9:.1f} GB, logits "
+          f"(4096, {cfg.vocab}) bf16 + f32 + log-softmax + its gradient "
+          f"{4096 * cfg.vocab * (2 + 4 + 4 + 4) / 1e9:.1f} GB, activations about 10 GB: 50-60 GB")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, tcfg, AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=8), device="cuda")
+    state, _ = trainer.init_state()
+    sync()
+    print(f"trainer and state on the card: {time.perf_counter() - t0:.3f} s; batch "
+          f"{trainer.pipeline.batch_shape} a step")
+    report = trainer.warmup(state)
+    print(f"warm-up (one forward + backward, discarded): {report.seconds:.3f} s, errors {report.errors}")
+    if report.errors:
+        raise AssertionError("train full width: the warm-up step failed")
+    state, rows = _train_loop(trainer, state, sync, "qwen3-1.7b", card)
+    if len(rows) != tcfg.steps or any(r["flash"] != cfg.n_layers for r in rows):
+        raise AssertionError(f"train full width: {len(rows)} steps, flash launches {[r['flash'] for r in rows]} "
+                             f"(expected {cfg.n_layers} a step)")
+    if not all(np.isfinite(r["loss"]) for r in rows) or sum(r["stragglers"] for r in rows) == 0:
+        raise AssertionError("train full width: a loss is not finite, or no step had a straggler")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    mean_s = float(np.mean([r["seconds"] for r in rows[1:]]))
+    print(f"qwen3-1.7b: mean step {mean_s:.3f} s over steps 1-7; peak memory {peak:.2f} GB  [{card}]")
+    batch = trainer._batch(0, np.ones(4, dtype=np.float32))
+    busy = [profiled(f"train step {i}", lambda: trainer._step_fn(state, batch), top=8) for i in range(2)]
+    print(f"train step device busy {busy[0]:.3f} s, {busy[1]:.3f} s of {mean_s:.3f} s unprofiled (idle share "
+          f"{1 - busy[1] / mean_s:.3f})")
+    # Every parameter's .grad after one backward.
+    loss, _ = T.loss_fn(state.params, batch, cfg, trainer.ctx)
+    loss.backward()
+    missing = [name for name, p in state.params.named_parameters() if p.grad is None or not bool(p.grad.any())]
+    print(f"after one backward: {sum(1 for _ in state.params.parameters()) - len(missing)} of "
+          f"{sum(1 for _ in state.params.parameters())} parameters hold a nonzero .grad")
+    if missing:
+        raise AssertionError(f"train full width: no gradient for {missing[:8]}")
+    del state, trainer, loss
+    torch.cuda.empty_cache()
+    # One step's gradient: the kernel against the plain attention, 2 layers, f32.
+    cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+    model = T.init_params(cfg2, generator=torch.Generator(device="cuda").manual_seed(seed))
+    grads = {}
+    for impl in ("auto", "torch_ref"):
+        loss, _ = T.loss_fn(model, batch, cfg2, T.ModelContext(attn_impl=impl))
+        names, params = zip(*model.named_parameters())
+        grads[impl] = dict(zip(names, torch.autograd.grad(loss, params)))
+    top = max(float(g.abs().max()) for g in grads["torch_ref"].values())
+    worst = max((float((grads["auto"][k] - g).abs().max()) / max(float(g.abs().max()), 1e-5 * top), k)
+                for k, g in grads["torch_ref"].items())
+    print(f"one step's gradient at 2 layers of qwen3-1.7b's width, f32, kernel vs plain attention: worst "
+          f"max|a-b| / max|b| {worst[0]:.3e} ({worst[1]}); band 1e-4")
+    if worst[0] > 1e-4:
+        raise AssertionError(f"train full width: gradients through the kernel differ by {worst[0]:.3e}")
+    return {"flash_per_step": rows[0]["flash"], "mean_step_s": mean_s, "peak_gb": peak}
+
+
+def train_100m(seed: int, card: str) -> dict:
+    """Phase "train 100m": the launcher's 100m scale (qwen3-4b's family at
+    d_model 768, 12 layers): 30 steps under the deadline scenario with a
+    checkpoint every 10, the loss must fall (the twin of
+    tests/test_training.py:298); then 15 steps, an interrupt, and a resume
+    from the checkpoint to step 30 (its straggler stream advanced past the
+    15 steps taken): its losses against the uninterrupted run's."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.serve import scaled_config
+    from repro_torch.train.checkpoint import list_checkpoints
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    sync = torch.cuda.synchronize
+    cfg = scaled_config("qwen3-4b", "100m")
+    ocfg = AdamWConfig(lr=5e-3, warmup_steps=4, total_steps=30)
+    with tempfile.TemporaryDirectory() as tmp:
+        def trainer(steps, every, sub):
+            return Trainer(cfg, TrainerConfig(num_groups=4, num_shards=4, redundancy=2, microbatch=2, seq_len=128,
+                                              steps=steps, ckpt_every=every, ckpt_dir=f"{tmp}/{sub}", seed=seed,
+                                              straggler_deadline=1.6, data_vocab=DATA_VOCAB), ocfg, device="cuda")
+
+        whole = trainer(30, 10, "a")
+        state, _ = whole.init_state()
+        whole.warmup(state)
+        print(f"100m ({cfg.d_model} wide, {cfg.n_layers} layers, vocab {cfg.vocab}): "
+              f"{sum(p.numel() for p in state.params.parameters()):,} parameters")
+        t0 = time.perf_counter()
+        _, rows = _train_loop(whole, state, sync, "100m", card)
+        secs = time.perf_counter() - t0
+        losses = [r["loss"] for r in rows]
+        first, last = float(np.mean(losses[:8])), float(np.mean(losses[-8:]))
+        print(f"100m: 30 steps in {secs:.3f} s (checkpoints {list_checkpoints(f'{tmp}/a')}); mean loss of the "
+              f"first 8 steps {first:.4f}, of the last 8 {last:.4f}  [{card}]")
+        if not last < first - 0.01 or sum(r["stragglers"] for r in rows) == 0:
+            raise AssertionError("train 100m: the loss did not fall, or no step had a straggler")
+        trainer(15, 15, "b").run()
+        resumed = trainer(30, 15, "b")
+        for _ in range(15):
+            next(resumed.scenario)
+        state, start = resumed.init_state()
+        resumed.warmup(state)
+        if start != 15:
+            raise AssertionError(f"train 100m: resumed at step {start}, not 15")
+        _, rows_r = _train_loop(resumed, state, sync, "100m resumed", card, start_step=start)
+        a, b = losses[15:], [r["loss"] for r in rows_r]
+        worst = max(abs(x - y) / abs(x) for x, y in zip(a, b))
+        print(f"100m interrupt at 15 and resume: {len(b)} steps; losses equal to the bit {a == b}; worst "
+              f"relative gap {worst:.3e}")
+        if len(b) != 15 or worst > 1e-3:
+            raise AssertionError(f"train 100m: the resumed run's losses part from the uninterrupted run's ({worst:.3e})")
+    return {"flash_per_step": rows[0]["flash"], "bitwise_resume": a == b}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--seed", type=int, default=0)
@@ -991,6 +1395,15 @@ def main() -> int:
         # a generator of their own, so the draws of later phases stay as they were.
         check_flash("prefill moe H=KV=16", 4, 2048, 2048, 16, 16, 128,
                     g=torch.Generator(device=dev).manual_seed(args.seed))
+        # The frontends' prefill shapes, never launched before: internvl2-1b
+        # (group size 7, dh 64) and musicgen-large (H = KV = 32, dh 64).
+        check_flash("prefill internvl2-1b H=14 KV=2", 4, 2048, 2048, 14, 2, 64,
+                    g=torch.Generator(device=dev).manual_seed(args.seed + 1))
+        check_flash("prefill musicgen-large H=KV=32", 4, 2048, 2048, 32, 32, 64,
+                    g=torch.Generator(device=dev).manual_seed(args.seed + 2))
+        # The autograd Function: qwen3-1.7b's training shape in bf16, a ragged f32 one.
+        flash_grads = [flash_grad_check("train qwen3-1.7b", (8, 512, 16, 8, 128), torch.bfloat16, args.seed, card),
+                       flash_grad_check("ragged f32", (2, 300, 8, 2, 64), torch.float32, args.seed, card)]
 
         # pairwise_sqdist: ragged n and k, odd d, k = 1, k over one tile,
         # duplicate rows, n = 0; then the op's own path at full width, its
@@ -2081,11 +2494,21 @@ def main() -> int:
         del served, logits_m
         torch.cuda.empty_cache()
 
-    with phase("serve xlstm"):
+    # The parameters are trainable: the serving phases record no gradient.
+    with phase("serve xlstm"), torch.no_grad():
         serve_xlstm(args.seed, card)
 
-    with phase("serve rglru"):
+    with phase("serve rglru"), torch.no_grad():
         serve_rglru(args.seed, card)
+
+    with phase("serve frontends"), torch.no_grad():
+        frontend_counts = serve_frontends(args.seed, card)
+
+    with phase("train full width"):
+        train_full = train_full_width(args.seed, card)
+
+    with phase("train 100m"):
+        train_small = train_100m(args.seed, card)
 
     with phase("timing"):
         B, m, d = xs_d.shape
@@ -2181,7 +2604,11 @@ def main() -> int:
             "launches": serve_counts["flash_attention"], "max_abs_err": errs["flash_attention"],
             "launches_by_path": {"serve qwen3-4b prefill": serve_counts["flash_attention"],
                                  "serve moe deepseek-moe-16b prefill": moe_counts["flash_attention"],
-                                 "serve moe moonshot-v1-16b-a3b prefill (4 layers)": m_counts["flash_attention"]},
+                                 "serve moe moonshot-v1-16b-a3b prefill (4 layers)": m_counts["flash_attention"],
+                                 "serve musicgen-large prefill": frontend_counts["musicgen-large"],
+                                 "serve internvl2-1b prefill": frontend_counts["internvl2-1b"],
+                                 "train qwen3-1.7b step (forward)": train_full["flash_per_step"],
+                                 "train 100m step (forward)": train_small["flash_per_step"]},
             "ms": cuda_ms(lambda: fa_ops.flash_attention(fq, fk, fv), 20),
             "plain_ms": cuda_ms(lambda: fa_ops.flash_attention(fq, fk, fv, impl="torch_ref"), 3),
             "bound_ms": f_bound, "bound_by": f_by,
@@ -2210,6 +2637,7 @@ def main() -> int:
             "moe_plain_ms": cuda_ms(lambda: fa_ops.flash_attention(mq, mk, mv, impl="torch_ref"), 3),
             "moe_library_ms": cuda_ms(lambda: sdpa(mqh, mkh, mvh, is_causal=True), 20),
             "moe_bound_ms": 1e3 * max(m_flops / PEAK_BF16_FLOPS, m_bytes / PEAK_BYTES),
+            "autograd": flash_grads,
         })
         # pairwise_sqdist at its full-width path shape: the full (n, k) output.
         n_q, k_q = pts_d.shape[0], k_full

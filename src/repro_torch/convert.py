@@ -10,7 +10,10 @@ objects passes their numpy fields here:
   and a subspace clustering's bases and means → (bases, means) tensors
   (:func:`subspace_from_jax`);
 * a transformer's params pytree → the port's ``state_dict``
-  (:func:`transformer_params_from_jax`), its cache of K/V and recurrent
+  (:func:`transformer_params_from_jax`; a codebook model's (K, V, d)
+  embedding and (d, V·K) head as they are), a training checkpoint's
+  arrays → the port's params, moments and step
+  (:func:`train_state_from_jax`), its cache of K/V and recurrent
   states → the port's (:func:`cache_from_jax`), and a K/V cache back
   (:func:`cache_to_jax`);
 * a streaming session's tree, pending leaf, counters and model → a port
@@ -38,6 +41,7 @@ __all__ = [
     "to_assignment",
     "to_recovery",
     "to_tensor",
+    "train_state_from_jax",
     "transformer_params_from_jax",
 ]
 
@@ -131,6 +135,38 @@ def transformer_params_from_jax(tree) -> dict[str, torch.Tensor]:
         if name in tree:
             sd[name] = _tensor(tree[name])
     return sd
+
+
+def _unflatten(flat: dict, prefix: str) -> dict:
+    """The arrays whose keys start with ``prefix``, as a nested dict of the
+    rest of their '/'-separated paths."""
+    tree: dict = {}
+    for key, val in flat.items():
+        if not key.startswith(prefix):
+            continue
+        *parents, leaf = key[len(prefix):].split("/")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = val
+    return tree
+
+
+def train_state_from_jax(flat: dict) -> dict:
+    """The arrays of a reference training checkpoint (``step_<n>.npz``,
+    keyed by pytree path: ``.params/unit/slot0/attn/wq``, ``.opt/.step``,
+    ``.opt/.m/…``, ``.opt/.v/…``, ``.ef/…``) → {"params", "m", "v": state
+    dicts under the port's names (:func:`transformer_params_from_jax`),
+    "ef": one too or ``None``, "step": int}.  The moments and the
+    error-feedback buffers go through the same mapping as the params."""
+    ef = _unflatten(flat, ".ef/")
+    return {
+        "params": transformer_params_from_jax(_unflatten(flat, ".params/")),
+        "m": transformer_params_from_jax(_unflatten(flat, ".opt/.m/")),
+        "v": transformer_params_from_jax(_unflatten(flat, ".opt/.v/")),
+        "ef": transformer_params_from_jax(ef) if ef else None,
+        "step": int(np.asarray(flat[".opt/.step"])),
+    }
 
 
 def cache_from_jax(tree, n_layers: int | None = None) -> list[dict[str, torch.Tensor]]:

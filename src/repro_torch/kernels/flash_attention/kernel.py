@@ -24,7 +24,10 @@ See the source's header for the numerics.
 
 The wrapper checks device, dtype, shapes, the GQA grouping and the strides,
 allocates the output, launches on the current stream without
-synchronising, and raises if the launch failed.
+synchronising, and raises if the launch failed.  Its output carries no
+gradient, so it raises when autograd would record the call (grad mode on
+and an input requiring grad): a differentiable call goes through
+``ops.FlashAttentionFn``, whose forward is this wrapper.
 """
 
 from __future__ import annotations
@@ -73,6 +76,9 @@ def flash_attention_cuda(
 ) -> torch.Tensor:
     """q (B, T, H, dh), k and v (B, S, KV, dh) CUDA tensors of one dtype
     (bf16 or f32), unit stride over dh → o (B, T, H, dh) contiguous."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        raise RuntimeError("flash_attention_cuda: the raw kernel has no gradient and would drop it; "
+                           "call ops.flash_attention (its autograd Function) instead")
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(f"flash_attention_cuda: q, k, v must share one CUDA device, got {q.device}, {k.device}, {v.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:

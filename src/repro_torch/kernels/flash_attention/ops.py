@@ -1,8 +1,10 @@
 """Public attention entry points: ``flash_attention`` and ``decode_attention``.
 
 ``flash_attention`` dispatches (see :mod:`repro_torch.kernels.dispatch`):
-``cuda``, the hand-written kernel, for CUDA tensors; ``torch_ref``, the
-plain version, for CPU tensors and for explicit comparison;
+``cuda``, the hand-written kernel, for CUDA tensors, with or without
+gradients (:class:`FlashAttentionFn`: the kernel's forward, the plain
+``attention_bwd_ref`` as its backward); ``torch_ref``, the plain version,
+for CPU tensors and for explicit comparison;
 ``torch_chunked``, :func:`chunked_attention`, for every sliding-window call
 on every device, as the reference's selector routes windowed calls to its
 ``chunked_attention`` on the TPU too (the kernel has no window and no
@@ -23,7 +25,7 @@ from .. import dispatch
 from . import kernel as _kernel
 from . import ref as _ref
 
-__all__ = ["chunked_attention", "flash_attention", "decode_attention"]
+__all__ = ["FlashAttentionFn", "chunked_attention", "flash_attention", "decode_attention"]
 
 
 def _pick_chunks(T: int, S: int) -> tuple[int, int]:
@@ -88,7 +90,35 @@ def chunked_attention(q, k, v, *, causal=True, window=None, scale=None):
     return torch.cat(outs, dim=1).to(q.dtype)
 
 
-dispatch.register_impl("flash_attention", "cuda", _kernel.flash_attention_cuda)
+class FlashAttentionFn(torch.autograd.Function):
+    """Differentiable attention: the forward runs ``forward`` (the CUDA
+    kernel on the card; the plain :func:`~.ref.attention_ref` where a test
+    holds the Function itself on the CPU) with grad mode off, and saves q,
+    k, v and the output; the backward is :func:`~.ref.attention_bwd_ref`,
+    a plain recompute of P (the reference has no backward kernel to port).
+    The backward needs T == S."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float, forward):
+        o = forward(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = _ref.attention_bwd_ref(q, k, v, o, do, ctx.scale, causal=ctx.causal)
+        return dq, dk, dv, None, None, None
+
+
+def _flash_cuda(q, k, v, *, causal: bool, scale: float):
+    """The kernel behind the autograd Function: the forward always
+    launches it, whether or not an input requires grad."""
+    return FlashAttentionFn.apply(q, k, v, causal, scale, _kernel.flash_attention_cuda)
+
+
+dispatch.register_impl("flash_attention", "cuda", _flash_cuda)
 dispatch.register_impl("flash_attention", "torch_ref", _ref.attention_ref)
 dispatch.register_impl("flash_attention", "torch_chunked", chunked_attention)
 

@@ -1,6 +1,7 @@
 """Serving launcher: batched decode for a registered architecture, dense,
-MoE, xLSTM or RecurrentGemma (the counterpart of the reference's
-``launch/serve.py``).
+MoE, xLSTM, RecurrentGemma or a modality frontend (the counterpart of the
+reference's ``launch/serve.py``; a codebook model's prompt is (batch, K,
+prompt-len) and its ids are the first codebook's).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-4b --scale smoke \\
         --batch 4 --prompt-len 16 --gen 32 --device cpu
@@ -87,7 +88,9 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
     model = init_model(cfg, device)
     gen = torch.Generator(device=device).manual_seed(1)
-    prompt = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len), generator=gen, device=device)
+    shape = (args.batch, cfg.num_codebooks, args.prompt_len) if cfg.num_codebooks > 0 else (
+        args.batch, args.prompt_len)
+    prompt = torch.randint(0, cfg.vocab, shape, generator=gen, device=device)
 
     def sync():
         if device.type == "cuda":

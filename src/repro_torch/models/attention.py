@@ -29,7 +29,7 @@ def attn_init(cfg: ModelConfig, *, dtype, device, generator, f32_read_dtype=None
     })
     if cfg.qkv_bias:
         for name, width in (("bq", H * dh), ("bk", KV * dh), ("bv", KV * dh)):
-            p[name] = nn.Parameter(torch.zeros((width,), dtype=dtype, device=device), requires_grad=False)
+            p[name] = L._param(torch.zeros((width,), dtype=dtype, device=device))
     if cfg.qk_norm:
         p["q_norm"] = L.rmsnorm_init(dh, dtype=f32_read_dtype or dtype, device=device)
         p["k_norm"] = L.rmsnorm_init(dh, dtype=f32_read_dtype or dtype, device=device)

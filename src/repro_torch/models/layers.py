@@ -27,8 +27,8 @@ __all__ = [
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    # Serving only: no gradients until the training slice is ported.
-    return nn.Parameter(t, requires_grad=False)
+    # Trainable; the serving entry points run under no_grad.
+    return nn.Parameter(t)
 
 
 def dense_init(d_in: int, d_out: int, *, dtype, device, generator, scale: float | None = None):

@@ -55,7 +55,7 @@ class MoE(nn.Module):
 
         def experts(din, dout):
             w = torch.randn((E, din, dout), **kw)
-            return nn.Parameter(w.mul_(1.0 / math.sqrt(din)), requires_grad=False)
+            return L._param(w.mul_(1.0 / math.sqrt(din)))
 
         self.router = L.dense_init(d, E, scale=0.02, dtype=f32_read_dtype or dtype, device=device,
                                    generator=generator)
@@ -169,15 +169,15 @@ def _combine(out, idx, vals, n: int, k: int):
     is, so only the live slots (weight ≠ 0) count, and a token has at most
     k of them, one at each of its top-k experts.  Each token gathers its
     live slots in expert order (their flat positions e·C + c ascend with e)
-    and sums them in k rounded adds: one pass, no atomics.
+    and sums them in k rounded adds: one pass, no atomics.  Every step
+    is out of place, so autograd differentiates it (the gradient reaches
+    out and the router's weights vals).
 
     idx, vals: (E, C) kept tokens and their combine weights (f32).  Returns
     (n, d) in out's dtype."""
     E, C, d = out.shape
     none = E * C  # the position of a zero row: a slot no token has
-    rows = out.new_empty((none + 1, d))
-    torch.mul(out, vals[..., None].to(out.dtype), out=rows[:none].view(E, C, d))
-    rows[none].zero_()
+    rows = torch.cat([(out * vals[..., None].to(out.dtype)).reshape(none, d), out.new_zeros((1, d))])
     slot = torch.arange(none, device=out.device).reshape(E, C).masked_fill_(vals == 0, none)
     pos = torch.full((E, n), none, dtype=torch.long, device=out.device).scatter_(1, idx, slot)  # (E, n)
     order = torch.topk(pos, k, dim=0, largest=False).values  # (k, n): each token's live slots, in order

@@ -2,12 +2,11 @@
 reference's ``models/registry.py``, which is pure Python but pulls in the
 reference's model stack when its configs are imported).
 
-The layer stack is ``scan_unit × scan_repeats + tail``.  The port runs the
-dense ``attn_mlp``, the MoE ``attn_moe``, the xLSTM ``mlstm``/``slstm`` and
-the RecurrentGemma ``rglru_mlp``/``lattn_mlp`` families; the other
-architectures of the reference are listed in :data:`UNPORTED` and
-:func:`get_config` raises for them with the ROADMAP item that will port
-them.
+The layer stack is ``scan_unit × scan_repeats + tail``.  The port runs
+every architecture of the reference: the dense ``attn_mlp``, the MoE
+``attn_moe``, the xLSTM ``mlstm``/``slstm`` and the RecurrentGemma
+``rglru_mlp``/``lattn_mlp`` families, and the codebook and prefix
+frontends.
 
 Block types:
   attn_mlp   — GQA attention + gated/plain MLP        (dense transformers)
@@ -23,7 +22,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
-__all__ = ["MoEConfig", "ModelConfig", "UNPORTED", "register", "get_config", "list_archs"]
+__all__ = ["MoEConfig", "ModelConfig", "register", "get_config", "list_archs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,13 +91,6 @@ class ModelConfig:
         return self
 
 
-# Architectures of the reference that the port does not run yet, with the
-# ROADMAP item (queue 1) that ports them.
-UNPORTED = {
-    "musicgen-large": "item 13.4 (modality frontends: codebook streams)",
-    "internvl2-1b": "item 13.4 (modality frontends: prefix embeddings)",
-}
-
 _REGISTRY: dict[str, Callable[[], ModelConfig]] = {}
 
 
@@ -112,10 +104,6 @@ def register(name: str):
 
 def get_config(name: str, **overrides) -> ModelConfig:
     """Instantiate a registered architecture (importing repro_torch.configs lazily)."""
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported to repro_torch yet: ROADMAP queue 1, {UNPORTED[name]}"
-        )
     if name not in _REGISTRY:
         import importlib
 

@@ -89,15 +89,26 @@ def _scan(a, u):
     """h_t = a_t·h_{t−1} + u_t along dim 1 from h = 0, for a, u (B, T, n):
     Hillis–Steele over the combine (a_l·a_r, a_r·b_l + b_r), the shift
     doubling from 1, so after the step of shift s element t holds the
-    composition over (t − 2s, t].  Overwrites a and u; returns h (u's
-    storage).  Each right-hand side is computed whole before it is written,
-    so the step reads only the previous step's values."""
+    composition over (t − 2s, t].  Each right-hand side is computed whole
+    before it is written, so the step reads only the previous step's
+    values.  Serving overwrites a and u and returns h in u's storage;
+    when autograd records (grad enabled and a or u requiring grad), each
+    step builds new tensors of the same values instead, since autograd
+    refuses the overwrites."""
     T = a.shape[1]
+    inplace = not (torch.is_grad_enabled() and (a.requires_grad or u.requires_grad))
     s = 1
     while s < T:
-        u[:, s:] = torch.addcmul(u[:, s:], a[:, s:], u[:, :-s])
-        if 2 * s < T:  # the last step needs no products of a
-            a[:, s:] = a[:, s:] * a[:, :-s]
+        step_u = torch.addcmul(u[:, s:], a[:, s:], u[:, :-s])
+        step_a = a[:, s:] * a[:, :-s] if 2 * s < T else None  # the last step needs no products of a
+        if inplace:
+            u[:, s:] = step_u
+            if step_a is not None:
+                a[:, s:] = step_a
+        else:
+            u = torch.cat([u[:, :s], step_u], dim=1)
+            if step_a is not None:
+                a = torch.cat([a[:, :s], step_a], dim=1)
         s *= 2
     return u
 

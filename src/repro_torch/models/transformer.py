@@ -1,6 +1,7 @@
 """Decoder assembly for the ``attn_mlp``, ``attn_moe``, ``mlstm``,
-``slstm``, ``rglru_mlp`` and ``lattn_mlp`` block types (the serving subset
-of the reference's ``models/transformer.py``).
+``slstm``, ``rglru_mlp`` and ``lattn_mlp`` block types and the two
+modality frontends (the reference's ``models/transformer.py`` without its
+meshes).
 
 The model is an ``nn.Module`` tree: an embedding, one block per layer in a
 ``ModuleList`` (:class:`Block` for attention layers, global or local,
@@ -18,10 +19,21 @@ casts do nothing.  :func:`init_params` can draw the embedding and the
 matmul weights in another dtype than the parameters the forward reads in
 f32 (:data:`_READ_IN_F32`), as the serving launcher does.
 
+The frontends are the reference's stubs: a codebook model
+(``num_codebooks`` K > 0, musicgen-large) embeds K parallel token streams
+(B, K, T) with a (K, V, d) embedding, sums the K embeddings, and its
+(d, V·K) head gives (B, T, K, V) logits; a prefix model
+(``num_prefix_tokens`` > 0, internvl2-1b) prepends the batch's
+``prefix_embeds`` (B, P, d), precomputed patch embeddings, to the text
+embeddings, with a zero label mask over them.
+
 Entry points:
-  * :func:`forward_train` — (B, T) tokens → logits and the layers' summed
-    MoE aux loss (forward only for now; the decode oracle of the tests)
-  * :func:`prefill` / :func:`decode_step` — serving with a per-layer cache:
+  * :func:`forward_train` — tokens → logits and the layers' summed MoE aux
+    loss; differentiable (the trainer's forward)
+  * :func:`loss_fn` — the group-weighted causal-LM cross entropy; the
+    recovery weights of the paper's Lemma 3 enter here
+  * :func:`prefill` / :func:`decode_step` — serving with a per-layer cache,
+    under ``torch.no_grad``:
     K/V for attention layers, which ``decode_step`` writes in place, and
     the recurrent state of an xLSTM or RG-LRU layer, which it replaces.
     A local-attention layer's cache is a ring of the window's size.  As in
@@ -29,8 +41,8 @@ Entry points:
     a recurrent model is served by teacher-forcing the prompt through
     ``decode_step`` (``serve.decode.greedy_generate``).
 
-The modality frontends, ``loss_fn`` and meshes are not ported yet; they
-raise with the ROADMAP item that ports them.
+Meshes are not ported yet; they raise with the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
@@ -57,6 +69,7 @@ __all__ = [
     "forward_train",
     "init_cache",
     "init_params",
+    "loss_fn",
     "model_from_state_dict",
     "param_count",
     "prefill",
@@ -86,9 +99,6 @@ def _check_supported(cfg: ModelConfig) -> None:
     for bt in cfg.block_types:
         if bt not in _BLOCKS:
             raise ValueError(f"{cfg.name}: unknown block type {bt!r}")
-    if cfg.num_codebooks > 0 or cfg.num_prefix_tokens > 0:
-        raise NotImplementedError(
-            f"{cfg.name}: modality frontends are not ported yet: ROADMAP queue 1, item 13.4")
 
 
 def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -130,22 +140,25 @@ def _block(cfg: ModelConfig, block_type: str, **kw) -> nn.Module:
 class Transformer(nn.Module):
     """The model.  Its embedding and matmul weights are drawn in
     ``matmul_dtype`` (``param_dtype`` by default), the parameters the
-    forward reads in f32 (:data:`_READ_IN_F32`) in ``param_dtype``."""
+    forward reads in f32 (:data:`_READ_IN_F32`) in ``param_dtype``.  A
+    codebook model's embedding is (K, V, d) and its head (d, V·K)."""
 
     def __init__(self, cfg: ModelConfig, *, device, generator, matmul_dtype=None):
         super().__init__()
         _check_supported(cfg)
         rd = getattr(torch, cfg.param_dtype)
         dtype = matmul_dtype or rd
-        d, V = cfg.d_model, cfg.vocab
-        embed = torch.randn((V, d), generator=generator, device=device, dtype=dtype)
-        self.embed = nn.Parameter(embed.mul_(0.02), requires_grad=False)
+        d, V, K = cfg.d_model, cfg.vocab, cfg.num_codebooks
+        shape = (K, V, d) if K > 0 else (V, d)
+        embed = torch.randn(shape, generator=generator, device=device, dtype=dtype)
+        self.embed = L._param(embed.mul_(0.02))
         self.blocks = nn.ModuleList(
             _block(cfg, bt, dtype=dtype, device=device, generator=generator, f32_read_dtype=rd)
             for bt in cfg.block_types)
         self.final_norm = L.rmsnorm_init(d, dtype=rd, device=device)
         if not cfg.tie_embeddings:
-            self.lm_head = L.dense_init(d, V, dtype=dtype, device=device, generator=generator, scale=0.02)
+            self.lm_head = L.dense_init(d, V * max(K, 1), dtype=dtype, device=device, generator=generator,
+                                        scale=0.02)
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator, matmul_dtype=None) -> Transformer:
@@ -252,27 +265,52 @@ def _block_decode(p, x_t, cache, cur_len: int, cfg: ModelConfig, ctx: ModelConte
 # ------------------------------------------------------------------ embed
 
 
+def _token_embed(model: Transformer, tokens, cfg: ModelConfig):
+    """tokens (B, T), or (B, K, T) for a codebook model → (B, T, d) in
+    compute dtype.  The K codebooks' embeddings are summed in the order
+    of the reference's ``sum`` (0 + e_0 + e_1 + …), in param dtype."""
+    if cfg.num_codebooks > 0:
+        x = model.embed[0][tokens[:, 0]]
+        for kb in range(1, cfg.num_codebooks):
+            x = x + model.embed[kb][tokens[:, kb]]
+    else:
+        x = model.embed[tokens]
+    return x.to(_compute_dtype(cfg))
+
+
 def _embed(model: Transformer, batch, cfg: ModelConfig):
-    """Token embedding.  Returns (x (B, T, d) in compute dtype, label_mask)."""
+    """Token (and prefix) embedding.  Returns (x (B, P + T, d) in compute
+    dtype, label_mask (B, P + T) f32, zero over the P prefix positions)."""
     tokens = batch["tokens"]
-    x = model.embed[tokens].to(_compute_dtype(cfg))
-    return x, torch.ones(tokens.shape, dtype=torch.float32, device=tokens.device)
+    x = _token_embed(model, tokens, cfg)
+    mask = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
+    if cfg.num_prefix_tokens > 0 and "prefix_embeds" in batch:
+        pre = batch["prefix_embeds"].to(x.dtype)  # (B, P, d)
+        x = torch.cat([pre, x], dim=1)
+        mask = torch.cat([torch.zeros(pre.shape[:2], dtype=torch.float32, device=x.device), mask], dim=1)
+    return x, mask
 
 
 def _logits(model: Transformer, x, cfg: ModelConfig):
+    """(B, T, V) logits, or (B, T, K, V) for a codebook model."""
     cd = _compute_dtype(cfg)
     x = L.rmsnorm(x, model.final_norm, eps=cfg.rms_eps)
     head = model.embed.T if cfg.tie_embeddings else model.lm_head
-    return x.to(cd) @ head.to(cd)
+    logits = x.to(cd) @ head.to(cd)
+    if cfg.num_codebooks > 0:
+        return logits.reshape(*x.shape[:2], cfg.num_codebooks, cfg.vocab)
+    return logits
 
 
 # ------------------------------------------------------------------ train
 
 
-@torch.no_grad()
 def forward_train(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
-    """Full forward.  Returns (logits (B, T, V), aux (the layers' MoE aux
-    losses summed, f32; 0 without MoE), label_mask)."""
+    """Full forward, differentiable.  ``batch``: ``tokens`` (B, T), or
+    (B, K, T) for a codebook model, and for a prefix model optionally
+    ``prefix_embeds`` (B, P, d).  Returns (logits (B, P + T, V) or
+    (B, T, K, V), aux (the layers' MoE aux losses summed, f32; 0 without
+    MoE), label_mask (B, P + T))."""
     x, mask = _embed(model, batch, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -281,6 +319,45 @@ def forward_train(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext
         if a is not None:
             aux = aux + a
     return _logits(model, x, cfg), aux, mask
+
+
+def loss_fn(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
+    """Group-weighted causal-LM cross entropy, as the reference's.
+
+    ``batch["group_weights"]`` (G,) carries the paper's recovery weights
+    b_g (zero at straggling groups); the batch's leading dim must be
+    divisible by G, and the loss is Σ_g b_g·L_g / max(Σ_g b_g, 1e-6) over
+    the per-group masked means L_g.  Without the key, plain uniform
+    weighting.  A codebook model's CE is the mean over its K codebooks; a
+    prefix model's labels start after the prefix.  The MoE aux term
+    ``router_aux_weight · aux / n_layers`` is added.  Returns (total,
+    metrics {"ce", "aux", "tokens"})."""
+    logits, aux, mask = forward_train(model, batch, cfg, ctx)
+    tokens = batch["tokens"]
+    if cfg.num_codebooks > 0:
+        targets = tokens[:, :, 1:].transpose(1, 2)  # (B, T−1, K)
+        lg = logits[:, :-1].float()  # (B, T−1, K, V)
+        lse = torch.logsumexp(lg, dim=-1)
+        tgt = torch.gather(lg, -1, targets[..., None].long())[..., 0]
+        ce = (lse - tgt).mean(-1)  # (B, T−1): the mean over codebooks
+        m = mask[:, 1:]
+    else:
+        prefix = logits.shape[1] - tokens.shape[1]
+        lg = logits[:, prefix:][:, :-1].float()
+        lg = lg - torch.logsumexp(lg, dim=-1, keepdim=True)
+        ce = -torch.gather(lg, -1, tokens[:, 1:][..., None].long())[..., 0]
+        m = mask[:, prefix:][:, 1:]
+    gw = batch.get("group_weights")
+    if gw is None:
+        loss = torch.sum(ce * m) / torch.clamp_min(torch.sum(m), 1.0)
+    else:
+        G = gw.shape[0]
+        ce_g, m_g = ce.reshape(G, -1), m.reshape(G, -1)
+        per_group = torch.sum(ce_g * m_g, dim=1) / torch.clamp_min(torch.sum(m_g, dim=1), 1.0)
+        loss = torch.sum(gw * per_group) / torch.clamp_min(torch.sum(gw), 1e-6)
+    aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
+    total = loss + aux_w * aux / max(1, cfg.n_layers)
+    return total, {"ce": loss, "aux": aux, "tokens": torch.sum(m)}
 
 
 # ------------------------------------------------------------------ serve
@@ -312,10 +389,11 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, *, device) -> list[dict]:
 
 @torch.no_grad()
 def decode_step(model: Transformer, cache, tokens_t, cur_len: int, cfg: ModelConfig, ctx: ModelContext):
-    """One decode step.  tokens_t: (B, 1); cur_len: the count of tokens
-    already in the cache.  Writes an attention layer's K/V in place and
-    replaces a recurrent layer's state; returns (logits_t (B, 1, V), cache)."""
-    x = model.embed[tokens_t].to(_compute_dtype(cfg))
+    """One decode step.  tokens_t: (B, 1), or (B, K, 1) for a codebook
+    model; cur_len: the count of tokens already in the cache.  Writes an
+    attention layer's K/V in place and replaces a recurrent layer's state;
+    returns (logits_t (B, 1, V) or (B, 1, K, V), cache)."""
+    x = _token_embed(model, tokens_t, cfg)
     new_cache = []
     for blk, c in zip(model.blocks, cache):
         x, nc = _block_decode(blk, x, c, int(cur_len), cfg, ctx)

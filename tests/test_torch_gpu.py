@@ -57,6 +57,14 @@ bf16 pieces of each f32 value on the tensor cores, about 2^-24 of each
 product, in another order than the plain version's f32 GEMMs); bf16 inputs
 rtol 2^-7, atol 1e-3 (both sides sum exact products in f32 in other orders
 and round the output to bf16, so they may differ by one bf16 ulp).
+
+Flash attention's gradients (``ops.FlashAttentionFn``: the kernel forward,
+the plain ``attention_bwd_ref`` backward) against ``torch.autograd.grad`` of
+the plain ``attention_ref``: max|Δ| of dq, dk and dv within 2e-2 of each
+one's max in bf16 (the two forwards' outputs differ by a bf16 ulp, which
+enters rowsum(dO∘O), and each gradient is rounded to bf16), 1e-4 in f32.
+A smoke model's train step on the card launches the kernel once a layer
+and its loss lies within 2e-2 of the step through the plain attention.
 """
 
 import types
@@ -453,6 +461,48 @@ def test_flash_attention_kernel_reads_strided_views_and_refuses_other_widths(cud
     _check_flash(got, want, torch.bfloat16)
     with pytest.raises(ValueError, match="head_dim 24"):
         fa_ops.flash_attention(q[..., :24], k[..., :24], v[..., :24])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("B,T,H,KV,dh", [(2, 100, 8, 2, 64), (1, 300, 14, 2, 64), (2, 130, 4, 4, 128)])
+def test_flash_attention_gradients_match_autograd_of_plain_on_card(cuda_device, B, T, H, KV, dh, dtype):
+    arrays = _flash_inputs(B, T, T, H, KV, dh, seed=T + H)
+    leaves = [torch.from_numpy(a).to(cuda_device, dtype).requires_grad_() for a in arrays]
+    plain = [t.detach().clone().requires_grad_() for t in leaves]
+    do = torch.randn((B, T, H, dh), generator=torch.Generator().manual_seed(dh)).to(cuda_device, dtype)
+    before = dispatch.launch_counts()["flash_attention"]
+    out = fa_ops.flash_attention(*leaves)
+    assert dispatch.launch_counts()["flash_attention"] == before + 1 and out.grad_fn is not None
+    got = torch.autograd.grad(out, leaves, do)
+    want = torch.autograd.grad(fa_ops.flash_attention(*plain, impl="torch_ref"), plain, do)
+    band = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and float((g.float() - w.float()).abs().max()) <= band * float(w.float().abs().max())
+    with pytest.raises(RuntimeError, match="no gradient"):
+        fa_kernel.flash_attention_cuda(*leaves, causal=True, scale=dh ** -0.5)
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_runs_the_kernel_forward(cuda_device):
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+
+    cfg = qwen3_4b.smoke_config()
+    tokens = torch.randint(0, cfg.vocab, (4, 64), device=cuda_device,
+                           generator=torch.Generator(device=cuda_device).manual_seed(3))
+    batch = {"tokens": tokens, "group_weights": torch.tensor([1.0, 0.0, 2.0, 1.0], device=cuda_device)}
+    losses = []
+    for impl in ("auto", "torch_ref"):
+        state = TS.init_train_state(cfg, generator=torch.Generator(device=cuda_device).manual_seed(4))
+        step = TS.make_train_step(cfg, T.ModelContext(attn_impl=impl), O.AdamWConfig())
+        before = dispatch.launch_counts()["flash_attention"]
+        state, metrics = step(state, batch)
+        launched = dispatch.launch_counts()["flash_attention"] - before
+        assert launched == (cfg.n_layers if impl == "auto" else 0)
+        assert all(bool(p.isfinite().all()) for p in state.params.parameters()) and state.opt.step == 1
+        losses.append(float(metrics["loss"]))
+    assert abs(losses[0] - losses[1]) <= 2e-2 * abs(losses[1])
 
 
 @pytest.mark.gpu

@@ -52,12 +52,20 @@ from repro_torch.kernels import dispatch
 from repro_torch.launch import serve as launch_serve
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.registry import UNPORTED, ModelConfig, get_config, list_archs
+from repro_torch.models.registry import ModelConfig, get_config, list_archs
 from repro_torch.serve import decode as D
 
 ARCHS = {"qwen3-4b": "qwen3_4b", "qwen2.5-3b": "qwen2_5_3b"}
 F32 = dict(rtol=1e-4, atol=1e-5)
 BAND = dict(rtol=2e-2, atol=2e-2)
+
+
+@pytest.fixture(autouse=True)
+def _values_not_gradients():
+    """The parameters are trainable; these tests hold the serving path's
+    values, so autograd records nothing here."""
+    with torch.no_grad():
+        yield
 
 
 def _smoke(arch, compute_dtype):
@@ -232,7 +240,7 @@ def test_cast_params_holds_the_per_call_cast():
 def test_dense_configs_registered_with_reference_shapes():
     assert list_archs() == sorted(["qwen3-4b", "qwen3-8b", "qwen2.5-3b", "qwen3-1.7b",
                                    "moonshot-v1-16b-a3b", "deepseek-moe-16b", "xlstm-1.3b",
-                                   "recurrentgemma-9b"])
+                                   "recurrentgemma-9b", "musicgen-large", "internvl2-1b"])
     from repro.models.registry import get_config as j_get_config
 
     for arch in list_archs():
@@ -247,17 +255,23 @@ def test_dense_configs_registered_with_reference_shapes():
             full.vocab) == (36, 2560, 32, 8, 128, 9728, 151936)
 
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
+@pytest.mark.parametrize("arch", ["internvl2-1b", "musicgen-large"])
 def test_get_config_raises_for_non_dense(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 13"):
-        get_config(arch)
+    """The two frontend archs, the last the port raised for, are ported:
+    they resolve to their configs, and an unknown name still raises."""
+    cfg = get_config(arch)
+    assert (cfg.num_codebooks, cfg.num_prefix_tokens) == {"musicgen-large": (4, 0), "internvl2-1b": (0, 256)}[arch]
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config(arch + "-x")
 
 
 def test_unported_blocks_and_mesh_raise():
     cfg = importlib.import_module("repro_torch.configs.qwen3_4b").smoke_config()
-    codebooks = dataclasses.replace(cfg, num_codebooks=4)
-    with pytest.raises(NotImplementedError, match="item 13.4"):
-        T.init_params(codebooks, generator=torch.Generator())
+    codebooks = T.init_params(dataclasses.replace(cfg, num_codebooks=4), generator=torch.Generator())
+    assert codebooks.embed.shape == (4, cfg.vocab, cfg.d_model)
+    assert codebooks.lm_head.shape == (cfg.d_model, 4 * cfg.vocab)
+    with pytest.raises(ValueError, match="unknown block type"):
+        T.init_params(dataclasses.replace(cfg, scan_unit=("conv_mlp",)), generator=torch.Generator())
     with pytest.raises(NotImplementedError, match="item 9"):
         T.ModelContext(mesh=object())
 

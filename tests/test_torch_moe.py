@@ -66,6 +66,14 @@ F32 = dict(rtol=1e-4, atol=1e-5)
 BAND = dict(rtol=2e-2, atol=2e-2)
 
 
+@pytest.fixture(autouse=True)
+def _values_not_gradients():
+    """The parameters are trainable; these tests hold the serving path's
+    values, so autograd records nothing here."""
+    with torch.no_grad():
+        yield
+
+
 def _smoke(arch, compute_dtype="float32"):
     """The reference's smoke config and the port's twin of it."""
     jcfg = importlib.import_module(f"repro.configs.{ARCHS[arch]}").smoke_config()

@@ -75,6 +75,14 @@ PERTURBED = ("norm", "'b'", "'b_i'", "'b_r'", "'bq'", "'bk'", "'bv'")
 JCTX = JT.ModelContext(attn_impl="chunked")
 
 
+@pytest.fixture(autouse=True)
+def _values_not_gradients():
+    """The parameters are trainable; these tests hold the serving path's
+    values, so autograd records nothing here."""
+    with torch.no_grad():
+        yield
+
+
 def _smoke(compute_dtype, **over):
     over = dict(compute_dtype=compute_dtype, **over)
     return (dataclasses.replace(jconf.smoke_config(), **over).validate(),

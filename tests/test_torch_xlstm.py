@@ -64,9 +64,18 @@ from repro_torch.models.registry import ModelConfig, get_config
 from repro_torch.serve import decode as D
 
 F32 = dict(rtol=1e-5, atol=1e-5)
+
 BAND = dict(rtol=2e-2, atol=2e-2)
 MODEL_BAND = dict(rtol=5e-2, atol=5e-2)
 BIASES = ("'b'", "'b_i'", "'b_f'", "'b_z'", "'b_o'")
+
+
+@pytest.fixture(autouse=True)
+def _values_not_gradients():
+    """The parameters are trainable; these tests hold the serving path's
+    values, so autograd records nothing here."""
+    with torch.no_grad():
+        yield
 
 
 def _smoke(compute_dtype):
