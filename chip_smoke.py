@@ -15,7 +15,9 @@ xlstm-1.3b, the RG-LRU / local-attention model recurrentgemma-9b and the
 two modality frontends musicgen-large and internvl2-1b at full width and
 depth (prefill and greedy decode) and moonshot-v1-16b-a3b at full width,
 trains qwen3-1.7b at full width and depth and the launcher's 100m scale
-through the trainer's host path, and fails loudly: there is no CPU
+through the trainer's host path and through its mesh-native path (the
+recovery solved on the card, resident token pools, an elastic patch, the
+mesh executor over NCCL), and fails loudly: there is no CPU
 fallback and no caught phase.  Every phase prints its seconds beside the card's name and
 power limit.
 
@@ -225,7 +227,31 @@ Phases:
                  stream advanced past the 15 steps taken): its losses
                  within 1e-3 of the uninterrupted run's, bit for bit
                  printed
-  20. timing     each kernel, its plain version and one library call
+  20. train device recovery  qwen3-1.7b at full width and depth (f32 master
+                 weights, bf16 compute) through Trainer's mesh-native path
+                 (device_recovery=True): FR over 4 groups and 4 shards,
+                 redundancy 2, microbatch 1, seq_len 512, 2 resident step
+                 batches, one headroom slot a group (a (4, 2, 3, 512) token
+                 pool, 8 of 12 slots valid); a trace of the 6 first
+                 coverage-preserving patterns, then one that loses a shard:
+                 each step's seconds, tokens/s (8 x 512 valid), flash
+                 launches (exactly 4 x 28: a forward a group), the device
+                 solve's time and launches alone, device and host solves,
+                 fallback, b_sum, loss; 0 host solves and a device solve a
+                 step on the covered steps, one host solve on the last; the
+                 peak memory; one step profiled (busy, idle share); the
+                 δ = 0 claim from one state (one straggler against all
+                 alive) at full width within 2e-2 of each gradient's scale
+                 and at 2 layers of that width in f32 within 1e-5; the same
+                 step through MeshExecutor over a world of one over NCCL
+                 against the local executor (2e-2 at full width; at 2
+                 layers in f32 within 1e-6, or to the bit); an elastic
+                 patch at the launcher's 100m scale (cyclic, 6 groups,
+                 [1,1,1,1,0,0] for good, patience 2, headroom 2): patches
+                 >= 1, moved rows >= 1, no full repack, the last step off
+                 the fallback; the host path's step time beside the
+                 device path's
+  21. timing     each kernel, its plain version and one library call
                  (weighted_segsum also at the coordinator's (1, 2560, 256,
                  128), with its launches in Algorithm 1 by shape); the
                  bound of rows assign_min and pairwise_sqdist is three TF32
@@ -1127,6 +1153,238 @@ def train_100m(seed: int, card: str) -> dict:
     return {"flash_per_step": rows[0]["flash"], "bitwise_resume": a == b}
 
 
+def _grad_gap(got: dict, want: dict) -> tuple:
+    """The worst max|a-b| / max|b| over the gradients (each floored at 1e-5
+    of the largest max|b|), its parameter, and whether all are equal."""
+    import torch
+
+    top = max(float(w.abs().max()) for w in want.values())
+    worst = max((float((got[n] - w).abs().max()) / max(float(w.abs().max()), 1e-5 * top), n)
+                for n, w in want.items())
+    return worst[0], worst[1], all(torch.equal(got[n], w) for n, w in want.items())
+
+
+def train_device_recovery(seed: int, card: str, host_step_s: float) -> dict:
+    """Phase "train device recovery": the trainer's mesh-native path
+    (``device_recovery=True``: the groups' gradients combined by the
+    executor with the recovery solved on the card, the token pools
+    resident) at qwen3-1.7b's full width and depth, f32 master weights,
+    bf16 compute: FR over 4 groups and 4 shards, redundancy 2, microbatch
+    1, seq_len 512, two resident step batches and one headroom slot a
+    group.  A trace of 6 distinct coverage-preserving patterns and then one
+    that loses a shard; the δ = 0 claim (one straggler against all alive
+    from one state) at full width and at 2 layers in f32; the same step
+    through the mesh executor over a world of one over NCCL; an elastic
+    patch at the launcher's 100m scale."""
+    import dataclasses
+    import itertools
+    import json as _json
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import device_recovery_masked
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import distributed as mesh_dist
+    from repro_torch.launch.serve import scaled_config
+    from repro_torch.models.registry import get_config
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    cfg = get_config("qwen3-1.7b")
+    G = 4
+    tmp = tempfile.TemporaryDirectory()
+
+    def trace(name, rows):
+        path = f"{tmp.name}/{name}.jsonl"
+        with open(path, "w") as f:
+            f.writelines(_json.dumps({"alive": [int(x) for x in r]}) + "\n" for r in rows)
+        return path
+
+    def tcfg(steps, path, **over):
+        kw = dict(num_groups=G, num_shards=4, redundancy=2, scheme="fr", microbatch=1, seq_len=512, steps=steps,
+                  seed=seed, straggler_scenario="trace", scenario_kwargs={"path": path}, device_recovery=True,
+                  resident_steps=2, patch_headroom=1, data_vocab=DATA_VOCAB)
+        kw.update(over)
+        return TrainerConfig(**kw)
+
+    def grads32(stats):
+        return {n: g.float() for n, g in stats["grads"].items()}
+
+    # The trace: 6 distinct patterns that keep every shard, then one that does not.
+    from repro_torch.train.resilient import make_plan
+
+    A = make_plan(G, 4, redundancy=2, scheme="fr", session_kwargs={"device": "cpu"}).assignment.matrix
+    covering = [np.array(p, dtype=bool) for p in itertools.product([1, 0], repeat=G)
+                if any(p) and (A[np.array(p, dtype=bool)].sum(axis=0) > 0).all()]
+    losing = next(np.array(p, dtype=bool) for p in itertools.product([1, 0], repeat=G)
+                  if any(p) and not (A[np.array(p, dtype=bool)].sum(axis=0) > 0).all())
+    rows = covering[:6] + [losing]
+    print(f"FR assignment (groups x shards) {A.tolist()}; trace: {[r.astype(int).tolist() for r in rows]}")
+
+    # The device solve alone: its launches (one profile) and its time per pattern.
+    A32 = torch.from_numpy(A.astype(np.float32)).to(dev)
+    device_recovery_masked(A32, torch.from_numpy(rows[0]).to(dev), iters=300, device=dev)
+    sync()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        device_recovery_masked(A32, torch.from_numpy(rows[1]).to(dev), iters=300, device=dev)
+        sync()
+    solve_launches = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    solve_ms = [cuda_ms(lambda r=r: device_recovery_masked(A32, torch.from_numpy(r).to(dev), iters=300,
+                                                           device=dev), 5) for r in rows]
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, tcfg(len(rows), trace("main", rows)), AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=8),
+                      device="cuda")
+    state, _ = trainer.init_state()
+    sync()
+    C = trainer._capacity
+    print(f"trainer and state on the card: {time.perf_counter() - t0:.3f} s; resident pool "
+          f"{tuple(trainer._res_tokens.shape)} {trainer._res_tokens.dtype} ({C} slots a group, "
+          f"{int(trainer._res_valid.sum())} valid), validity {trainer._res_valid.tolist()}")
+    report = trainer.warmup(state)
+    print(f"warm-up (step 0's recovered statistics, discarded): {report.seconds:.3f} s, errors {report.errors}")
+    if report.errors:
+        raise AssertionError("train device recovery: the warm-up failed")
+    tokens = 8 * 512  # valid tokens a step: 4 groups x 2 shards x 1 x 512
+    out_rows = []
+    sync()
+    dispatch.reset_launch_counts()
+    last = [time.perf_counter()]
+
+    def on_step(step, rec):
+        sync()
+        now = time.perf_counter()
+        flash = dispatch.launch_counts()["flash_attention"]
+        row = dict(step=step, seconds=now - last[0], flash=flash, **{k: rec[k] for k in (
+            "loss", "stragglers", "fallback", "b_sum", "host_solves", "device_solves")})
+        out_rows.append(row)
+        print(f"device recovery step {step}: alive {rows[step].astype(int).tolist()}, {row['seconds']:.3f} s, "
+              f"{tokens / row['seconds']:.0f} tokens/s, flash launches {flash}, device solve "
+              f"{solve_ms[step]:.3f} ms in {solve_launches} launches (alone), device_solves "
+              f"{rec['device_solves']}, host_solves {rec['host_solves']}, fallback {rec['fallback']}, b_sum "
+              f"{rec['b_sum']!r}, loss {rec['loss']!r}  [{card}]")
+        dispatch.reset_launch_counts()
+        last[0] = time.perf_counter()
+
+    state = trainer.run(state, on_step=on_step)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    covered_rows = out_rows[:-1]
+    mean_s = float(np.mean([r["seconds"] for r in covered_rows[1:]]))
+    print(f"device path: mean step {mean_s:.3f} s over steps 1-5 ({tokens / mean_s:.0f} tokens/s), the host path "
+          f"(phase \"train full width\") {host_step_s:.3f} s; peak memory {peak:.2f} GB  [{card}]")
+    want_flash = G * cfg.n_layers
+    if len(out_rows) != len(rows) or any(r["flash"] != want_flash for r in out_rows):
+        raise AssertionError(f"train device recovery: flash launches {[r['flash'] for r in out_rows]}, "
+                             f"expected {want_flash} a step (a forward a group)")
+    if any(r["host_solves"] != 0 or r["fallback"] for r in covered_rows) or \
+            [r["device_solves"] for r in covered_rows] != list(range(1, 7)):
+        raise AssertionError(f"train device recovery: the covered steps host-solved or missed the device solve: "
+                             f"{covered_rows}")
+    if out_rows[-1]["host_solves"] != 1 or not out_rows[-1]["fallback"] or out_rows[-1]["device_solves"] != 6:
+        raise AssertionError(f"train device recovery: the uncovered step: {out_rows[-1]}")
+    if not all(np.isfinite(r["loss"]) for r in out_rows):
+        raise AssertionError("train device recovery: a loss is not finite")
+
+    # δ = 0 at full width: from one state, one straggler against all alive.
+    alive_all, alive_one = rows[0], next(r for r in covering if (~r).sum() == 1)
+    stats, _ = trainer._recovered_stats(state, 0, alive_all)
+    g_all = grads32(stats)
+    del stats
+    stats, b_one = trainer._recovered_stats(state, 0, alive_one)
+    gap, where, equal = _grad_gap(grads32(stats), g_all)
+    del stats
+    print(f"δ = 0 at full width (bf16 compute): alive {alive_one.astype(int).tolist()} (b {b_one.tolist()}) "
+          f"against all alive: worst max|a-b|/max|b| {gap:.3e} ({where}), equal to the bit {equal}; band 2e-2")
+    if gap > 2e-2:
+        raise AssertionError(f"train device recovery: the δ = 0 gradients part by {gap:.3e}")
+
+    # The same step through the mesh executor, a world of one over NCCL.
+    ex = mesh_dist.MeshExecutor(mesh_dist.node_mesh(backend="nccl", device=dev))
+    try:
+        blocks = (ex.place_node_stacked(trainer._res_tokens, dev), ex.place_node_stacked(trainer._res_valid, dev))
+        stats, _ = ex.resilient_reduce_masked(trainer._group_fn, blocks, (state.params, 0), A.astype(np.float32),
+                                              alive_all, iters=trainer.plan.session.device_iters)
+        gap_m, where_m, equal_m = _grad_gap(grads32(stats), g_all)
+        del stats, blocks
+        print(f"{ex.describe()} against the local executor at full width: worst {gap_m:.3e} ({where_m}), equal "
+              f"to the bit {equal_m}")
+        if gap_m > 2e-2:
+            raise AssertionError(f"train device recovery: the mesh's gradients part by {gap_m:.3e}")
+        del g_all
+        # One step profiled: device busy against the unprofiled step.
+        busy = profiled("device recovery step", lambda: trainer._device_recovery_step(state, 7, alive_one), top=10)
+        print(f"device recovery step busy {busy:.3f} s of {mean_s:.3f} s unprofiled (idle share "
+              f"{1 - busy / mean_s:.3f})  [{card}]")
+        del state, trainer
+        torch.cuda.empty_cache()
+
+        # 2 layers of that width in f32: δ = 0 within 1e-5, the mesh within 1e-6 (or to the bit).
+        cfg2 = dataclasses.replace(cfg, n_layers=2, compute_dtype="float32")
+        ocfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=2)
+        path2 = trace("two", [alive_one, alive_all])
+        small = {name: Trainer(cfg2, tcfg(2, path2, executor=name), ocfg, device="cuda")
+                 for name in ("local", "mesh")}
+        states = {name: t.init_state()[0] for name, t in small.items()}
+        stats, _ = small["local"]._recovered_stats(states["local"], 0, alive_all)
+        g_all = grads32(stats)
+        stats, _ = small["local"]._recovered_stats(states["local"], 0, alive_one)
+        gap2, where2, equal2 = _grad_gap(grads32(stats), g_all)
+        stats, _ = small["mesh"]._recovered_stats(states["mesh"], 0, alive_one)
+        g_mesh = grads32(stats)
+        stats, _ = small["local"]._recovered_stats(states["local"], 0, alive_one)
+        gap_m2, where_m2, equal_m2 = _grad_gap(g_mesh, grads32(stats))
+        del stats
+        for name, t in small.items():
+            states[name] = t.run(states[name])
+        with torch.no_grad():
+            p_gap = max(float((a - b).abs().max()) for a, b in zip(states["local"].params.parameters(),
+                                                                     states["mesh"].params.parameters()))
+        print(f"2 layers of that width, f32: δ = 0 worst {gap2:.3e} ({where2}), equal to the bit {equal2} "
+              f"(band 1e-5); {small['mesh'].plan.session.executor.describe()} against the local executor "
+              f"worst {gap_m2:.3e} ({where_m2}), equal to the bit {equal_m2} (band 1e-6); after 2 steps the "
+              f"parameters part by {p_gap:.3e}")
+        if gap2 > 1e-5 or gap_m2 > 1e-6:
+            raise AssertionError(f"train device recovery: at 2 layers in f32 δ = 0 parts by {gap2:.3e}, the mesh "
+                                 f"by {gap_m2:.3e}")
+        del small, states, g_all, g_mesh
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # The elastic patch at the launcher's 100m scale: cyclic over 6 groups,
+    # groups 4 and 5 straggling for good.
+    cfg_e = scaled_config("qwen3-4b", "100m")
+    te = Trainer(cfg_e, tcfg(6, trace("elastic", [[1, 1, 1, 1, 0, 0]] * 8), num_groups=6, num_shards=6,
+                             scheme="cyclic", seq_len=128, elastic_patience=2, patch_headroom=2),
+                 AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=6), device="cuda")
+    t0 = time.perf_counter()
+    te.run()
+    sync()
+    s = te.plan.session.stats
+    print(f"elastic 100m ({cfg_e.d_model} wide, {cfg_e.n_layers} layers): 6 steps in "
+          f"{time.perf_counter() - t0:.3f} s; fallback by step {[h['fallback'] for h in te.history]}; "
+          f"elastic_patches {s.elastic_patches}, moved_node_blocks {s.moved_node_blocks}, full_repacks "
+          f"{s.full_repacks}, host_solves {s.host_solves}, device_solves {s.device_solves}; losses "
+          f"{[round(h['loss'], 4) for h in te.history]}  [{card}]")
+    if not (s.elastic_patches >= 1 and s.moved_node_blocks >= 1 and s.full_repacks == 0
+            and te.history[-1]["fallback"] is False):
+        raise AssertionError(f"train device recovery: the elastic run {s.as_dict()}")
+    del te
+    tmp.cleanup()
+    torch.cuda.empty_cache()
+    return {"flash_per_step": out_rows[0]["flash"], "mean_step_s": mean_s, "peak_gb": peak,
+            "solve_ms": float(np.mean(solve_ms)), "solve_launches": solve_launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--seed", type=int, default=0)
@@ -1403,7 +1661,9 @@ def main() -> int:
                     g=torch.Generator(device=dev).manual_seed(args.seed + 2))
         # The autograd Function: qwen3-1.7b's training shape in bf16, a ragged f32 one.
         flash_grads = [flash_grad_check("train qwen3-1.7b", (8, 512, 16, 8, 128), torch.bfloat16, args.seed, card),
-                       flash_grad_check("ragged f32", (2, 300, 8, 2, 64), torch.float32, args.seed, card)]
+                       flash_grad_check("ragged f32", (2, 300, 8, 2, 64), torch.float32, args.seed, card),
+                       flash_grad_check("train qwen3-1.7b one group", (3, 512, 16, 8, 128), torch.bfloat16,
+                                        args.seed, card)]
 
         # pairwise_sqdist: ragged n and k, odd d, k = 1, k over one tile,
         # duplicate rows, n = 0; then the op's own path at full width, its
@@ -2510,6 +2770,9 @@ def main() -> int:
     with phase("train 100m"):
         train_small = train_100m(args.seed, card)
 
+    with phase("train device recovery"):
+        train_device = train_device_recovery(args.seed, card, train_full["mean_step_s"])
+
     with phase("timing"):
         B, m, d = xs_d.shape
         c = rows_of(xs_d, k_full)
@@ -2608,7 +2871,9 @@ def main() -> int:
                                  "serve musicgen-large prefill": frontend_counts["musicgen-large"],
                                  "serve internvl2-1b prefill": frontend_counts["internvl2-1b"],
                                  "train qwen3-1.7b step (forward)": train_full["flash_per_step"],
-                                 "train 100m step (forward)": train_small["flash_per_step"]},
+                                 "train 100m step (forward)": train_small["flash_per_step"],
+                                 "train device recovery qwen3-1.7b step (forward, a launch a group and "
+                                 "layer)": train_device["flash_per_step"]},
             "ms": cuda_ms(lambda: fa_ops.flash_attention(fq, fk, fv), 20),
             "plain_ms": cuda_ms(lambda: fa_ops.flash_attention(fq, fk, fv, impl="torch_ref"), 3),
             "bound_ms": f_bound, "bound_by": f_by,

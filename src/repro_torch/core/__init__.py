@@ -50,7 +50,7 @@ from .stragglers import (  # noqa: F401
 )
 from .resilience import ElasticPolicy, ResilienceSession, SessionStats  # noqa: F401
 from .aggregation import mom_combine, resilient_sum, weighted_union  # noqa: F401
-from .executor import Executor, LocalExecutor, get_executor  # noqa: F401
+from .executor import Executor, LocalExecutor, get_executor, takes_weights  # noqa: F401
 from .kmeans import (  # noqa: F401
     ClusteringResult,
     clustering_cost,

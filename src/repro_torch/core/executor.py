@@ -20,6 +20,13 @@ device inside the step (:func:`~repro_torch.core.recovery.device_recovery_masked
 and combines, with no host synchronisation: the alive mask is data, so a
 straggler pattern never seen before costs no host solve.  The reference
 jits that step; here it runs eagerly, a fixed sequence of launches.
+
+A node function may form its block's Lemma-3 combine itself
+(:func:`takes_weights`): the executors then hand it the block's weights
+``b=`` and take its output as the block's weighted sum, with no node
+axis.  A training step does so: it adds each node's gradient times b_i
+into one buffer as it goes, so no gradient per node is kept
+(:func:`repro_torch.train.train_step.make_group_grad_fn`).
 """
 
 from __future__ import annotations
@@ -34,7 +41,16 @@ from ..obs import trace_span
 from .aggregation import resilient_sum
 from .recovery import device_recovery_masked
 
-__all__ = ["Executor", "LocalExecutor", "get_executor"]
+__all__ = ["Executor", "LocalExecutor", "get_executor", "takes_weights"]
+
+
+def takes_weights(fn: Callable) -> bool:
+    """Whether ``fn`` forms its block's Lemma-3 combine itself: called with
+    the keyword ``b=`` (the block's weights, one per node row), it returns
+    ``Σ_i b_i · stat_i`` over its rows, with no node axis; called without,
+    the node-stacked statistics, as any node function.  A function says so
+    with the attribute ``takes_weights = True``."""
+    return bool(getattr(fn, "takes_weights", False))
 
 
 class Executor:
@@ -53,7 +69,8 @@ class Executor:
 
     def resilient_reduce(self, fn: Callable, node_args: Sequence[Any], broadcast_args: Sequence[Any], b_full):
         """Lemma-3 combine: ``Σ_i b_i · fn(node_i)`` over every output leaf.
-        ``b_full`` carries zeros at stragglers, so their contributions vanish."""
+        ``b_full`` carries zeros at stragglers, so their contributions vanish.
+        A ``fn`` that :func:`takes_weights` forms the sum itself."""
         raise NotImplementedError
 
     def resilient_reduce_masked(
@@ -130,9 +147,16 @@ class LocalExecutor(Executor):
     def map_nodes(self, fn, node_args, broadcast_args=()):
         return fn(*(torch.as_tensor(a) for a in node_args), *broadcast_args)
 
+    def _weighted(self, fn, node_args, broadcast_args, b_full):
+        if takes_weights(fn):
+            node_args = tuple(torch.as_tensor(a) for a in node_args)
+            b = torch.as_tensor(b_full, dtype=torch.float32, device=node_args[0].device)
+            return fn(*node_args, *broadcast_args, b=b)
+        return resilient_sum(self.map_nodes(fn, node_args, broadcast_args), b_full)
+
     def resilient_reduce(self, fn, node_args, broadcast_args, b_full):
         with trace_span("executor.combine", executor=self.name):
-            return resilient_sum(self.map_nodes(fn, node_args, broadcast_args), b_full)
+            return self._weighted(fn, node_args, broadcast_args, b_full)
 
     def resilient_reduce_masked(
         self, fn, node_args, broadcast_args, A, alive, *, iters: int = 300,
@@ -150,8 +174,7 @@ class LocalExecutor(Executor):
         ):
             solved = device_recovery_masked(A, alive, iters=iters, device=device)
             b_full = torch.where(use_ov, b_ov, solved)
-            per_node = self.map_nodes(fn, node_args, broadcast_args)
-            return resilient_sum(per_node, b_full), b_full
+            return self._weighted(fn, node_args, broadcast_args, b_full), b_full
 
     def replicated_compute(self, fn, args):
         with trace_span("executor.replicated", executor=self.name):

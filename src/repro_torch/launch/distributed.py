@@ -33,7 +33,12 @@ so the ranks' control flow stays in lockstep, as one program.
   :func:`~repro_torch.core.aggregation.resilient_psum` across the ranks.
   :meth:`MeshExecutor.resilient_reduce_masked` solves the recovery weights
   on every rank's device (the same solve, as every device of the
-  reference's mesh solves redundantly) and slices this rank's block.
+  reference's mesh solves redundantly) and slices this rank's block.  A
+  node function that forms its block's combine itself
+  (:func:`~repro_torch.core.executor.takes_weights`, a training step's
+  Σ_i b_i·∇L_i) is handed the block's weights, and its output is summed
+  over the ranks in place, one ``all_reduce`` per leaf in the tree's
+  order.
 
 **Backends.**  NCCL needs one card per rank and carries only CUDA tensors;
 gloo carries CPU tensors, and CUDA tensors for ``all_reduce`` and
@@ -74,7 +79,7 @@ import torch
 import torch.distributed as dist
 
 from ..core.aggregation import _tree_map, resilient_psum, resilient_sum
-from ..core.executor import Executor, override_flag
+from ..core.executor import Executor, override_flag, takes_weights
 from ..core.nodes import NodeBlock, block_bounds, drawing_block
 from ..core.recovery import device_recovery_masked
 from ..device import resolve_device
@@ -288,9 +293,16 @@ class MeshExecutor(Executor):
 
         return _tree_map(gather, tree)
 
-    def _combine(self, per_node, b_blk):
-        """Lemma 3: this block's b-weighted sum, then the sum over ranks."""
-        local = _tree_map(self._carried, resilient_sum(per_node, b_blk))
+    def _combine(self, fn, blocks, broadcast_args, s: int, b_blk):
+        """Lemma 3: this block's b-weighted sum, then the sum over ranks.  A
+        ``fn`` that takes its weights forms the block's sum itself; that
+        sum is the step's own buffers, so it is reduced in place."""
+        if takes_weights(fn):
+            off, rows = self._bounds(s)
+            with drawing_block(off, rows, s), self._timed("local", b_blk.device):
+                local = fn(*blocks, *broadcast_args, b=b_blk)
+            return _tree_map(self._all_reduce, local)
+        local = _tree_map(self._carried, resilient_sum(self._run_block(fn, blocks, broadcast_args, s), b_blk))
         with self._timed("collectives", b_blk.device):
             return resilient_psum(local, 1.0, self.mesh.group)
 
@@ -305,7 +317,7 @@ class MeshExecutor(Executor):
         b = torch.as_tensor(b_full, dtype=torch.float32)
         (b_blk,), _ = self._pad_nodes((b.to(blocks[0].device),))
         with trace_span("executor.combine", executor=self.name, devices=self.num_devices):
-            return self._combine(self._run_block(fn, blocks, broadcast_args, s), b_blk)
+            return self._combine(fn, blocks, broadcast_args, s, b_blk)
 
     def resilient_reduce_masked(
         self, fn, node_args, broadcast_args, A, alive, *, iters: int = 300,
@@ -325,8 +337,7 @@ class MeshExecutor(Executor):
             solved = device_recovery_masked(A, alive, iters=iters, device=device)
             b_full = torch.where(use_ov, b_ov, solved)
             (b_blk,), _ = self._pad_nodes((b_full,))
-            per_node = self._run_block(fn, blocks, broadcast_args, s)
-            return self._combine(per_node, b_blk), b_full
+            return self._combine(fn, blocks, broadcast_args, s, b_blk), b_full
 
     def replicated_compute(self, fn, args):
         """Every rank computes ``fn(*args)`` on its own inputs, which the

@@ -17,6 +17,10 @@ The workloads are those of the reference's multi-device tests:
   ``tests/test_resilience.py`` (12 rounds of a deadline scenario, patience 2);
 * :func:`stream` — the streaming session of ``tests/test_stream.py``
   (8 batches, iid stragglers, the mask stream replayed);
+* :func:`train` — the mesh-native resilient trainer of
+  ``tests/test_training.py:459`` (``Trainer(device_recovery=True)``: the
+  groups' gradients combined across the ranks, the resident token pools
+  placed as blocks and patched on the owning rank);
 * :func:`full_width_rank` — the mesh phase of ``chip_smoke.py`` at the
   shape of SIFT1M.
 """
@@ -47,6 +51,7 @@ from ..kernels import dispatch
 __all__ = [
     "fig1", "fig1_rank", "multiround", "multiround_rank", "stream", "stream_rank",
     "eight_rank_twins", "update_rows_rank", "alg1_problem", "alg1_rank", "full_width_rank",
+    "train", "train_rank",
 ]
 
 
@@ -210,6 +215,43 @@ def update_rows_rank() -> dict:
             "psum": (psum["a"].numpy(), psum["b"][0].numpy()),
             "stats": sess.stats.as_dict(), "patch": ex.gather_object(patch),
             "cost_after": sess.step_cost(pts, np.zeros((2, 3), np.float32), dead)}
+
+
+# ------------------------------------------------------------- training
+
+
+def train(executor: str, device, cfg, tcfg_kw: dict, ocfg_kw: dict) -> dict:
+    """``Trainer(device_recovery=True)`` through ``executor`` ("local" or
+    "mesh") from the seeded initial weights: the final parameters, the
+    history, the session's counters and the resident validity mask."""
+    from ..train.optimizer import AdamWConfig
+    from ..train.trainer import Trainer, TrainerConfig
+
+    t = Trainer(cfg, TrainerConfig(device_recovery=True, executor=executor, **tcfg_kw), AdamWConfig(**ocfg_kw),
+                device=device)
+    state = t.run()
+    valid = t._res_valid
+    return {"params": {n: p.detach().cpu().numpy() for n, p in state.params.named_parameters()},
+            "history": t.history, "stats": t.plan.session.stats.as_dict(),
+            "valid": getattr(valid, "local", valid).cpu().numpy()}
+
+
+def train_rank(runs: dict) -> dict:
+    """Each of ``runs`` (name → (cfg, trainer kwargs, optimizer kwargs))
+    through the mesh on this rank: rank 0's results, the rows each rank
+    wrote, each rank's block of the validity mask, and whether the ranks
+    hold the same parameters."""
+    ex = _mesh()
+    out = {}
+    for name, (cfg, tcfg_kw, ocfg_kw) in runs.items():
+        written = ex.rows_written
+        rec = train("mesh", ex.mesh.device or "cpu", cfg, tcfg_kw, ocfg_kw)
+        rec["rows_written"] = ex.gather_object(ex.rows_written - written)
+        rec["valid_blocks"] = ex.gather_object(rec.pop("valid"))
+        rec["lockstep"] = ex.same_on_all_ranks(rec["params"], rec["history"])
+        rec["describe"] = ex.describe()
+        out[name] = rec
+    return out
 
 
 # ------------------------------------------------------- Algorithm 1, card

@@ -67,6 +67,7 @@ __all__ = [
     "cast_params",
     "decode_step",
     "forward_train",
+    "group_losses",
     "init_cache",
     "init_params",
     "loss_fn",
@@ -321,6 +322,25 @@ def forward_train(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext
     return _logits(model, x, cfg), aux, mask
 
 
+def _label_ce(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
+    """forward_train and each label's cross entropy: (ce (B, T'), label
+    mask (B, T'), aux).  A codebook model's CE is the mean over its K
+    codebooks; a prefix model's labels start after the prefix."""
+    logits, aux, mask = forward_train(model, batch, cfg, ctx)
+    tokens = batch["tokens"]
+    if cfg.num_codebooks > 0:
+        targets = tokens[:, :, 1:].transpose(1, 2)  # (B, T−1, K)
+        lg = logits[:, :-1].float()  # (B, T−1, K, V)
+        lse = torch.logsumexp(lg, dim=-1)
+        tgt = torch.gather(lg, -1, targets[..., None].long())[..., 0]
+        return (lse - tgt).mean(-1), mask[:, 1:], aux  # the mean over codebooks
+    prefix = logits.shape[1] - tokens.shape[1]
+    lg = logits[:, prefix:][:, :-1].float()
+    lg = lg - torch.logsumexp(lg, dim=-1, keepdim=True)
+    ce = -torch.gather(lg, -1, tokens[:, 1:][..., None].long())[..., 0]
+    return ce, mask[:, prefix:][:, 1:], aux
+
+
 def loss_fn(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
     """Group-weighted causal-LM cross entropy, as the reference's.
 
@@ -332,21 +352,7 @@ def loss_fn(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
     prefix model's labels start after the prefix.  The MoE aux term
     ``router_aux_weight · aux / n_layers`` is added.  Returns (total,
     metrics {"ce", "aux", "tokens"})."""
-    logits, aux, mask = forward_train(model, batch, cfg, ctx)
-    tokens = batch["tokens"]
-    if cfg.num_codebooks > 0:
-        targets = tokens[:, :, 1:].transpose(1, 2)  # (B, T−1, K)
-        lg = logits[:, :-1].float()  # (B, T−1, K, V)
-        lse = torch.logsumexp(lg, dim=-1)
-        tgt = torch.gather(lg, -1, targets[..., None].long())[..., 0]
-        ce = (lse - tgt).mean(-1)  # (B, T−1): the mean over codebooks
-        m = mask[:, 1:]
-    else:
-        prefix = logits.shape[1] - tokens.shape[1]
-        lg = logits[:, prefix:][:, :-1].float()
-        lg = lg - torch.logsumexp(lg, dim=-1, keepdim=True)
-        ce = -torch.gather(lg, -1, tokens[:, 1:][..., None].long())[..., 0]
-        m = mask[:, prefix:][:, 1:]
+    ce, m, aux = _label_ce(model, batch, cfg, ctx)
     gw = batch.get("group_weights")
     if gw is None:
         loss = torch.sum(ce * m) / torch.clamp_min(torch.sum(m), 1.0)
@@ -358,6 +364,17 @@ def loss_fn(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
     aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
     total = loss + aux_w * aux / max(1, cfg.n_layers)
     return total, {"ce": loss, "aux": aux, "tokens": torch.sum(m)}
+
+
+def group_losses(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext, groups: int):
+    """One forward of the batch split group-major into ``groups`` equal
+    groups of rows: (each group's masked mean CE (groups,), each group's
+    label count (groups,), aux over the whole batch).  ``loss_fn`` is
+    their ``group_weights``-weighted mean."""
+    ce, m, aux = _label_ce(model, batch, cfg, ctx)
+    ce_g, m_g = ce.reshape(groups, -1), m.reshape(groups, -1)
+    tok = torch.sum(m_g, dim=1)
+    return torch.sum(ce_g * m_g, dim=1) / torch.clamp_min(tok, 1.0), tok, aux
 
 
 # ------------------------------------------------------------------ serve

@@ -5,7 +5,9 @@ twin of the reference's ``train/train_step.py``, in one process).
 to gradients) into :func:`repro_torch.models.transformer.loss_fn`.  The
 parameters live in the model (an ``nn.Module``); the step takes their
 gradients with ``torch.autograd.grad`` (nothing is left in ``.grad``) and
-updates them and the moments in place.
+updates them and the moments in place.  The mesh-native resilient path's
+pieces are :func:`make_group_grad_fn` (per-group gradients for the
+executor's Lemma-3 combine) and :func:`make_recovered_apply_fn`.
 """
 
 from __future__ import annotations
@@ -130,17 +132,128 @@ def make_train_step(
     return train_step
 
 
+def _grads(total, names, params) -> dict:
+    grads = torch.autograd.grad(total, params, allow_unused=True)
+    return {n: torch.zeros_like(p) if g is None else g for n, p, g in zip(names, params, grads)}
+
+
 def make_group_grad_fn(cfg: ModelConfig, ctx: T.ModelContext):
-    """The per-group statistics of the mesh-native resilient step: not
-    ported yet."""
-    raise NotImplementedError(
-        "make_group_grad_fn (the device_recovery path) is not ported yet: ROADMAP queue 1, item 13.5b")
+    """Per-group statistics function for ``Executor.resilient_reduce_masked``
+    — the mesh-native resilient train step (Lemma 3 on gradients).
+
+    Returns ``fn(tokens_pool, valid, model, pool_idx, *, b=None)``,
+    written batched over a block of G groups, as every node function of
+    the port is, where
+
+    * ``tokens_pool`` — ``(G, P, C·mb, T)`` integer: each group's resident
+      microbatch pool (``P`` step batches, ``C`` shard slots of ``mb``
+      sequences each — ``C`` may exceed a group's load to leave headroom
+      for elastic patches);
+    * ``valid`` — ``(G, C)`` float32: 1 for slots holding a real shard, 0
+      for padding (padded slots are inert in every statistic);
+    * ``model`` — the model (broadcast);
+    * ``pool_idx`` — which pool entry this step consumes.
+
+    A group's statistics are its **shard-sum** ``{"grads", "loss", "ce",
+    "tok"}``: the per-shard token-normalised losses summed over the
+    group's valid slots (plus, for an MoE model, the valid slot count
+    times the group's aux term), the gradient of that sum (a dict by
+    parameter name), and the group's label count.  Without ``b`` the
+    function returns them stacked over the groups, the reference's
+    meaning (a gradient per group: G copies of the model).  With ``b``
+    (``(G,)``, the block's recovery weights) it returns their Lemma-3
+    combine Σ_g b_g·stat_g (:func:`repro_torch.core.executor.takes_weights`):
+    each group's forward and backward in turn, each gradient multiplied
+    by b_g and added into one float64 buffer, so the block holds one
+    gradient besides the one being formed.  The products of float32
+    values are exact in float64 and their sum carries 29 bits more than
+    float32, so once rounded to the parameters' dtype (by
+    :func:`make_recovered_apply_fn`) the combine does not depend on the
+    order of the groups, nor, summed over the ranks in float64, on the
+    mesh's split.  The combined statistics are float64.  A group's forward is its own, as
+    under the reference's vmap (an MoE model routes, caps its experts and
+    counts its aux loss over one group's tokens).
+
+    The executor's combine then yields  Σ_g b_g Σ_{s∈P_g} ∇L̄_s
+    = Σ_s a_s ∇L̄_s  with ``a = bᵀA ∈ [1, 1+δ]ⁿ``: for δ = 0 (fractional
+    repetition under any coverage-preserving pattern) this is EXACTLY
+    ``n·∇(mean shard loss)`` — the full-data gradient, independent of the
+    straggler pattern (to the bit, where the weights are powers of two:
+    replicas of a shard hold the same rows).  :func:`make_recovered_apply_fn`
+    divides by ``n``.
+    """
+    aux_w = cfg.moe.router_aux_weight / max(1, cfg.n_layers) if cfg.moe else 0.0
+
+    def shard_sum(model, tokens, valid):
+        """One group's forward: (its shard-sum loss, CE, label count) over
+        its rows ``tokens`` (C·mb, T) and slot validity ``valid`` (C,)."""
+        per_slot, tok, aux = T.group_losses(model, {"tokens": tokens.long()}, cfg, ctx, valid.shape[0])
+        ce = torch.sum(valid * per_slot)
+        loss = ce + torch.sum(valid) * (aux_w * aux) if aux_w else ce
+        return loss, ce, torch.sum(tok)
+
+    def group_stats(tokens_pool, valid, model, pool_idx, *, b=None):
+        names, params = zip(*model.named_parameters())
+        tokens = tokens_pool[:, int(pool_idx)]
+        valid = valid.float()
+        per, out = [], None
+        for g in range(valid.shape[0]):
+            loss, ce, tok = shard_sum(model, tokens[g], valid[g])
+            grads = _grads(loss, names, params)
+            if b is None:
+                per.append((grads, loss.detach(), ce.detach(), tok))
+                continue
+            bg = b[g].to(device=valid.device, dtype=torch.float64)
+            if out is None:
+                out = {"grads": {n: torch.zeros_like(p, dtype=torch.float64) for n, p in zip(names, params)},
+                       "loss": 0.0, "ce": 0.0, "tok": 0.0}
+            for n in names:
+                out["grads"][n].addcmul_(grads[n], bg)
+            del grads
+            for key, v in (("loss", loss), ("ce", ce), ("tok", tok)):
+                out[key] = out[key] + bg * v.detach().double()
+        if b is not None:
+            return out
+        return {"grads": {n: torch.stack([st[0][n] for st in per]) for n in names},
+                **{key: torch.stack([st[i] for st in per]) for i, key in enumerate(("loss", "ce", "tok"), 1)}}
+
+    group_stats.takes_weights = True
+    return group_stats
 
 
-def make_recovered_apply_fn(opt_cfg: AdamWConfig, num_shards: int, *, compression=None):
-    """The apply step of the mesh-native resilient path: not ported yet."""
-    raise NotImplementedError(
-        "make_recovered_apply_fn (the device_recovery path) is not ported yet: ROADMAP queue 1, item 13.5b")
+def make_recovered_apply_fn(
+    opt_cfg: AdamWConfig,
+    num_shards: int,
+    *,
+    compression: Optional[CompressionConfig] = None,
+):
+    """Returns ``apply(state, stats) -> (state, metrics)``.
+
+    ``stats`` is the Lemma-3-combined output of :func:`make_group_grad_fn`
+    (shard-sum gradients/losses weighted by the recovery vector); dividing by
+    the TOTAL shard count ``n`` — a pattern-independent constant — recovers
+    the mean-loss gradient, so straggler and no-straggler steps apply
+    numerically identical updates whenever the recovery band is exact.
+    The parameters and moments are updated in place, as
+    :func:`make_train_step`'s are; the gradients are scaled in their own
+    dtype (float64 from the combine) and rounded to the parameters'.  The
+    metrics are 0-dim float32 tensors, but ``lr``, a float.
+    """
+    scale = 1.0 / float(num_shards)
+
+    def apply(state: TrainState, stats):
+        params = dict(state.params.named_parameters())
+        grads = {n: (g * scale).to(params[n].dtype) for n, g in stats["grads"].items()}
+        ef = state.ef
+        if compression is not None and compression.enabled:
+            grads, ef = compress_with_error_feedback(compression, grads, ef)
+        _, opt, opt_metrics = adamw_update(opt_cfg, params, grads, state.opt)
+        metrics = {"loss": (stats["loss"] * scale).float(), "ce": (stats["ce"] * scale).float(),
+                   "tokens": stats["tok"].float()}
+        metrics.update(opt_metrics)
+        return TrainState(params=state.params, opt=opt, ef=ef), metrics
+
+    return apply
 
 
 def make_eval_step(cfg: ModelConfig, ctx: T.ModelContext):

@@ -506,6 +506,37 @@ def test_train_step_on_card_runs_the_kernel_forward(cuda_device):
 
 
 @pytest.mark.gpu
+def test_device_recovery_step_on_card_through_the_kernel_and_the_plain_attention(cuda_device):
+    """One step of the mesh-native resilient trainer at the smoke size, FR
+    with one straggler: through the kernel (one flash launch a layer and a
+    group) and through the plain attention, from the same weights; the
+    recovery solved on the card, no host solve; the losses within the bf16
+    band, the updated parameters finite."""
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = qwen3_4b.smoke_config()
+    tc = TrainerConfig(num_groups=4, num_shards=4, redundancy=2, scheme="fr", microbatch=1, seq_len=64, steps=1,
+                       device_recovery=True, resident_steps=1, warm_start=False)
+    records = []
+    for impl in ("auto", "torch_ref"):
+        init = TS.init_train_state(cfg, generator=torch.Generator(device=cuda_device).manual_seed(4))
+        t = Trainer(cfg, tc, O.AdamWConfig(), T.ModelContext(attn_impl=impl), device=cuda_device,
+                    initial_state=init)
+        state, _ = t.init_state()
+        before = dispatch.launch_counts()["flash_attention"]
+        state, rec = t._device_recovery_step(state, 0, np.array([True, False, True, True]))
+        launched = dispatch.launch_counts()["flash_attention"] - before
+        assert launched == (tc.num_groups * cfg.n_layers if impl == "auto" else 0)
+        assert not rec["fallback"] and rec["host_solves"] == 0 and rec["device_solves"] == 1
+        assert abs(rec["b_sum"] - 2.0) <= 1e-4
+        assert all(bool(p.isfinite().all()) for p in state.params.parameters()) and state.opt.step == 1
+        records.append(rec)
+    assert abs(records[0]["loss"] - records[1]["loss"]) <= 2e-2 * abs(records[1]["loss"])
+
+
+@pytest.mark.gpu
 def test_serving_on_card_prefills_through_the_kernel_and_decodes_without_it(cuda_device):
     cfg = qwen3_4b.smoke_config()
     model = T.init_params(cfg, generator=torch.Generator(device=cuda_device).manual_seed(0))

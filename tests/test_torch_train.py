@@ -461,14 +461,16 @@ def test_train_step_accumulation_and_compression():
 
 
 def test_unported_training_paths_raise():
-    _, pcfg = _smoke("qwen3-4b")
-    with pytest.raises(NotImplementedError, match="13.5b"):
-        TS.make_group_grad_fn(pcfg, T.ModelContext())
-    with pytest.raises(NotImplementedError, match="13.5b"):
-        TS.make_recovered_apply_fn(O.AdamWConfig(), 4)
-    for over in (dict(device_recovery=True), dict(executor="mesh")):
-        with pytest.raises(NotImplementedError, match="13.5b"):
-            Trainer(pcfg, TrainerConfig(**over), device="cpu")
+    """The mesh-native path is ported (``tests/test_torch_train_device.py``);
+    what raises is the reference's own refusal: an ``executor`` other than
+    "local" without ``device_recovery``, whose host path never reads it."""
+    jcfg, pcfg = _smoke("qwen3-4b")
+    with pytest.raises(ValueError, match="device_recovery"):
+        JTrainer(jcfg, JTrainerConfig(executor="mesh"))
+    with pytest.raises(ValueError, match="device_recovery"):
+        Trainer(pcfg, TrainerConfig(executor="mesh"), device="cpu")
+    assert callable(TS.make_group_grad_fn(pcfg, T.ModelContext()))
+    assert callable(TS.make_recovered_apply_fn(O.AdamWConfig(), 4))
 
 
 def test_launch_train_runs_on_cpu(capsys):
