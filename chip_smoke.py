@@ -549,7 +549,6 @@ def serve_xlstm(seed: int, card: str) -> None:
     chunk_vs_step("(b) bf16, 8 of 48 layers", T.cast_params(model8, cfg8b), cfg8b, None)
     del model8
     torch.cuda.empty_cache()
-    chunk_vs_step("(b) bf16, 48 layers", served, cfg, None)
 
     # (c) greedy decode from the recurrent state: no KV cache
     prompt = tokens[:, :prompt_len].contiguous()
@@ -1385,6 +1384,145 @@ def train_device_recovery(seed: int, card: str, host_step_s: float) -> dict:
             "solve_ms": float(np.mean(solve_ms)), "solve_launches": solve_launches}
 
 
+MESH_BAND = 2e-2  # the bf16 band of phase "serve moe"'s kernel-against-plain prefills
+
+
+def serve_mesh(seed: int, card: str, holder: dict, kept: dict) -> dict:
+    """Phase "serve mesh": deepseek-moe-16b at full width and depth in bf16
+    on LM meshes.  (a) A world of one over NCCL, mesh (1, 1), in this
+    process with phase "serve moe"'s model: prefill and 8 decode steps bit
+    for bit the meshless ones.  Then the meshless oracles
+    (``launch.mesh_runs.moe_mesh_oracle``; its prefill must be phase "serve
+    moe"'s bit for bit), and the model is freed.  (b) Two gloo ranks on the
+    card, mesh (1, 2): head-parallel attention, the shared experts' d_ff
+    split, 32 experts a rank.  (c) Four gloo ranks, mesh (2, 2), with FSDP:
+    each data shard's MoE is the meshless MoE of its 2 rows.  Each rank draws
+    only its blocks (``launch.sharding.init_sharded``), prefills its rows of
+    4 x 2048 (exactly 28 flash launches), is held by the flip rule and with
+    the oracle's routing replayed (``MESH_BAND`` of the logits' scale), and
+    decodes teacher-forced with the routing replayed (16 steps on (1, 2), 1
+    on (2, 2), whose every step gathers each layer's experts over ``data``;
+    the same band); (b) also decodes greedily 4 x (16 + 32).  Returns the flash launches a rank
+    of each run."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import distributed as mesh_dist
+    from repro_torch.launch import mesh_runs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.sharding import make_context, shard_model
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import transformer as T
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    served, cfg, tokens = holder.pop("model"), holder.pop("cfg"), holder.pop("tokens")
+    counts = {}
+
+    # (a) a world of one over NCCL
+    mesh_dist.node_mesh(backend="nccl", device=dev)
+    try:
+        mesh = make_test_mesh((1, 1))
+        ctx = make_context(mesh)
+        shard_model(served, mesh)  # tags every parameter replicated: nothing is copied
+        plain = T.ModelContext()
+        with moe_mod.recorded_routing() as log0:
+            want, cache0 = T.prefill(served, {"tokens": tokens}, cfg, plain)
+        dispatch.reset_launch_counts()
+        coll.STATS.reset()
+        sync()
+        t0 = time.perf_counter()
+        with moe_mod.recorded_routing() as log1:
+            got, cache1 = T.prefill(served, {"tokens": tokens}, cfg, ctx)
+            sync()
+        one_s = time.perf_counter() - t0
+        counts["(1, 1) nccl"] = dispatch.launch_counts()["flash_attention"]
+        same = (torch.equal(got, want) and all(torch.equal(a, b) for a, b in zip(log0, log1))
+                and all(torch.equal(a["k"], b["k"]) and torch.equal(a["v"], b["v"]) for a, b in zip(cache0, cache1)))
+        del cache0, cache1
+        seq = kept["prompt"][:, :8].to(dev)
+        steps = []
+        for c in (plain, ctx):
+            cache, out = T.init_cache(cfg, 4, 8, device=dev, model=served, ctx=c), []
+            for t in range(8):
+                lg, cache = T.decode_step(served, cache, seq[:, t:t + 1], t, cfg, c)
+                out.append(lg)
+            steps.append(torch.stack(out))
+        dec_same = torch.equal(steps[0], steps[1])
+        print(f"(a) mesh (1, 1), a world of one over NCCL: prefill 4 x 2048 {one_s:.3f} s, launches "
+              f"{counts['(1, 1) nccl']} flash, collectives that moved data {coll.STATS.calls}; logits, routing "
+              f"and K/V caches bit for bit the meshless prefill's {same}; 8 decode steps' logits bit for bit "
+              f"{dec_same}  [{card}]")
+        if not (same and dec_same and counts["(1, 1) nccl"] == cfg.n_layers and not coll.STATS.calls):
+            raise AssertionError("serve mesh (a): mesh (1, 1) is not the meshless model bit for bit")
+    finally:
+        dist.destroy_process_group()
+    del got, want, log0, log1, steps
+
+    with tempfile.TemporaryDirectory(prefix="repro-moe-oracle-") as tmp:
+        t0 = time.perf_counter()
+        mesh_runs.moe_mesh_oracle(served, cfg, tokens, kept, tmp, half_decode_steps=2)
+        print(f"oracles written in {time.perf_counter() - t0:.3f} s (the meshless prefill again bit for bit "
+              f"phase \"serve moe\"'s; the teacher-forced decode of its prompt and greedy ids recorded)  [{card}]")
+        del served
+        torch.cuda.empty_cache()
+        print(f"the meshless model freed: {torch.cuda.memory_allocated() / 2**30:.3f} GiB held by this process")
+        for label, shape, decode_steps, greedy, warm_up in (
+                ("(b)", (1, 2), 16, True, True), ("(c)", (2, 2), 1, False, False)):
+            world = shape[0] * shape[1]
+            t0 = time.perf_counter()
+            rep = mesh_dist.run_ranks(mesh_runs.moe_serve_rank, world, backend="gloo", device="cuda",
+                                      timeout=600, args=(seed, shape, tmp, decode_steps, greedy, warm_up))
+            wall = time.perf_counter() - t0
+            ranks = rep["ranks"]
+            print(f"{label} mesh {shape}, {world} gloo ranks on the card: {wall:.3f} s from spawn to exit; "
+                  f"ranks agree within each data shard {rep['lockstep']}  [{card}]")
+            for r in ranks:
+                b_loc, T_s, kv, dh = r["k_cache_shape"]
+                flip = r["flip"]
+                print(f"{label} rank {r['coords']}: heads {r['heads']} over KV heads {r['kv_heads']} (tensor-"
+                      f"parallel {r['tensor_parallel']}); {r['params_held'] / 1e9:.3f} B parameters held, "
+                      f"{r['weights_gib']:.3f} GiB, drawn in {r['draw_s']:.3f} s; peak {r['peak_gib']:.3f} GiB; "
+                      f"prefill {b_loc} x {T_s} {r['prefill_s']:.3f} s, flash launches "
+                      f"{r['launches']['flash_attention']} at (B, T, S, H, KV, dh) = "
+                      f"{(b_loc, T_s, T_s, r['heads'][1] - r['heads'][0], kv, dh)}; sums {r['sums']['calls']}, "
+                      f"{ {k: round(v / 2**20, 1) for k, v in r['sums']['bytes'].items()} } MiB, "
+                      f"{ {k: round(v, 3) for k, v in r['sums']['seconds'].items()} } s  [{card}]")
+                print(f"{label} rank {r['coords']}: routing decisions that differ from the oracle's by layer "
+                      f"{flip['differ']}, first {flip['first']}; "
+                      + (f"last-position logits max|a-b|/max|b| {flip['logits_gap']:.3e}" if flip["first"] is None
+                         else f"K cache gaps up to it {[round(g, 6) for g in flip['k_gaps']]}")
+                      + f"; with the oracle's routing replayed {r['replay_gap']:.3e}"
+                      + (" (no decision differs: the free run is its own replay)" if flip["first"] is None else "")
+                      + f"; teacher-forced decode steps {r['decode_steps']}, routing replayed: worst max|a-b|/max|b| "
+                      f"{r['decode_gap']:.3e}, "
+                      f"{r['decode_ms_per_step']:.2f} ms/step"
+                      + (f"; greedy 4 x (16 + 32) {r['greedy_ms_per_step']:.2f} ms/step, ids agree with the "
+                         f"oracle's {r['greedy_agree']:.4f}" if "greedy_agree" in r else "")
+                      + f"  [{card}]")
+                bad = []
+                if r["launches"]["flash_attention"] != cfg.n_layers or sum(r["launches"].values()) != cfg.n_layers:
+                    bad.append(f"launches {r['launches']}")
+                if (b_loc, T_s, kv) != (4 // shape[0], 2048, cfg.n_kv_heads // shape[1]):
+                    bad.append(f"K cache {r['k_cache_shape']}")
+                if flip["first"] is None and flip["logits_gap"] > MESH_BAND:
+                    bad.append(f"logits gap {flip['logits_gap']:.3e} with no routing difference")
+                if flip["first"] is not None and max(flip["k_gaps"]) > MESH_BAND:
+                    bad.append(f"K caches up to the first routing difference {flip['k_gaps']}")
+                if r["replay_gap"] > MESH_BAND or r["decode_gap"] > MESH_BAND:
+                    bad.append(f"replayed gaps {r['replay_gap']:.3e} / {r['decode_gap']:.3e}")
+                if bad:
+                    raise AssertionError(f"serve mesh {label} rank {r['coords']}: " + "; ".join(bad))
+            if not rep["lockstep"]:
+                raise AssertionError(f"serve mesh {label}: the ranks of a data shard part")
+            counts[f"{shape} gloo, a rank"] = ranks[0]["launches"]["flash_attention"]
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     ap.add_argument("--seed", type=int, default=0)
@@ -1653,6 +1791,12 @@ def main() -> int:
         # a generator of their own, so the draws of later phases stay as they were.
         check_flash("prefill moe H=KV=16", 4, 2048, 2048, 16, 16, 128,
                     g=torch.Generator(device=dev).manual_seed(args.seed))
+        # ... and a model rank's heads of it on the meshes of phase "serve
+        # mesh": (1, 2) and (2, 2), eight heads a rank, over 4 and 2 rows.
+        check_flash("prefill moe, a rank of (1, 2): H=KV=8", 4, 2048, 2048, 8, 8, 128,
+                    g=torch.Generator(device=dev).manual_seed(args.seed + 3))
+        check_flash("prefill moe, a rank of (2, 2): H=KV=8", 2, 2048, 2048, 8, 8, 128,
+                    g=torch.Generator(device=dev).manual_seed(args.seed + 4))
         # The frontends' prefill shapes, never launched before: internvl2-1b
         # (group size 7, dh 64) and musicgen-large (H = KV = 32, dh 64).
         check_flash("prefill internvl2-1b H=14 KV=2", 4, 2048, 2048, 14, 2, 64,
@@ -2662,6 +2806,8 @@ def main() -> int:
               f"max|a-b|/max|b| {float((la - lb).abs().max() / lb.abs().max()):.3e}")
         if not (torch.equal(again, logits) and same_routing):
             raise AssertionError("(b): two kernel prefills of the same tokens differ")
+        # phase "serve mesh"'s oracle, kept on the host
+        moe_kept = {"logits": logits.cpu(), "routing": [t.cpu() for t in log_a]}
         del again, logits, log_a, log_again
         moe_combine_timing(args.seed, card)
 
@@ -2684,6 +2830,7 @@ def main() -> int:
         if out.shape != (B_s, gen_len) or bool((out < 0).any() or (out >= cfg.vocab).any()):
             raise AssertionError(f"greedy_generate returned {tuple(out.shape)} or ids outside the vocab")
         print(f"row 0: {out[0].tolist()}")
+        moe_kept.update(prompt=prompt.cpu(), ids=out.cpu())
 
         # (d) where the time goes
         busy = profiled(f"MoE prefill {B_s} x {T_s}", lambda: prefill(served, {"tokens": tokens}), top=10)
@@ -2695,6 +2842,8 @@ def main() -> int:
               f"unprofiled (idle share {1 - busy / 8 / (moe_dec_s / steps):.3f})")
         print(f"deepseek-moe-16b max_memory_allocated (bf16 weights, caches, activations): "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB  [{card}]")
+        # The model stays for phase "serve mesh", which frees it.
+        moe_holder = {"model": served, "cfg": cfg, "tokens": tokens}
         del served, out
         torch.cuda.empty_cache()
 
@@ -2755,6 +2904,9 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # The parameters are trainable: the serving phases record no gradient.
+    with phase("serve mesh"), torch.no_grad():
+        mesh_counts = serve_mesh(args.seed, card, moe_holder, moe_kept)
+
     with phase("serve xlstm"), torch.no_grad():
         serve_xlstm(args.seed, card)
 
@@ -2868,6 +3020,8 @@ def main() -> int:
             "launches_by_path": {"serve qwen3-4b prefill": serve_counts["flash_attention"],
                                  "serve moe deepseek-moe-16b prefill": moe_counts["flash_attention"],
                                  "serve moe moonshot-v1-16b-a3b prefill (4 layers)": m_counts["flash_attention"],
+                                 **{f"serve mesh deepseek-moe-16b prefill, mesh {k}": n
+                                    for k, n in mesh_counts.items()},
                                  "serve musicgen-large prefill": frontend_counts["musicgen-large"],
                                  "serve internvl2-1b prefill": frontend_counts["internvl2-1b"],
                                  "train qwen3-1.7b step (forward)": train_full["flash_per_step"],
@@ -2903,6 +3057,16 @@ def main() -> int:
             "moe_library_ms": cuda_ms(lambda: sdpa(mqh, mkh, mvh, is_causal=True), 20),
             "moe_bound_ms": 1e3 * max(m_flops / PEAK_BF16_FLOPS, m_bytes / PEAK_BYTES),
             "autograd": flash_grads,
+        })
+        # ... and at a model rank's heads of it on phase "serve mesh"'s (1, 2) mesh
+        rq, rk, rv = (t[:, :, :8].contiguous() for t in (mq, mk, mv))
+        rqh, rkh, rvh = (t.transpose(1, 2).contiguous() for t in (rq, rk, rv))
+        beside["flash_attention"].update({
+            "mesh_rank_shape": [fB, fT, fT, 8, 8, fdh],
+            "mesh_rank_ms": cuda_ms(lambda: fa_ops.flash_attention(rq, rk, rv), 20),
+            "mesh_rank_plain_ms": cuda_ms(lambda: fa_ops.flash_attention(rq, rk, rv, impl="torch_ref"), 3),
+            "mesh_rank_library_ms": cuda_ms(lambda: sdpa(rqh, rkh, rvh, is_causal=True), 20),
+            "mesh_rank_bound_ms": 1e3 * max(m_flops / 2 / PEAK_BF16_FLOPS, m_bytes / 2 / PEAK_BYTES),
         })
         # pairwise_sqdist at its full-width path shape: the full (n, k) output.
         n_q, k_q = pts_d.shape[0], k_full

@@ -157,7 +157,8 @@ def digest(*values) -> str:
         if isinstance(v, NodeBlock):
             v = v.local
         if isinstance(v, torch.Tensor):
-            v = v.detach().cpu().contiguous().numpy()
+            v = v.detach().cpu().contiguous()
+            v = (v.view(torch.int16) if v.dtype == torch.bfloat16 else v).numpy()  # numpy has no bf16
         if isinstance(v, np.ndarray):
             h.update(str((v.shape, v.dtype.str)).encode())
             h.update(np.ascontiguousarray(v).tobytes())

@@ -22,12 +22,19 @@ The workloads are those of the reference's multi-device tests:
   groups' gradients combined across the ranks, the resident token pools
   placed as blocks and patched on the owning rank);
 * :func:`full_width_rank` — the mesh phase of ``chip_smoke.py`` at the
-  shape of SIFT1M.
+  shape of SIFT1M;
+* :func:`lm_rank` — the LM mesh jobs of ``tests/test_torch_lm_mesh.py``
+  and ``tests/test_torch_moe_mesh.py`` (a model's prefill and
+  teacher-forced decode, one MoE layer, one sLSTM block), each on a mesh
+  of the world's size, their outputs gathered whole on every rank;
+* :func:`moe_serve_rank` — phase "serve mesh" of ``chip_smoke.py``:
+  deepseek-moe-16b at full width, each rank drawing only its blocks.
 """
 
 from __future__ import annotations
 
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -51,7 +58,7 @@ from ..kernels import dispatch
 __all__ = [
     "fig1", "fig1_rank", "multiround", "multiround_rank", "stream", "stream_rank",
     "eight_rank_twins", "update_rows_rank", "alg1_problem", "alg1_rank", "full_width_rank",
-    "train", "train_rank",
+    "train", "train_rank", "lm_rank", "lm_job", "moe_mesh_oracle", "moe_serve_rank",
 ]
 
 
@@ -401,4 +408,332 @@ def full_width_rank(seed: int, centers_c: np.ndarray, rounds: int, n_batch: int,
                                    "launches": dispatch.launch_counts(),
                                    "host_solves": sess.resilience.stats.host_solves}),
     }
+    return report
+
+
+# ---------------------------------------------------------------- LM meshes
+
+
+def _same_in_shards(mesh, *values) -> bool:
+    """Whether every model rank of each data shard holds the same bits."""
+    import torch.distributed as dist
+
+    from .distributed import digest
+
+    shard = tuple(mesh.coord(a) for a in mesh.axis_names if a != "model")
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, (shard, digest(*values)))
+    return len(set(seen)) == len({s for s, _ in seen})
+
+
+def _whole(x: torch.Tensor, mesh, heads_dim=None) -> np.ndarray:
+    """A rank's rows (and, given ``heads_dim``, its heads over ``model``)
+    gathered whole, as a numpy array (a rank returns no tensor: its
+    storage would be shared with the parent through a descriptor that the
+    rank's exit can close before the parent reads it)."""
+    from . import collectives as C
+    from .sharding import gather_rows
+
+    if heads_dim is not None:
+        x = C.gather(x, mesh, "model", heads_dim)
+    return gather_rows(x, mesh).float().cpu().numpy()
+
+
+def _routing_for_rank(weights, cfg, mesh):
+    """The selections one rank of ``mesh`` makes under given combine
+    weights, in :func:`~repro_torch.models.moe.recorded_routing`'s form:
+    per MoE layer, the experts of the rank's tokens (N_loc, k) and the
+    kept tokens of its experts (E/m, C) at its shard's capacity.
+    ``weights``: each layer's global combine weights (N, E), data shards'
+    rows in order (the reference's pjit-routing ``w_sparse``)."""
+    from ..models import moe as M
+    from .sharding import _axes_of, local_rows
+
+    _, model, _ = _axes_of(mesh)
+    m = mesh.shape.get(model, 1) if model else 1
+    e_loc = cfg.moe.num_experts // m
+    r = mesh.coord(model) if model else 0
+    log = []
+    for w in weights:
+        w = torch.as_tensor(np.asarray(w))
+        if m > 1:
+            w = local_rows(w, mesh)
+        wl = w[:, r * e_loc:(r + 1) * e_loc]
+        log += [M._topk(w, cfg.moe.top_k)[1], M._topk(wl.T, min(M.capacity(w.shape[0], cfg.moe), w.shape[0]))[1]]
+    return log
+
+
+def _serve_job(mesh, cfg, sd, tokens, decode_tokens, reference_routing=None):
+    """Prefill of the global batch ``tokens`` (B, T), or (B, K, T) for a
+    codebook model, and teacher-forced decode of ``decode_tokens`` (B, n)
+    or (B, K, n) from an empty cache, on the rank's
+    rows, each returned whole: the prefill's last-position logits, the
+    decode logits (B, n, V) and, for an MoE model, each layer's K cache
+    and the routing decisions that differ from ``reference_routing`` by
+    layer (every rank's), then the same prefill with those decisions
+    replayed."""
+    from ..models import moe as M
+    from ..models import transformer as T
+    from .sharding import local_rows, make_context, shard_model
+
+    ctx = make_context(mesh)
+    model = shard_model(T.model_from_state_dict(cfg, sd), mesh)
+    toks = local_rows(tokens, mesh)
+    with torch.no_grad(), M.recorded_routing() as log:
+        logits, cache = T.prefill(model, {"tokens": toks}, cfg, ctx)
+    dec = local_rows(decode_tokens, mesh)
+    dcache = T.init_cache(cfg, dec.shape[0], dec.shape[-1], device=toks.device, model=model, ctx=ctx)
+    steps = []
+    with torch.no_grad(), M.recorded_routing():
+        for t in range(dec.shape[-1]):
+            lg, dcache = T.decode_step(model, dcache, dec[..., t:t + 1], t, cfg, ctx)
+            steps.append(lg[:, 0])
+    out = {"prefill": _whole(logits, mesh), "decode": _whole(torch.stack(steps, 1), mesh),
+           "lockstep": _same_in_shards(mesh, logits, steps)}
+    if cfg.moe is not None:
+        import torch.distributed as dist
+
+        out["k_cache"] = [_whole(c["k"], mesh, heads_dim=2) for c in cache]
+        if reference_routing is not None:
+            ref = _routing_for_rank(reference_routing, cfg, mesh)
+            differ = [None] * dist.get_world_size()
+            dist.all_gather_object(differ, M.routing_differences(log, ref))
+            with torch.no_grad(), M.recorded_routing(replay=ref):
+                replayed, _ = T.prefill(model, {"tokens": toks}, cfg, ctx)
+            out.update(differ=differ, replayed=_whole(replayed, mesh))
+    return out
+
+
+def _moe_job(mesh, cfg, sd, x):
+    """One MoE layer (parameters ``sd`` under the names ``moe.*``) on the
+    rank's rows of x (B, T, d) under both routings: each output whole and
+    each aux loss."""
+    from torch import nn
+
+    from ..models import moe as M
+    from .sharding import local_rows, make_context, shard_model
+
+    holder = nn.Module()
+    holder.moe = M.MoE(cfg, dtype=torch.float32, device="meta", generator=None)
+    holder.load_state_dict(sd, assign=True)
+    shard_model(holder, mesh)
+    xl = local_rows(x, mesh)
+    out, same = {}, []
+    for routing in ("pjit", "local"):
+        with torch.no_grad():
+            o, aux = M.moe_apply(holder.moe, xl, cfg, make_context(mesh, moe_routing=routing))
+        out[routing] = (_whole(o, mesh), float(aux))
+        same += [o, aux]
+    out["lockstep"] = _same_in_shards(mesh, *same)
+    return out
+
+
+def _slstm_job(mesh, cfg, sd, x):
+    """One sLSTM block on the rank's rows of x (B, T, d), returned whole."""
+    from ..models import xlstm as X
+    from .sharding import local_rows, make_context, shard_model
+
+    blk = X.SLSTMBlock(cfg, dtype=torch.float32, device="meta", generator=None)
+    blk.load_state_dict(sd, assign=True)
+    shard_model(blk, mesh)
+    with torch.no_grad():
+        y = X.slstm_apply(blk, local_rows(x, mesh), cfg, ctx=make_context(mesh))
+    return {"out": _whole(y, mesh), "lockstep": _same_in_shards(mesh, y)}
+
+
+_LM_JOBS = {"serve": _serve_job, "moe": _moe_job, "slstm": _slstm_job}
+
+
+def lm_job(kind: str, shape, **kw) -> dict:
+    """One LM mesh job on a mesh of ``shape`` over the current ranks (axes
+    ``("data", "model")``, or with ``pod`` for a 3-tuple)."""
+    from .mesh import make_test_mesh
+
+    axes = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+    return _LM_JOBS[kind](make_test_mesh(tuple(shape), axes), **kw)
+
+
+def lm_rank(jobs: list) -> list:
+    """Every job ``(kind, shape, kwargs)`` of the list, in order (the rank
+    program of the LM mesh tests)."""
+    return [lm_job(kind, shape, **kw) for kind, shape, kw in jobs]
+
+
+# ------------------------------------------------------ LM mesh, card
+
+
+def _experts_of(log, r: int, e_loc: int) -> list:
+    """A meshless routing record as model rank r of a model axis of
+    E/e_loc ranks makes it: each token's experts as they are, the kept
+    tokens of the rank's experts."""
+    return [t if i % 2 == 0 else t[r * e_loc:(r + 1) * e_loc] for i, t in enumerate(log)]
+
+
+def moe_mesh_oracle(served, cfg, tokens, kept: dict, out_dir: str, half_decode_steps: int) -> None:
+    """The meshless oracles of :func:`moe_serve_rank`, written to
+    ``out_dir``: ``full.pt`` (the meshless prefill of the 4 rows of
+    ``tokens``: its last-position logits and routing record, which must be
+    ``kept``'s bit for bit, the kept greedy ids and prompt, and the
+    teacher-forced decode of prompt + ids, each step's logits and routing
+    record) and, per half of the batch, ``half<s>.pt`` (the same prefill of
+    its 2 rows, and the first ``half_decode_steps`` teacher-forced steps);
+    each prefill's K caches ``<name>_k<layer>.pt``, read by the flip rule."""
+    import os
+
+    from ..models import moe as moe_mod
+    from ..models import transformer as T
+
+    ctx = T.ModelContext()
+    seq = torch.cat([kept["prompt"], kept["ids"]], 1).to(tokens.device)
+
+    def run(name, rows, steps):
+        with moe_mod.recorded_routing() as log:
+            logits, cache = T.prefill(served, {"tokens": tokens[rows]}, cfg, ctx)
+        for li, c in enumerate(cache):
+            torch.save(c["k"].cpu(), os.path.join(out_dir, f"{name}_k{li}.pt"))
+        del cache
+        dcache = T.init_cache(cfg, seq[rows].shape[0], steps, device=tokens.device)
+        dec_logits, dec_routing = [], []
+        for t in range(steps):
+            with moe_mod.recorded_routing() as dlog:
+                lg, dcache = T.decode_step(served, dcache, seq[rows, t:t + 1], t, cfg, ctx)
+            dec_logits.append(lg[:, 0].cpu())
+            dec_routing.append([x.cpu() for x in dlog])
+        torch.save({"logits": logits.cpu(), "routing": [x.cpu() for x in log], "prompt": kept["prompt"][rows],
+                    "ids": kept["ids"][rows], "decode_logits": torch.stack(dec_logits, 1),
+                    "decode_routing": dec_routing}, os.path.join(out_dir, f"{name}.pt"))
+        return logits, log
+
+    logits, log = run("full", slice(0, 4), seq.shape[1])
+    same = torch.equal(logits.cpu(), kept["logits"]) and all(
+        torch.equal(a.cpu(), b) for a, b in zip(log, kept["routing"]))
+    if not same:
+        raise RuntimeError("moe_mesh_oracle: the meshless prefill is not the kept one bit for bit")
+    for half in range(2):
+        run(f"half{half}", slice(2 * half, 2 * half + 2), half_decode_steps)
+
+
+def moe_serve_rank(seed: int, shape, oracle_dir: str, decode_steps: int, greedy: bool, warm_up: bool,
+                   cfg_overrides: Optional[dict] = None, seq_len: int = 2048) -> dict:
+    """Phase "serve mesh" of ``chip_smoke.py`` on one rank: deepseek-moe-16b
+    at full width and depth in bf16 on a ``shape`` (data, model) mesh,
+    drawn by :func:`~repro_torch.launch.sharding.init_sharded` from
+    ``seed`` (the meshless draw's values, the rank's blocks only), then the
+    rank's rows of the 4 x 2048 prefill, held to the meshless oracle that
+    ``oracle_dir`` holds for the rank's data shard (``full.pt`` or
+    ``half<s>.pt``, their K caches ``<name>_k<layer>.pt``): by the flip
+    rule, and with the oracle's routing replayed (a run that made none of
+    its decisions differently is its own replay); then ``greedy`` decode
+    4 x (16 + 32), and ``decode_steps`` teacher-forced decode steps with the
+    oracle's routing replayed, against its logits.  Returns every rank's
+    figures (seconds, launches, sums and their seconds and bytes, peak
+    memory) and the gaps.  ``cfg_overrides`` and ``seq_len`` cut the
+    model and the prompt (a rehearsal at the smoke size on the CPU)."""
+    import os
+
+    import torch.distributed as dist
+
+    from ..models import attention as A
+    from ..models import moe as M
+    from ..models import transformer as T
+    from ..models.registry import get_config
+    from ..serve import decode as SD
+    from . import collectives as C
+    from .mesh import make_test_mesh
+    from .sharding import init_sharded, local_rows, make_context
+
+    from .distributed import _RANK_DEVICE, _sync
+
+    dev = _RANK_DEVICE[0] or torch.device("cuda", torch.cuda.current_device())
+    sync = lambda: _sync(dev)  # noqa: E731
+    cfg = get_config("deepseek-moe-16b", **{"param_dtype": "bfloat16", **(cfg_overrides or {})})
+    mesh = make_test_mesh(tuple(shape))
+    ctx = make_context(mesh)
+    nd = mesh.shape["data"]
+    name = "full" if nd == 1 else f"half{mesh.coord('data')}"
+    oracle = torch.load(os.path.join(oracle_dir, f"{name}.pt"))
+    e_loc = cfg.moe.num_experts // mesh.shape["model"]
+    r = mesh.coord("model")
+    mine = lambda log: _experts_of(log, r, e_loc)  # noqa: E731
+
+    def gap(a, b) -> float:
+        a, b = a.float(), b.to(a.device).float()
+        return float((a - b).abs().max() / b.abs().max())
+
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    model = init_sharded(cfg, generator=torch.Generator(device=dev).manual_seed(seed), mesh=mesh)
+    sync()
+    draw_s = time.perf_counter() - t0
+    held = sum(p.numel() for p in model.parameters())
+    weights_gib = torch.cuda.memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
+    tokens = torch.randint(0, cfg.vocab, (4, seq_len), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+    toks = local_rows(tokens, mesh)
+    (h0, h1), (k0, k1), _, tp = A.local_heads(model.blocks[0].attn, cfg, ctx)
+    if warm_up:
+        T.prefill(model, {"tokens": toks[:, :64]}, cfg, ctx)
+    sync()
+    C.STATS.timing = {}
+    C.STATS.reset()
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    with M.recorded_routing() as log:
+        logits, cache = T.prefill(model, {"tokens": toks}, cfg, ctx)
+        sync()
+    prefill_s = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    sums = {"calls": dict(C.STATS.calls), "bytes": dict(C.STATS.bytes), "seconds": dict(C.STATS.timing)}
+    k_shape = tuple(cache[0]["k"].shape)
+    differ = M.routing_differences(log, mine(oracle["routing"]))
+    first = next((li for li, n in enumerate(differ) if n), None)
+    flip = {"differ": differ, "first": first}
+    if first is None:
+        flip["logits_gap"] = gap(logits[:, 0], oracle["logits"][:, 0])
+    else:
+        flip["k_gaps"] = []
+        for li in range(first + 1):
+            want = torch.load(os.path.join(oracle_dir, f"{name}_k{li}.pt"))[:, :, k0:k1].to(dev).float()
+            got = cache[li]["k"].float()
+            flip["k_gaps"].append(float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)))
+    del cache
+    if first is None:  # the replay would make the same selections: it is this run
+        replayed = logits
+    else:
+        with M.recorded_routing(replay=mine(oracle["routing"])):
+            replayed, cache = T.prefill(model, {"tokens": toks}, cfg, ctx)
+        del cache
+    replay_gap = gap(replayed[:, 0], oracle["logits"][:, 0])
+    lockstep = _same_in_shards(mesh, logits, replayed)
+    report = {"replay_gap": replay_gap}
+
+    prompt = toks[:, :16].contiguous()
+    if greedy:
+        sync()
+        t0 = time.perf_counter()
+        ids = SD.greedy_generate(model, cfg, prompt, steps=oracle["ids"].shape[1], ctx=ctx)
+        sync()
+        report["greedy_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / (prompt.shape[1] + ids.shape[1])
+        report["greedy_agree"] = float((ids.cpu() == oracle["ids"]).float().mean())
+        lockstep = lockstep and _same_in_shards(mesh, ids)
+    seq = torch.cat([oracle["prompt"], oracle["ids"]], 1).to(dev)[:, :decode_steps]
+    dcache = T.init_cache(cfg, seq.shape[0], seq.shape[1], device=dev, model=model, ctx=ctx)
+    gaps = []
+    sync()
+    t0 = time.perf_counter()
+    for t in range(seq.shape[1]):
+        with M.recorded_routing(replay=mine(oracle["decode_routing"][t])):
+            lg, dcache = T.decode_step(model, dcache, seq[:, t:t + 1], t, cfg, ctx)
+        gaps.append(gap(lg[:, 0], oracle["decode_logits"][:, t]))
+    sync()
+    report.update(decode_gap=max(gaps), decode_ms_per_step=1e3 * (time.perf_counter() - t0) / seq.shape[1],
+                  decode_steps=seq.shape[1])
+    report["ranks"] = [None] * dist.get_world_size()
+    dist.all_gather_object(report["ranks"], {
+        "coords": mesh.coords, "heads": (h0, h1), "kv_heads": (k0, k1), "tensor_parallel": tp,
+        "params_held": held, "weights_gib": weights_gib, "draw_s": draw_s, "prefill_s": prefill_s,
+        "launches": launches, "k_cache_shape": k_shape, "sums": sums, "flip": flip,
+        "replay_gap": replay_gap, "peak_gib": _peak(dev),
+        **{k: v for k, v in report.items() if k != "ranks"}})
+    report["lockstep"] = lockstep
     return report

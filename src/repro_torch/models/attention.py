@@ -4,7 +4,18 @@ math of prefill is :func:`repro_torch.kernels.flash_attention.ops.flash_attentio
 the hand-written kernel on the card and its plain version on the CPU for
 global attention, the plain chunked attention on every device for a
 window (RecurrentGemma's local attention).  A windowed decode writes a ring
-cache of the window's size."""
+cache of the window's size.
+
+Under an LM mesh (``ctx.mesh``) the block runs head-parallel when the
+spec of ``wq`` gives each model rank whole heads: the rank projects its
+H/m query heads and the KV heads they read and runs the attention (the
+kernel, on the card) on them; the heads' outputs are gathered over the
+model axis and every rank runs the whole output projection (``wo``
+gathered), the meshless model's product to the bit.  Where the KV heads
+do not divide the model axis (GQA with KV < m), ``wk``/``wv`` are
+gathered and the rank keeps the KV heads its query heads read.  Otherwise
+every rank runs all heads on its rows with the weights gathered.  The
+decode cache holds the rank's KV heads of its rows."""
 
 from __future__ import annotations
 
@@ -12,10 +23,11 @@ import torch
 from torch import nn
 
 from ..kernels.flash_attention import ops as fa
+from ..launch import collectives as C
 from . import layers as L
 from .registry import ModelConfig
 
-__all__ = ["attn_init", "attn_apply", "attn_decode_step"]
+__all__ = ["attn_init", "attn_apply", "attn_decode_step", "local_heads"]
 
 
 def attn_init(cfg: ModelConfig, *, dtype, device, generator, f32_read_dtype=None) -> nn.ParameterDict:
@@ -36,20 +48,41 @@ def attn_init(cfg: ModelConfig, *, dtype, device, generator, f32_read_dtype=None
     return p
 
 
-def _project_qkv(p, x, cfg: ModelConfig, positions, compute_dtype):
-    B, T, _ = x.shape
+def local_heads(p, cfg: ModelConfig, ctx=None):
+    """This rank's heads: (h0, h1) its query heads, (k0, k1) the KV heads
+    they read, ``pick`` the KV head of each query head relative to k0 when
+    the query heads' groups do not share KV heads evenly (else ``None``),
+    and whether the block runs head-parallel.  Meshless: all heads."""
     H, KV, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    lo, hi, split = L.tp_part(p["wq"], 1, ctx, unit=dh)
+    if not split:
+        return (0, H), (0, KV), None, False
+    h0, h1 = lo // dh, hi // dh
+    g = H // KV
+    kv = [j // g for j in range(h0, h1)]
+    k0, k1 = kv[0], kv[-1] + 1
+    rep = len(kv) // (k1 - k0)
+    even = len(kv) % (k1 - k0) == 0 and kv == [k for k in range(k0, k1) for _ in range(rep)]
+    return (h0, h1), (k0, k1), None if even else [k - k0 for k in kv], True
+
+
+def _project_qkv(p, x, cfg: ModelConfig, positions, compute_dtype, ctx=None):
+    B, T, _ = x.shape
+    dh = cfg.head_dim
+    (h0, h1), (k0, k1), pick, _ = local_heads(p, cfg, ctx)
     xc = x.to(compute_dtype)
-    q = xc @ p["wq"].to(compute_dtype)
-    k = xc @ p["wk"].to(compute_dtype)
-    v = xc @ p["wv"].to(compute_dtype)
+    q = xc @ L.weight(p["wq"], ctx, 1, h0 * dh, h1 * dh).to(compute_dtype)
+    k = xc @ L.weight(p["wk"], ctx, 1, k0 * dh, k1 * dh).to(compute_dtype)
+    v = xc @ L.weight(p["wv"], ctx, 1, k0 * dh, k1 * dh).to(compute_dtype)
     if cfg.qkv_bias:
-        q = q + p["bq"].to(compute_dtype)
-        k = k + p["bk"].to(compute_dtype)
-        v = v + p["bv"].to(compute_dtype)
-    q = q.reshape(B, T, H, dh)
-    k = k.reshape(B, T, KV, dh)
-    v = v.reshape(B, T, KV, dh)
+        q = q + L.weight(p["bq"], ctx, 0, h0 * dh, h1 * dh).to(compute_dtype)
+        k = k + L.weight(p["bk"], ctx, 0, k0 * dh, k1 * dh).to(compute_dtype)
+        v = v + L.weight(p["bv"], ctx, 0, k0 * dh, k1 * dh).to(compute_dtype)
+    q = q.reshape(B, T, h1 - h0, dh)
+    k = k.reshape(B, T, k1 - k0, dh)
+    v = v.reshape(B, T, k1 - k0, dh)
+    if pick is not None:  # one KV head per query head
+        k, v = k[:, :, pick], v[:, :, pick]
     if cfg.qk_norm:
         q = L.rmsnorm(q, p["q_norm"], eps=cfg.rms_eps)
         k = L.rmsnorm(k, p["k_norm"], eps=cfg.rms_eps)
@@ -58,17 +91,26 @@ def _project_qkv(p, x, cfg: ModelConfig, positions, compute_dtype):
     return q, k, v
 
 
-def attn_apply(p, x, cfg: ModelConfig, *, positions, window=None, impl="auto"):
-    """Training / prefill forward.  x: (B, T, d).  Returns (out, (k, v))."""
+def _out(p, o, cfg: ModelConfig, ctx, compute_dtype):
+    """The output projection of the attention output o (B, T, H_loc, dh),
+    the rank's heads gathered whole over the model axis first when
+    head-parallel."""
+    if local_heads(p, cfg, ctx)[3]:
+        o = C.gather(o, ctx.mesh, ctx.model_axis, 2)
+    B, T, h, dh = o.shape
+    return o.reshape(B, T, h * dh) @ L.weight(p["wo"], ctx).to(compute_dtype)
+
+
+def attn_apply(p, x, cfg: ModelConfig, *, positions, window=None, impl="auto", ctx=None):
+    """Training / prefill forward.  x: (B, T, d).  Returns (out, (k, v)),
+    k and v of the rank's KV heads under a mesh."""
     compute_dtype = getattr(torch, cfg.compute_dtype)
-    q, k, v = _project_qkv(p, x, cfg, positions, compute_dtype)
+    q, k, v = _project_qkv(p, x, cfg, positions, compute_dtype, ctx)
     o = fa.flash_attention(q, k, v, causal=True, window=window, impl=impl)
-    B, T = x.shape[:2]
-    out = o.reshape(B, T, cfg.n_heads * cfg.head_dim) @ p["wo"].to(compute_dtype)
-    return out.to(x.dtype), (k, v)
+    return _out(p, o, cfg, ctx, compute_dtype).to(x.dtype), (k, v)
 
 
-def attn_decode_step(p, x_t, cache_k, cache_v, cur_len: int, cfg: ModelConfig, *, window=None):
+def attn_decode_step(p, x_t, cache_k, cache_v, cur_len: int, cfg: ModelConfig, *, window=None, ctx=None):
     """One-token decode.  x_t: (B, 1, d); caches (B, S, KV, dh).  Writes this
     token's k and v at slot ``cur_len`` of the caches IN PLACE (the
     reference returns updated copies), or with a ``window`` at the ring slot
@@ -79,11 +121,9 @@ def attn_decode_step(p, x_t, cache_k, cache_v, cur_len: int, cfg: ModelConfig, *
     compute_dtype = getattr(torch, cfg.compute_dtype)
     S = cache_k.shape[1]
     pos = torch.full((x_t.shape[0], 1), cur_len, dtype=torch.int32, device=x_t.device)  # (B, 1)
-    q, k, v = _project_qkv(p, x_t, cfg, pos, compute_dtype)
+    q, k, v = _project_qkv(p, x_t, cfg, pos, compute_dtype, ctx)
     slot = cur_len % S if window is not None else cur_len
     cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
     o = fa.decode_attention(q, cache_k, cache_v, min(cur_len + 1, S) if window is not None else cur_len + 1)
-    B = x_t.shape[0]
-    out = o.reshape(B, 1, cfg.n_heads * cfg.head_dim) @ p["wo"].to(compute_dtype)
-    return out.to(x_t.dtype), cache_k, cache_v
+    return _out(p, o, cfg, ctx, compute_dtype).to(x_t.dtype), cache_k, cache_v

@@ -2,17 +2,33 @@
 RMSNorm and RoPE in f32, the gated MLP in the compute dtype, the depthwise
 causal convolution of the xLSTM blocks in its input's dtype.  Dense weights
 keep the reference's (d_in, d_out) layout, so a forward is ``x @ w`` on
-both sides."""
+both sides.
+
+Under an LM mesh a parameter may hold only this rank's block of the full
+tensor, tagged with its spec (``mesh_spec``, set by
+``launch.sharding.shard_model``).  :func:`weight` is how the model code
+reads one: the full tensor, or a slice of it along one dim, from the
+local block where the block covers the slice and gathered over the spec's
+axes otherwise (FSDP dims always: the reference's GSPMD gathers them right
+before the layer).  :func:`gathered` gives a whole block's parameters so.
+:func:`mlp_apply` splits its ``d_ff`` columns over the model axis when the
+spec does."""
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..launch import collectives as C
+
 __all__ = [
+    "gathered",
+    "tp_part",
+    "weight",
     "dense_init",
     "rmsnorm_init",
     "rmsnorm",
@@ -81,15 +97,99 @@ def _gelu(x):
     return F.gelu(x, approximate="tanh")  # jax.nn.gelu's default
 
 
-def mlp_apply(p, x, *, act: str, compute_dtype):
+def mlp_apply(p, x, *, act: str, compute_dtype, ctx=None):
+    """The MLP on x (..., d) in ``compute_dtype``.  Under a mesh whose
+    model axis splits the ``d_ff`` columns of ``up``, each model rank runs
+    its columns of gate and up, the hidden activations are gathered whole
+    over the model axis, and every rank runs the whole down projection
+    (its weight gathered): the meshless model's product, to the bit."""
+    lo, hi, split = tp_part(p["up"], 1, ctx)
     xc = x.to(compute_dtype)
     if "gate" in p:
-        g = xc @ p["gate"].to(compute_dtype)
-        u = xc @ p["up"].to(compute_dtype)
+        g = xc @ weight(p["gate"], ctx, 1, lo, hi).to(compute_dtype)
+        u = xc @ weight(p["up"], ctx, 1, lo, hi).to(compute_dtype)
         h = (F.silu(g) if act == "silu_glu" else _gelu(g)) * u
     else:
-        h = _gelu(xc @ p["up"].to(compute_dtype))
-    return h @ p["down"].to(compute_dtype)
+        h = _gelu(xc @ weight(p["up"], ctx, 1, lo, hi).to(compute_dtype))
+    if split:
+        h = C.gather(h, ctx.mesh, ctx.model_axis, -1)
+    return h @ weight(p["down"], ctx).to(compute_dtype)
+
+
+# ------------------------------------------------------------------ mesh
+
+
+def _spec(w):
+    return getattr(w, "mesh_spec", None)
+
+
+def _full_dim(w, dim: int, ctx) -> int:
+    """The size of w's dim ``dim`` in the full tensor."""
+    spec = _spec(w)
+    if spec is None or spec[dim] is None or ctx is None or ctx.mesh is None:
+        return w.shape[dim]
+    return w.shape[dim] * ctx.mesh.shape[spec[dim]]
+
+
+def tp_part(w, dim: int, ctx, unit: int = 1):
+    """(lo, hi, split): this model rank's range of w's dim ``dim`` when
+    the spec splits that dim over the model axis into whole ``unit``s
+    (heads of width ``unit``), else the whole dim and ``split`` False."""
+    n = _full_dim(w, dim, ctx)
+    spec = _spec(w)
+    if spec is None or ctx is None or ctx.mesh is None or ctx.model_axis is None or spec[dim] != ctx.model_axis:
+        return 0, n, False
+    m = ctx.mesh.shape[ctx.model_axis]
+    if (n // unit) % m:
+        return 0, n, False
+    blk = n // m
+    r = ctx.mesh.coord(ctx.model_axis)
+    return r * blk, (r + 1) * blk, True
+
+
+def weight(w, ctx, dim=None, lo: int = 0, hi=None):
+    """The full tensor w, or its slice [lo, hi) along ``dim``: the local
+    block's part when the spec splits ``dim`` and this rank's block covers
+    the slice, gathered over every other split dim's axis."""
+    spec = _spec(w)
+    if spec is None or ctx is None or ctx.mesh is None:
+        if dim is None or (lo == 0 and hi in (None, w.shape[dim])):
+            return w
+        return w.narrow(dim, lo, hi - lo)
+    mesh = ctx.mesh
+    for i, ax in enumerate(spec):
+        if ax is None:
+            continue
+        blk = w.shape[i]
+        start = mesh.coord(ax) * blk
+        if i == dim and start <= lo and hi <= start + blk:
+            w = w.narrow(i, lo - start, hi - lo)
+            dim = None
+        else:
+            w = C.gather(w, mesh, ax, i)
+    if dim is not None and not (lo == 0 and hi in (None, w.shape[dim])):
+        w = w.narrow(dim, lo, hi - lo)
+    return w
+
+
+def _with_params(module: nn.Module, tensors: dict, prefix: str = "") -> nn.Module:
+    new = copy.copy(module)
+    new._parameters = {k: (None if v is None else tensors[prefix + k]) for k, v in module._parameters.items()}
+    new._modules = {k: (None if m is None else _with_params(m, tensors, f"{prefix}{k}."))
+                    for k, m in module._modules.items()}
+    return new
+
+
+def gathered(module: nn.Module, ctx) -> nn.Module:
+    """``module`` with every parameter whole (:func:`weight`): a shallow
+    copy holding the gathered tensors, or ``module`` itself when no
+    parameter is split."""
+    if ctx is None or ctx.mesh is None:
+        return module
+    params = dict(module.named_parameters())
+    if all(_spec(p) is None or all(a is None for a in _spec(p)) for p in params.values()):
+        return module
+    return _with_params(module, {name: weight(p, ctx) for name, p in params.items()})
 
 
 def causal_conv1d_init(d: int, width: int, *, dtype, device, generator) -> nn.ParameterDict:

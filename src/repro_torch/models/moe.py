@@ -21,9 +21,34 @@ records them (each layer's experts of each token, then each expert's kept
 tokens) or makes a run take an earlier run's selections, so that two runs
 with different arithmetic route alike and can be held to one band.
 
-The reference's ``shard_map`` branches (experts over a model axis, FSDP
-weights, ``routing="local"`` inside the map) wait for the LM meshes
-(ROADMAP queue 1, item 9).
+Under an LM mesh (``ctx.mesh``) the reference's three branches are
+mirrored:
+
+* **Model axis of size 1.**  The mesh-free branch: a global capacity and a
+  global top-C over all N tokens.  Under data shards that is a cross-rank
+  top-k, so the rank gathers every shard's rows, runs the mesh-free MoE on
+  them and keeps its own rows.
+* **Model axis m > 1** (the reference's ``shard_map`` branches).  Each
+  model rank holds E/m experts; the capacity comes from the data shard's
+  tokens; the expert weights are gathered over ``data`` where FSDP splits
+  them.  The dispatch and the combine run on the rank's columns of the
+  combine weights, the shared experts' ``d_ff`` split over the model axis
+  (``layers.mlp_apply``).  Where the reference sums each rank's combine
+  and shared part in one ``psum``, the port keeps the meshless model's
+  roundings: the combine is chained over the model ranks
+  (``collectives.chain``: each rank continues the previous rank's serial
+  sums over the experts before its own, so each token's contributions are
+  added in expert order, as the meshless combine adds them).  A sum of
+  parts rounds where the meshless model does not, and this random model
+  amplifies one rounding into 2e-2 of the logits' scale by the last of 28
+  layers (PERF.md, PR 24); in f32, as the reference's CPU tests run it,
+  the two agree to 1e-6.  ``routing="pjit"`` routes the rank's rows
+  and takes the global aux loss (token fractions and probability mass
+  summed over the batch axes before their product); ``routing="local"``
+  takes each shard's aux and their mean over the batch axes.  The outputs
+  of the two are equal; their aux losses differ, as in the reference.
+
+:func:`recorded_routing` records and replays each rank's own selections.
 """
 
 from __future__ import annotations
@@ -35,6 +60,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..launch import collectives as C
 from . import layers as L
 from .registry import ModelConfig, MoEConfig
 
@@ -135,9 +161,12 @@ def routing_differences(log_a, log_b):
     return [per[i] + per[i + 1] for i in range(0, len(per), 2)]
 
 
-def _routing(router, x, m: MoEConfig):
+def _routing(router, x, m: MoEConfig, mesh=None, batch_axes=()):
     """Router scores of x (B, T, d) → (sparse combine weights (N, E) f32,
-    Switch aux loss, a f32 scalar).  The router runs in f32."""
+    Switch aux loss, a f32 scalar).  The router runs in f32.  Given a mesh
+    and batch axes over which the tokens are split, the aux loss is the
+    global one: the token fractions and the probability mass are summed
+    over those axes first."""
     d = x.shape[-1]
     logits = x.reshape(-1, d).float() @ router.float()
     if m.router_score == "sigmoid":
@@ -151,12 +180,21 @@ def _routing(router, x, m: MoEConfig):
     w_sparse = torch.zeros_like(scores).scatter_(1, idx, vals)
     # Switch-style load-balance aux: E · Σ_e (token fraction)·(prob mass);
     # the mass is the softmax of the logits under either score.
-    frac = torch.zeros_like(scores).scatter_(1, idx, 1.0).mean(0) / m.top_k
-    prob = torch.softmax(logits, dim=-1).mean(0)
+    picked = torch.zeros_like(scores).scatter_(1, idx, 1.0)
+    nd = 1
+    for a in batch_axes:
+        nd *= mesh.shape.get(a, 1) if mesh is not None else 1
+    if nd == 1:
+        frac = picked.mean(0) / m.top_k
+        prob = torch.softmax(logits, dim=-1).mean(0)
+    else:
+        n = logits.shape[0] * nd
+        frac = C.psum(picked.sum(0), mesh, batch_axes) / n / m.top_k
+        prob = C.psum(torch.softmax(logits, dim=-1).sum(0), mesh, batch_axes) / n
     return w_sparse, m.num_experts * torch.sum(frac * prob)
 
 
-def _combine(out, idx, vals, n: int, k: int):
+def _combine(out, idx, vals, n: int, k: int, start=None):
     """The expert outputs out (E, C, d), each slot times its combine weight,
     summed into their tokens' rows (n, d) as the reference's serial
     scatter-add ``flat.at[idx].add``: each token's contributions added in
@@ -174,17 +212,31 @@ def _combine(out, idx, vals, n: int, k: int):
     out and the router's weights vals).
 
     idx, vals: (E, C) kept tokens and their combine weights (f32).  Returns
-    (n, d) in out's dtype."""
+    (n, d) in out's dtype.  Given ``start`` (n, d), the sums continue from
+    it: a model rank of a mesh continues the previous rank's sums over the
+    experts before its own."""
     E, C, d = out.shape
     none = E * C  # the position of a zero row: a slot no token has
     rows = torch.cat([(out * vals[..., None].to(out.dtype)).reshape(none, d), out.new_zeros((1, d))])
     slot = torch.arange(none, device=out.device).reshape(E, C).masked_fill_(vals == 0, none)
     pos = torch.full((E, n), none, dtype=torch.long, device=out.device).scatter_(1, idx, slot)  # (E, n)
     order = torch.topk(pos, k, dim=0, largest=False).values  # (k, n): each token's live slots, in order
-    flat = torch.zeros((n, d), dtype=out.dtype, device=out.device)
+    flat = torch.zeros((n, d), dtype=out.dtype, device=out.device) if start is None else start
     for part in rows[order]:  # (n, d) each
         flat = flat + part
     return flat
+
+
+def _expert_outputs(x_flat, w_cols, wg, wu, wd, cap: int, compute_dtype):
+    """Top-C dispatch → batched expert FFN: (the outputs (E, C, d) in
+    ``compute_dtype``, the kept tokens idx (E, C), their weights (E, C))."""
+    n, d = x_flat.shape
+    e = w_cols.shape[1]
+    c = min(cap, n)
+    vals, idx = _topk(w_cols.T, c)  # (E, C) each
+    xe = x_flat[idx.reshape(-1)].reshape(e, c, d).to(compute_dtype)
+    h = F.silu(torch.bmm(xe, wg.to(compute_dtype))) * torch.bmm(xe, wu.to(compute_dtype))
+    return torch.bmm(h, wd.to(compute_dtype)), idx, vals
 
 
 def _expert_compute(x_flat, w_cols, wg, wu, wd, cap: int, compute_dtype, top_k: int):
@@ -193,26 +245,54 @@ def _expert_compute(x_flat, w_cols, wg, wu, wd, cap: int, compute_dtype, top_k: 
     x_flat: (N, d); w_cols: (N, E) combine weights, at most ``top_k``
     nonzero a row; wg/wu/wd: (E, d, f)/(E, d, f)/(E, f, d).  Returns (N, d)
     in ``compute_dtype``."""
-    n, d = x_flat.shape
-    e = w_cols.shape[1]
-    c = min(cap, n)
-    vals, idx = _topk(w_cols.T, c)  # (E, C) each
-    xe = x_flat[idx.reshape(-1)].reshape(e, c, d).to(compute_dtype)
-    h = F.silu(torch.bmm(xe, wg.to(compute_dtype))) * torch.bmm(xe, wu.to(compute_dtype))
-    return _combine(torch.bmm(h, wd.to(compute_dtype)), idx, vals, n, top_k)
+    out, idx, vals = _expert_outputs(x_flat, w_cols, wg, wu, wd, cap, compute_dtype)
+    return _combine(out, idx, vals, x_flat.shape[0], top_k)
 
 
-def moe_apply(p: MoE, x, cfg: ModelConfig):
+def _data_shard(mesh, batch_axes) -> tuple[int, int]:
+    """(the number of data shards, this rank's index among them)."""
+    n, shard = 1, 0
+    for a in batch_axes:
+        n, shard = n * mesh.shape[a], shard * mesh.shape[a] + mesh.coord(a)
+    return n, shard
+
+
+def moe_apply(p: MoE, x, cfg: ModelConfig, ctx=None):
     """MoE block forward.  x: (B, T, d) → (out (B, T, d) in x's dtype, aux
-    loss, a f32 scalar), at the capacity of N = B·T tokens."""
+    loss, a f32 scalar).  Meshless, at the capacity of N = B·T tokens;
+    under a mesh, the branches of the module docstring."""
     m = cfg.moe
     compute_dtype = getattr(torch, cfg.compute_dtype)
     B, T, d = x.shape
     n = B * T
     x_flat = x.reshape(n, d)
-    w_sparse, aux = _routing(p.router, x, m)
-    out = _expert_compute(x_flat, w_sparse, p.w_gate, p.w_up, p.w_down, capacity(n, m), compute_dtype,
-                          m.top_k)
+    mesh = None if ctx is None else ctx.mesh
+    msize = mesh.shape.get(ctx.model_axis, 1) if (mesh is not None and ctx.model_axis) else 1
+    if msize == 1:
+        nd, shard = _data_shard(mesh, ctx.batch_axes) if mesh is not None else (1, 0)
+        xg = C.gather_axes(x_flat, mesh, ctx.batch_axes, 0) if nd > 1 else x_flat
+        w_sparse, aux = _routing(p.router, xg, m)
+        out = _expert_compute(xg, w_sparse, L.weight(p.w_gate, ctx), L.weight(p.w_up, ctx),
+                              L.weight(p.w_down, ctx), capacity(n * nd, m), compute_dtype, m.top_k)
+        if p.shared is not None:
+            out = out + L.mlp_apply(p.shared, xg, act=cfg.mlp_act, compute_dtype=compute_dtype, ctx=ctx)
+        return out[shard * n:(shard + 1) * n].reshape(B, T, d).to(x.dtype), aux
+
+    e_loc = m.num_experts // msize
+    r = mesh.coord(ctx.model_axis)
+    lo, hi = r * e_loc, (r + 1) * e_loc
+    if ctx.moe_routing == "local":
+        w_sparse, aux = _routing(p.router, x_flat, m)
+        aux = C.pmean(aux, mesh, ctx.batch_axes)
+    elif ctx.moe_routing == "pjit":
+        w_sparse, aux = _routing(p.router, x_flat, m, mesh, ctx.batch_axes)
+    else:
+        raise ValueError(f"moe_apply: routing {ctx.moe_routing!r}, expected 'pjit' or 'local'")
+    eo, idx, vals = _expert_outputs(
+        x_flat, w_sparse[:, lo:hi], L.weight(p.w_gate, ctx, 0, lo, hi), L.weight(p.w_up, ctx, 0, lo, hi),
+        L.weight(p.w_down, ctx, 0, lo, hi), capacity(n, m), compute_dtype)
+    out = C.chain(lambda start: _combine(eo, idx, vals, n, min(m.top_k, e_loc), start),
+                  torch.zeros((n, d), dtype=eo.dtype, device=eo.device), mesh, ctx.model_axis)
     if p.shared is not None:
-        out = out + L.mlp_apply(p.shared, x_flat, act=cfg.mlp_act, compute_dtype=compute_dtype)
+        out = out + L.mlp_apply(p.shared, x_flat, act=cfg.mlp_act, compute_dtype=compute_dtype, ctx=ctx)
     return out.reshape(B, T, d).to(x.dtype), aux

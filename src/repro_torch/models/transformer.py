@@ -41,18 +41,30 @@ Entry points:
     a recurrent model is served by teacher-forcing the prompt through
     ``decode_step`` (``serve.decode.greedy_generate``).
 
-Meshes are not ported yet; they raise with the ROADMAP item that ports
-them.
+Under an LM mesh (``ModelContext(mesh=...)``, from
+``launch.sharding.make_context``) every rank runs this code on its data
+shard's rows with its blocks of the parameters (``launch.sharding``): the
+embedding is vocab-parallel (each model rank looks up the ids in its vocab
+range, then one sum over ``model``), the head too (the logits gathered
+over ``model``), attention, MLP, MoE and sLSTM blocks run as their modules
+say, and the mLSTM, RG-LRU and local-attention blocks run whole on the
+rank's rows with their weights gathered.  Each rank returns its rows'
+logits with the vocabulary whole; every model rank of a data shard
+returns the same bits.  The serving entry points and a forward without
+gradients run on a mesh; training on one (a differentiable forward,
+autograd through the collectives) is ROADMAP item 9.2 and raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Optional
 
 import torch
 from torch import nn
 
+from ..launch import collectives as C
+from ..launch.mesh import Mesh
 from . import attention as A
 from . import layers as L
 from . import moe as M
@@ -81,19 +93,39 @@ _BLOCKS = ("attn_mlp", "attn_moe", "lattn_mlp", "mlstm", "slstm", "rglru_mlp")  
 
 @dataclasses.dataclass(frozen=True)
 class ModelContext:
-    """Implementation switches.  ``attn_impl`` is ``auto`` (the kernel on
-    the card, the plain version on the CPU; a local-attention layer's
-    window takes the chunked attention on both), ``cuda``, ``torch_ref``
-    or ``torch_chunked`` (``cuda`` and ``torch_ref`` refuse a window)."""
+    """Execution context: the mesh and implementation switches, the
+    reference's fields.  ``attn_impl`` is ``auto`` (the kernel on the
+    card, the plain version on the CPU; a local-attention layer's window
+    takes the chunked attention on both), ``cuda``, ``torch_ref`` or
+    ``torch_chunked`` (``cuda`` and ``torch_ref`` refuse a window).
+    ``mesh`` is a :class:`~repro_torch.launch.mesh.Mesh` or ``None``;
+    ``batch_axes``, ``model_axis`` and ``fsdp_axis`` name its axes
+    (``launch.sharding.make_context`` fills them).  ``moe_routing`` is
+    ``pjit`` or ``local`` (``models.moe``).  ``collective_dtype`` is
+    declared as the reference declares it, and read nowhere, as there."""
 
     attn_impl: str = "auto"
     mesh: Any = None
+    batch_axes: tuple = ()
+    model_axis: Optional[str] = None
+    fsdp_axis: Optional[str] = None
+    moe_routing: str = "pjit"  # pjit | local
+    collective_dtype: str = "default"
 
     def __post_init__(self):
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "ModelContext: LM meshes are not ported yet (ROADMAP queue 1, item 9, "
-                "what waits: launch/{mesh,sharding,specs}.py)")
+        if self.mesh is not None and not isinstance(self.mesh, Mesh):
+            raise TypeError(f"ModelContext: mesh must be a launch.mesh.Mesh, got {type(self.mesh).__name__}")
+
+    @property
+    def batch_spec(self):
+        if not self.batch_axes:
+            return None
+        return tuple(self.batch_axes) if len(self.batch_axes) > 1 else self.batch_axes[0]
+
+    def local(self) -> "ModelContext":
+        """The meshless context with the same switches (a block that runs
+        whole on the rank's rows)."""
+        return ModelContext(attn_impl=self.attn_impl, moe_routing=self.moe_routing)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -144,22 +176,27 @@ class Transformer(nn.Module):
     forward reads in f32 (:data:`_READ_IN_F32`) in ``param_dtype``.  A
     codebook model's embedding is (K, V, d) and its head (d, V·K)."""
 
-    def __init__(self, cfg: ModelConfig, *, device, generator, matmul_dtype=None):
+    def __init__(self, cfg: ModelConfig, *, device, generator, matmul_dtype=None, keep=None):
         super().__init__()
         _check_supported(cfg)
+        keep = keep or (lambda prefix, module: None)
         rd = getattr(torch, cfg.param_dtype)
         dtype = matmul_dtype or rd
         d, V, K = cfg.d_model, cfg.vocab, cfg.num_codebooks
         shape = (K, V, d) if K > 0 else (V, d)
         embed = torch.randn(shape, generator=generator, device=device, dtype=dtype)
         self.embed = L._param(embed.mul_(0.02))
-        self.blocks = nn.ModuleList(
-            _block(cfg, bt, dtype=dtype, device=device, generator=generator, f32_read_dtype=rd)
-            for bt in cfg.block_types)
+        keep("", self)  # ``keep(prefix, module)`` may narrow what was drawn before the next draw
+        blocks = []
+        for i, bt in enumerate(cfg.block_types):
+            blocks.append(_block(cfg, bt, dtype=dtype, device=device, generator=generator, f32_read_dtype=rd))
+            keep(f"blocks.{i}.", blocks[-1])
+        self.blocks = nn.ModuleList(blocks)
         self.final_norm = L.rmsnorm_init(d, dtype=rd, device=device)
         if not cfg.tie_embeddings:
             self.lm_head = L.dense_init(d, V * max(K, 1), dtype=dtype, device=device, generator=generator,
                                         scale=0.02)
+        keep("", self)
 
 
 def init_params(cfg: ModelConfig, *, generator: torch.Generator, matmul_dtype=None) -> Transformer:
@@ -210,12 +247,12 @@ def cast_params(model: Transformer, cfg: ModelConfig) -> Transformer:
 # ------------------------------------------------------------------ blocks
 
 
-def _ffn(p: Block, xn2, cfg: ModelConfig):
+def _ffn(p: Block, xn2, cfg: ModelConfig, ctx: ModelContext):
     """The block's feed-forward on the normed residual.  Returns (out in
     xn2's dtype, MoE aux loss or None)."""
     if p.block_type == "attn_moe":
-        return M.moe_apply(p.moe, xn2, cfg)
-    out = L.mlp_apply(p.mlp, xn2, act=cfg.mlp_act, compute_dtype=_compute_dtype(cfg))
+        return M.moe_apply(p.moe, xn2, cfg, ctx)
+    out = L.mlp_apply(p.mlp, xn2, act=cfg.mlp_act, compute_dtype=_compute_dtype(cfg), ctx=ctx)
     return out.to(xn2.dtype), None
 
 
@@ -225,20 +262,33 @@ def _window(p, cfg: ModelConfig):
     return cfg.window if p.block_type == "lattn_mlp" else None
 
 
+# Blocks that run whole on a rank's rows under a mesh, their weights gathered.
+_GATHERED = ("mlstm", "rglru_mlp", "lattn_mlp")
+
+
+def _on_rank(p, ctx: ModelContext):
+    """(the block, the context) it runs with: a block of :data:`_GATHERED`
+    under a mesh runs meshless with its weights gathered."""
+    if ctx.mesh is not None and p.block_type in _GATHERED:
+        return L.gathered(p, ctx), ctx.local()
+    return p, ctx
+
+
 def _block_apply(p, x, cfg: ModelConfig, ctx: ModelContext, positions):
     """Training/prefill forward of one block.  Returns (x, aux or None,
     cache: K/V for attention, ``{}`` for a recurrent block)."""
+    p, ctx = _on_rank(p, ctx)
     if p.block_type == "mlstm":
         return X.mlstm_apply(p, x, cfg), None, {}
     if p.block_type == "slstm":
-        return X.slstm_apply(p, x, cfg), None, {}
+        return X.slstm_apply(p, x, cfg, ctx=ctx), None, {}
     if p.block_type == "rglru_mlp":
         return G.rglru_apply(p, x, cfg), None, {}
     window = _window(p, cfg)
     xn = L.rmsnorm(x, p.attn_norm, eps=cfg.rms_eps)
-    a, (k, v) = A.attn_apply(p.attn, xn, cfg, positions=positions, window=window, impl=ctx.attn_impl)
+    a, (k, v) = A.attn_apply(p.attn, xn, cfg, positions=positions, window=window, impl=ctx.attn_impl, ctx=ctx)
     x = x + a
-    f, aux = _ffn(p, L.rmsnorm(x, p.mlp_norm, eps=cfg.rms_eps), cfg)
+    f, aux = _ffn(p, L.rmsnorm(x, p.mlp_norm, eps=cfg.rms_eps), cfg, ctx)
     if window is not None:
         # The reference keeps the last min(window, T) positions: position
         # T − W + i lands in slot i, where decode's ring puts it only when
@@ -250,40 +300,56 @@ def _block_apply(p, x, cfg: ModelConfig, ctx: ModelContext, positions):
 
 def _block_decode(p, x_t, cache, cur_len: int, cfg: ModelConfig, ctx: ModelContext):
     """One-token decode of one block.  Returns (x_t, cache)."""
+    p, ctx = _on_rank(p, ctx)
     if p.block_type == "mlstm":
         return X.mlstm_decode_step(p, cache, x_t, cfg)
     if p.block_type == "slstm":
-        return X.slstm_decode_step(p, cache, x_t, cfg)
+        return X.slstm_decode_step(L.gathered(p, ctx), cache, x_t, cfg)
     if p.block_type == "rglru_mlp":
         return G.rglru_decode_step(p, cache, x_t, cfg)
     xn = L.rmsnorm(x_t, p.attn_norm, eps=cfg.rms_eps)
-    a, ck, cv = A.attn_decode_step(p.attn, xn, cache["k"], cache["v"], cur_len, cfg, window=_window(p, cfg))
+    a, ck, cv = A.attn_decode_step(p.attn, xn, cache["k"], cache["v"], cur_len, cfg, window=_window(p, cfg),
+                                   ctx=ctx)
     x_t = x_t + a
-    f, _ = _ffn(p, L.rmsnorm(x_t, p.mlp_norm, eps=cfg.rms_eps), cfg)
+    f, _ = _ffn(p, L.rmsnorm(x_t, p.mlp_norm, eps=cfg.rms_eps), cfg, ctx)
     return x_t + f, {"k": ck, "v": cv}
 
 
 # ------------------------------------------------------------------ embed
 
 
-def _token_embed(model: Transformer, tokens, cfg: ModelConfig):
+def _token_embed(model: Transformer, tokens, cfg: ModelConfig, ctx: Optional[ModelContext] = None):
     """tokens (B, T), or (B, K, T) for a codebook model → (B, T, d) in
     compute dtype.  The K codebooks' embeddings are summed in the order
-    of the reference's ``sum`` (0 + e_0 + e_1 + …), in param dtype."""
+    of the reference's ``sum`` (0 + e_0 + e_1 + …), in param dtype.  Under
+    a mesh that splits the vocabulary, each model rank looks up the ids in
+    its range (zero rows elsewhere) and one sum over the model axis, exact,
+    joins the lookups before the codebooks are summed."""
+    vdim = model.embed.dim() - 2
+    lo, hi, split = L.tp_part(model.embed, vdim, ctx)
+    table = L.weight(model.embed, ctx, vdim, lo, hi)
+    ids = (tokens - lo).clamp(0, hi - lo - 1) if split else tokens
     if cfg.num_codebooks > 0:
-        x = model.embed[0][tokens[:, 0]]
-        for kb in range(1, cfg.num_codebooks):
-            x = x + model.embed[kb][tokens[:, kb]]
+        parts = [table[kb][ids[:, kb]] for kb in range(cfg.num_codebooks)]
     else:
-        x = model.embed[tokens]
+        parts = [table[ids]]
+    if split:
+        inside = (tokens >= lo) & (tokens < hi)
+        if cfg.num_codebooks > 0:
+            inside = inside.transpose(0, 1)  # (K, B, T)
+        stacked = torch.stack(parts) * inside.reshape(len(parts), *parts[0].shape[:-1], 1).to(table.dtype)
+        parts = list(C.psum(stacked, ctx.mesh, ctx.model_axis).unbind(0))
+    x = parts[0]
+    for e in parts[1:]:
+        x = x + e
     return x.to(_compute_dtype(cfg))
 
 
-def _embed(model: Transformer, batch, cfg: ModelConfig):
+def _embed(model: Transformer, batch, cfg: ModelConfig, ctx: Optional[ModelContext] = None):
     """Token (and prefix) embedding.  Returns (x (B, P + T, d) in compute
     dtype, label_mask (B, P + T) f32, zero over the P prefix positions)."""
     tokens = batch["tokens"]
-    x = _token_embed(model, tokens, cfg)
+    x = _token_embed(model, tokens, cfg, ctx)
     mask = torch.ones(x.shape[:2], dtype=torch.float32, device=x.device)
     if cfg.num_prefix_tokens > 0 and "prefix_embeds" in batch:
         pre = batch["prefix_embeds"].to(x.dtype)  # (B, P, d)
@@ -292,12 +358,21 @@ def _embed(model: Transformer, batch, cfg: ModelConfig):
     return x, mask
 
 
-def _logits(model: Transformer, x, cfg: ModelConfig):
-    """(B, T, V) logits, or (B, T, K, V) for a codebook model."""
+def _logits(model: Transformer, x, cfg: ModelConfig, ctx: Optional[ModelContext] = None):
+    """(B, T, V) logits, or (B, T, K, V) for a codebook model.  Under a
+    mesh that splits the head's vocabulary, each model rank computes its
+    columns and the logits are gathered over the model axis."""
     cd = _compute_dtype(cfg)
     x = L.rmsnorm(x, model.final_norm, eps=cfg.rms_eps)
-    head = model.embed.T if cfg.tie_embeddings else model.lm_head
+    if cfg.tie_embeddings:
+        lo, hi, split = L.tp_part(model.embed, 0, ctx)
+        head = L.weight(model.embed, ctx, 0, lo, hi).T
+    else:
+        lo, hi, split = L.tp_part(model.lm_head, 1, ctx)
+        head = L.weight(model.lm_head, ctx, 1, lo, hi)
     logits = x.to(cd) @ head.to(cd)
+    if split:
+        logits = C.gather(logits, ctx.mesh, ctx.model_axis, -1)
     if cfg.num_codebooks > 0:
         return logits.reshape(*x.shape[:2], cfg.num_codebooks, cfg.vocab)
     return logits
@@ -311,15 +386,19 @@ def forward_train(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext
     (B, K, T) for a codebook model, and for a prefix model optionally
     ``prefix_embeds`` (B, P, d).  Returns (logits (B, P + T, V) or
     (B, T, K, V), aux (the layers' MoE aux losses summed, f32; 0 without
-    MoE), label_mask (B, P + T))."""
-    x, mask = _embed(model, batch, cfg)
+    MoE), label_mask (B, P + T)).  Under a mesh, the rank's rows and no
+    gradient (training on a mesh is ROADMAP item 9.2)."""
+    if ctx.mesh is not None and torch.is_grad_enabled():
+        raise NotImplementedError("forward_train: training on an LM mesh is not ported yet (ROADMAP queue 1, "
+                                  "item 9.2); run the forward under torch.no_grad()")
+    x, mask = _embed(model, batch, cfg, ctx)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for blk in model.blocks:
         x, a, _ = _block_apply(blk, x, cfg, ctx, positions)
         if a is not None:
             aux = aux + a
-    return _logits(model, x, cfg), aux, mask
+    return _logits(model, x, cfg, ctx), aux, mask
 
 
 def _label_ce(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
@@ -380,7 +459,7 @@ def group_losses(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext,
 # ------------------------------------------------------------------ serve
 
 
-def _block_cache_init(bt: str, cfg: ModelConfig, B: int, max_len: int, device) -> dict:
+def _block_cache_init(bt: str, cfg: ModelConfig, B: int, max_len: int, device, kv_heads=None) -> dict:
     if bt == "mlstm":
         return X.mlstm_init_state(cfg, B, device=device)
     if bt == "slstm":
@@ -389,19 +468,34 @@ def _block_cache_init(bt: str, cfg: ModelConfig, B: int, max_len: int, device) -
     if bt == "rglru_mlp":
         return G.rglru_init_state(cfg, B, device=device, dtype=cd)
     S = min(cfg.window or max_len, max_len) if bt == "lattn_mlp" else max_len
-    shape = (B, S, cfg.n_kv_heads, cfg.head_dim)
+    shape = (B, S, kv_heads or cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cd, device=device), "v": torch.zeros(shape, dtype=cd, device=device)}
 
 
-def init_cache(cfg: ModelConfig, B: int, max_len: int, *, device) -> list[dict]:
+def _kv_heads(blk, cfg: ModelConfig, ctx: ModelContext) -> int:
+    """The KV heads a rank's decode cache holds for an attention layer."""
+    _, (k0, k1), pick, _ = A.local_heads(blk.attn, cfg, ctx)
+    return len(pick) if pick is not None else k1 - k0
+
+
+def init_cache(cfg: ModelConfig, B: int, max_len: int, *, device, model=None,
+               ctx: Optional[ModelContext] = None) -> list[dict]:
     """One cache per layer (the reference stacks them along a leading
     ``reps`` axis): a {"k", "v"} pair of zeros (B, S, KV, dh) in compute
     dtype for an attention layer, S = max_len, or min(window, max_len) for
     a local one; the zero recurrent state in f32 for an xLSTM one (mLSTM
     ``{C, n, m, conv}``, sLSTM ``{h, c, n, m}``), and for an RG-LRU one
-    ``{h}`` in f32 and ``{conv}`` in compute dtype."""
+    ``{h}`` in f32 and ``{conv}`` in compute dtype.  Under a mesh, B is
+    the rank's rows and a tensor-parallel attention layer holds the rank's
+    KV heads (read from ``model``'s blocks)."""
     _check_supported(cfg)
-    return [_block_cache_init(bt, cfg, B, max_len, device) for bt in cfg.block_types]
+    mesh = ctx is not None and ctx.mesh is not None
+    if mesh and model is None:
+        raise ValueError("init_cache: under a mesh, pass the model whose blocks the cache serves")
+    return [_block_cache_init(bt, cfg, B, max_len, device,
+                              _kv_heads(model.blocks[i], cfg, ctx) if mesh and bt in ("attn_mlp", "attn_moe")
+                              else None)
+            for i, bt in enumerate(cfg.block_types)]
 
 
 @torch.no_grad()
@@ -409,13 +503,14 @@ def decode_step(model: Transformer, cache, tokens_t, cur_len: int, cfg: ModelCon
     """One decode step.  tokens_t: (B, 1), or (B, K, 1) for a codebook
     model; cur_len: the count of tokens already in the cache.  Writes an
     attention layer's K/V in place and replaces a recurrent layer's state;
-    returns (logits_t (B, 1, V) or (B, 1, K, V), cache)."""
-    x = _token_embed(model, tokens_t, cfg)
+    returns (logits_t (B, 1, V) or (B, 1, K, V), cache).  Under a mesh,
+    the rank's rows and the cache of :func:`init_cache` under the mesh."""
+    x = _token_embed(model, tokens_t, cfg, ctx)
     new_cache = []
     for blk, c in zip(model.blocks, cache):
         x, nc = _block_decode(blk, x, c, int(cur_len), cfg, ctx)
         new_cache.append(nc)
-    return _logits(model, x, cfg), new_cache
+    return _logits(model, x, cfg, ctx), new_cache
 
 
 @torch.no_grad()
@@ -423,11 +518,12 @@ def prefill(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
     """Prefill forward: the next-token logits (B, 1, V) and the per-layer
     cache, K/V (B, T, KV, dh) for attention (the last min(window, T)
     positions for local attention) and ``{}`` for a recurrent layer.  Only
-    the last position reaches the head."""
-    x, _ = _embed(model, batch, cfg)
+    the last position reaches the head.  Under a mesh, the rank's rows of
+    the batch, and K/V of the rank's KV heads."""
+    x, _ = _embed(model, batch, cfg, ctx)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     cache = []
     for blk in model.blocks:
         x, _, c = _block_apply(blk, x, cfg, ctx, positions)
         cache.append(c)
-    return _logits(model, x[:, -1:], cfg), cache
+    return _logits(model, x[:, -1:], cfg, ctx), cache

@@ -17,8 +17,18 @@ decode step's f32 conv state makes the conv output, q, k and the gates f32
 are bf16.  ``_mm`` makes the same promotion where ``torch.matmul`` would
 refuse mixed dtypes.
 
-The reference's head-sharding constraint of the sLSTM carry waits for the
-LM meshes (ROADMAP queue 1, item 9).
+Under an LM mesh the sLSTM runs head-parallel when the spec of its gate
+weights gives each model rank whole heads (H % m == 0), the point of the
+reference's head-sharding constraint on the carry: ``w_{z,i,f,o}`` are
+column-parallel, the block-diagonal ``r_{z,i,f,o}`` are read at the rank's
+heads, so each rank steps its H/m heads with no collective inside the time
+loop; the heads' outputs are then gathered over the model axis, and the
+norm, ``w_out`` and the gated FFN (its ``d_ff`` columns split) follow as
+in ``layers.mlp_apply``.  Otherwise, and in the mLSTM, every rank runs
+the whole block on its rows with the weights gathered (their tensor
+parallelism is ROADMAP §2 speed work).  The
+sLSTM decode step runs all heads with the weights gathered, as the
+reference's constraint does not reach its decode.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..launch import collectives as C
 from . import layers as L
 from .registry import ModelConfig
 
@@ -269,10 +280,12 @@ class SLSTMBlock(nn.Module):
         self.ffn = L.mlp_init(d, int(cfg.slstm_proj_factor * d), gated=True, **kw)
 
 
-def _recurrence(p: SLSTMBlock):
+def _recurrence(p: SLSTMBlock, heads=None, ctx=None):
     """The four gates' per-head recurrent matrices side by side, (H, dh,
-    4·dh) in f32 (the reference reads them at the hidden state's f32)."""
-    return torch.cat([getattr(p, f"r_{g}").float() for g in _GATES], dim=-1)
+    4·dh) in f32 (the reference reads them at the hidden state's f32), of
+    the heads [h0, h1) given."""
+    h0, h1 = heads or (0, None)
+    return torch.cat([L.weight(getattr(p, f"r_{g}"), ctx, 0, h0, h1).float() for g in _GATES], dim=-1)
 
 
 def _slstm_cell(r, pre, state):
@@ -294,41 +307,50 @@ def _slstm_cell(r, pre, state):
     return o * c / torch.clamp_min(n, 1e-6), c, n, m_new
 
 
-def _slstm_gates(p: SLSTMBlock, xn, cfg: ModelConfig):
+def _slstm_gates(p: SLSTMBlock, xn, cfg: ModelConfig, cols=(0, None), ctx=None):
     """The input projections of the four gates: (..., H, 4·dh) f32 from
-    xn (..., d) in the compute dtype."""
+    xn (..., d) in the compute dtype, at the columns [lo, hi) of whole
+    heads given."""
     cd = _cd(cfg)
-    H = cfg.n_heads
-    pre = [(xn @ getattr(p, f"w_{g}").to(cd) + getattr(p, f"b_{g}").to(cd)).float() for g in _GATES]
-    return torch.stack([t.unflatten(-1, (H, -1)) for t in pre], dim=-2).flatten(-2)
+    lo, hi = cols
+    dh = cfg.d_model // cfg.n_heads
+    pre = [(xn @ L.weight(getattr(p, f"w_{g}"), ctx, 1, lo, hi).to(cd)
+            + L.weight(getattr(p, f"b_{g}"), ctx, 0, lo, hi).to(cd)).float() for g in _GATES]
+    return torch.stack([t.unflatten(-1, (-1, dh)) for t in pre], dim=-2).flatten(-2)
 
 
-def _slstm_out(p: SLSTMBlock, x, h, cfg: ModelConfig):
+def _slstm_out(p: SLSTMBlock, x, h, cfg: ModelConfig, ctx=None):
     """The cell's output h (B, T, d) f32 → norm → projection → residual,
     then the post-FFN (gelu_glu) with its residual."""
     cd = _cd(cfg)
     h = L.rmsnorm(h.to(cd), p.hnorm, eps=cfg.rms_eps)
-    x = x + (h @ p.w_out.to(cd)).to(x.dtype)
+    x = x + (h @ L.weight(p.w_out, ctx).to(cd)).to(x.dtype)
     xn2 = L.rmsnorm(x, p.ffn_norm, eps=cfg.rms_eps)
-    return x + L.mlp_apply(p.ffn, xn2, act="gelu_glu", compute_dtype=cd).to(x.dtype)
+    return x + L.mlp_apply(p.ffn, xn2, act="gelu_glu", compute_dtype=cd, ctx=ctx).to(x.dtype)
 
 
-def slstm_apply(p: SLSTMBlock, x, cfg: ModelConfig):
+def slstm_apply(p: SLSTMBlock, x, cfg: ModelConfig, ctx=None):
     """sLSTM block forward.  x: (B, T, d) → (B, T, d); the cell runs over T
-    one step at a time."""
+    one step at a time, on the rank's heads under a mesh that splits them."""
     cd = _cd(cfg)
     B, T, d = x.shape
-    H = cfg.n_heads
+    dh = d // cfg.n_heads
+    lo, hi, split = L.tp_part(p.w_z, 1, ctx, unit=dh)
+    if not split:
+        p, ctx = L.gathered(p, ctx), None
+    H = (hi - lo) // dh
     xn = L.rmsnorm(x, p.norm, eps=cfg.rms_eps).to(cd)
-    pre = _slstm_gates(p, xn, cfg).permute(1, 2, 0, 3).contiguous()  # (T, H, B, 4·dh)
-    r = _recurrence(p)
-    state = (torch.zeros((H, B, d // H), dtype=torch.float32, device=x.device),) * 4
+    pre = _slstm_gates(p, xn, cfg, (lo, hi), ctx).permute(1, 2, 0, 3).contiguous()  # (T, H, B, 4·dh)
+    r = _recurrence(p, (lo // dh, hi // dh), ctx)
+    state = (torch.zeros((H, B, dh), dtype=torch.float32, device=x.device),) * 4
     hs = []
     for t in range(T):
         state = _slstm_cell(r, pre[t], state)
         hs.append(state[0])
-    h = torch.stack(hs, dim=0).permute(2, 0, 1, 3).reshape(B, T, d)  # (T, H, B, dh) → (B, T, d)
-    return _slstm_out(p, x, h, cfg)
+    h = torch.stack(hs, dim=0).permute(2, 0, 1, 3).reshape(B, T, H * dh)  # (T, H, B, dh) → (B, T, H·dh)
+    if split:
+        h = C.gather(h, ctx.mesh, ctx.model_axis, -1)
+    return _slstm_out(p, x, h, cfg, ctx)
 
 
 def slstm_init_state(cfg: ModelConfig, B: int, *, device, dtype=torch.float32) -> dict:
@@ -338,7 +360,8 @@ def slstm_init_state(cfg: ModelConfig, B: int, *, device, dtype=torch.float32) -
 
 
 def slstm_decode_step(p: SLSTMBlock, state: dict, x_t, cfg: ModelConfig):
-    """x_t: (B, 1, d) → (out (B, 1, d), the new state)."""
+    """x_t: (B, 1, d) → (out (B, 1, d), the new state).  Meshless (under a
+    mesh the caller passes the block with its weights gathered)."""
     B = x_t.shape[0]
     xn = L.rmsnorm(x_t[:, 0, :], p.norm, eps=cfg.rms_eps).to(_cd(cfg))
     pre = _slstm_gates(p, xn, cfg).transpose(0, 1)  # (H, B, 4·dh)

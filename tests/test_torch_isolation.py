@@ -44,7 +44,8 @@ def test_every_port_module_imports_with_jax_and_the_reference_blocked():
     assert "repro_torch.core.pca" in modules and "repro_torch.distributed_pca" in modules
     assert {"repro_torch.train.trainer", "repro_torch.train.checkpoint", "repro_torch.data.pipeline",
             "repro_torch.launch.train", "repro_torch.configs.musicgen_large", "repro_torch.train_resilient_lm",
-            "repro_torch.launch.mesh_runs"} <= set(modules)
+            "repro_torch.launch.mesh_runs", "repro_torch.launch.mesh", "repro_torch.launch.sharding",
+            "repro_torch.launch.specs", "repro_torch.launch.collectives"} <= set(modules)
     script = (
         "import sys, importlib\n"
         f"for name in {FORBIDDEN!r}:\n"

@@ -272,7 +272,7 @@ def test_unported_blocks_and_mesh_raise():
     assert codebooks.lm_head.shape == (cfg.d_model, 4 * cfg.vocab)
     with pytest.raises(ValueError, match="unknown block type"):
         T.init_params(dataclasses.replace(cfg, scan_unit=("conv_mlp",)), generator=torch.Generator())
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="launch.mesh.Mesh"):
         T.ModelContext(mesh=object())
 
 
