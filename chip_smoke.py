@@ -440,8 +440,8 @@ def xlstm_param_count(cfg) -> int:
 
 def serve_xlstm(seed: int, card: str) -> None:
     """Phase "serve xlstm": xlstm-1.3b at full width and depth in bf16, then
-    chunkwise against stepwise at depth 8 in f32 and bf16 and at full depth;
-    greedy decode; a profile.  No kernel of the port runs on this path."""
+    chunkwise against stepwise at depth 8 in f32; greedy decode; a profile.
+    No kernel of the port runs on this path."""
     import torch
 
     from repro_torch.kernels import dispatch
@@ -541,12 +541,10 @@ def serve_xlstm(seed: int, card: str) -> None:
     if not control > 5e-4:
         raise AssertionError(f"(b): TF32 arithmetic parts by only {control:.3e}: the 5e-4 check cannot tell it")
     del stepwise, tf32
-    # bf16: printed.  The forward rounds the conv output, q and k to bf16 and
-    # the decode keeps them f32 (the reference's dtypes), and this random
-    # model amplifies the difference: the reference itself parts by 0.14-0.26
-    # on the CPU at d_model 64-256 (PERF.md).
-    cfg8b = get_config("xlstm-1.3b", n_layers=8)
-    chunk_vs_step("(b) bf16, 8 of 48 layers", T.cast_params(model8, cfg8b), cfg8b, None)
+    # The bf16 gap at 8 layers, a print with no limit, is cut to make room for
+    # phase "train mesh": tools/xlstm_consistency.py prints it (the forward
+    # rounds the conv output, q and k to bf16, the decode keeps them f32; the
+    # reference itself parts by 0.14-0.26 on the CPU, PERF.md).
     del model8
     torch.cuda.empty_cache()
 
@@ -1384,6 +1382,167 @@ def train_device_recovery(seed: int, card: str, host_step_s: float) -> dict:
             "solve_ms": float(np.mean(solve_ms)), "solve_launches": solve_launches}
 
 
+def state_fingerprint(state) -> str:
+    """A hash of every parameter's and moment's bits, summed on the card:
+    for each tensor the int64 sums of its 32-bit words and of every other
+    word (no copy of the state leaves the card)."""
+    import torch
+
+    from repro_torch.launch.distributed import digest
+
+    sums = []
+    for name, p in state.params.named_parameters():
+        for t in (p.detach(), state.opt.m[name], state.opt.v[name]):
+            words = t.reshape(-1).view(torch.int32)
+            sums += [words.sum(dtype=torch.int64), words[::2].sum(dtype=torch.int64)]
+    return digest(torch.stack(sums).cpu())
+
+
+TRAIN_MESH_BAND = 2e-2  # the bf16 band of phase "train device recovery"'s delta = 0 check at full width
+
+
+def train_mesh(seed: int, card: str) -> dict:
+    """Phase "train mesh": qwen3-1.7b at full width and depth (f32
+    parameters, bf16 compute, 8 x 512 tokens over 4 groups) trained on LM
+    meshes.  The meshless oracle first: the first batch's gradient (written
+    to a temporary directory with its loss and norm), then 2 meshless steps
+    with a hash of every parameter and moment after each.  (a) A world of
+    one over NCCL, mesh (1, 1), remat none: the same 2 steps through the
+    mesh step, bit for bit (loss and hash), 28 flash launches a step, no
+    collective that moves data.  The card is then freed and (b) two gloo
+    ranks on it, mesh (1, 2), and (c) four, mesh (2, 2) with FSDP over
+    ``data``, each run one step under remat full
+    (``launch.mesh_runs.train_mesh_rank``): 56 flash launches a rank,
+    every gradient block within ``TRAIN_MESH_BAND`` of its parameter's
+    meshless scale, the loss within 1e-5 and the grad norm within 1e-3
+    relative, the moments on ``state_shardings``' blocks.  Returns the
+    flash launches a rank a step of each run and their shapes."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import collectives as coll
+    from repro_torch.launch import distributed as mesh_dist
+    from repro_torch.launch import mesh_runs
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.sharding import make_context
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    from repro_torch.train.optimizer import AdamWConfig, global_norm
+    from repro_torch.train.train_step import init_train_state, make_grad_fn, make_train_step
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    cfg = get_config("qwen3-1.7b")
+    n = dense_param_count(cfg)
+    batches = mesh_runs.train_mesh_batches(cfg, seed, dev, 2, data_vocab=DATA_VOCAB)
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=8)
+    gen = lambda: torch.Generator(device=dev).manual_seed(seed)  # noqa: E731
+    plain = T.ModelContext()
+    counts, shapes = {}, {}
+
+    # The meshless oracle and 2 meshless steps.
+    torch.cuda.empty_cache()
+    state = init_train_state(cfg, generator=gen())
+    t0 = time.perf_counter()
+    loss0, _, grads = make_grad_fn(cfg, plain)(state.params, batches[0])
+    norm0 = float(global_norm(grads))
+    sync()
+    oracle_s = time.perf_counter() - t0
+    tmp = tempfile.TemporaryDirectory(prefix="repro-train-mesh-")
+    oracle_path = os.path.join(tmp.name, "oracle.pt")
+    t0 = time.perf_counter()
+    torch.save({"grads": {k: g.cpu() for k, g in grads.items()}, "loss": float(loss0), "grad_norm": norm0,
+                "top": max(float(g.abs().max()) for g in grads.values())}, oracle_path)
+    print(f"meshless oracle: the first batch's gradient in {oracle_s:.3f} s, loss {float(loss0)!r}, grad norm "
+          f"{norm0!r}; written in {time.perf_counter() - t0:.3f} s ({os.path.getsize(oracle_path) / 1e9:.2f} GB)"
+          f"  [{card}]")
+    del grads
+    step = make_train_step(cfg, plain, ocfg)
+    want = []
+    for b in batches:
+        state, m = step(state, b)
+        want.append((float(m["loss"]), state_fingerprint(state)))
+    del state, step, m
+    torch.cuda.empty_cache()
+
+    # (a) a world of one over NCCL
+    mesh_dist.node_mesh(backend="nccl", device=dev)
+    try:
+        mesh = make_test_mesh((1, 1))
+        state = init_train_state(cfg, generator=gen(), mesh=mesh)
+        step = make_train_step(cfg, make_context(mesh), ocfg)
+        coll.STATS.reset()
+        got = []
+        for b in batches:
+            dispatch.reset_launch_counts()
+            sync()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            sync()
+            got.append((float(m["loss"]), state_fingerprint(state), time.perf_counter() - t0,
+                        dispatch.launch_counts()["flash_attention"]))
+        counts["(1, 1) nccl"] = got[0][3]
+        shapes["(1, 1) nccl"] = (8, 512, 512, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        same = [g[:2] == w for g, w in zip(got, want)]
+        print(f"(a) mesh (1, 1), a world of one over NCCL, remat none: 2 steps {[round(g[2], 3) for g in got]} s, "
+              f"flash launches {[g[3] for g in got]}, losses {[g[0] for g in got]}; loss and the hash of every "
+              f"parameter and moment bit for bit the meshless steps' {same}; collectives that moved data "
+              f"{coll.STATS.bytes}  [{card}]")
+        if not (all(same) and all(g[3] == cfg.n_layers for g in got) and not coll.STATS.bytes):
+            raise AssertionError("train mesh (a): mesh (1, 1) is not the meshless step bit for bit")
+    finally:
+        dist.destroy_process_group()
+    del state, step, m
+    torch.cuda.empty_cache()
+    print(f"the card freed: {torch.cuda.memory_allocated() / 2**30:.3f} GiB held by this process")
+
+    # (b), (c): gloo ranks sharing the card, remat full
+    for label, shape in (("(b)", (1, 2)), ("(c)", (2, 2))):
+        world = shape[0] * shape[1]
+        t0 = time.perf_counter()
+        rep = mesh_dist.run_ranks(mesh_runs.train_mesh_rank, world, backend="gloo", device="cuda", timeout=800,
+                                  args=(seed, shape, oracle_path, "full"))
+        wall = time.perf_counter() - t0
+        print(f"{label} mesh {shape}, {world} gloo ranks on the card, remat full: {wall:.3f} s from spawn to exit"
+              f"  [{card}]")
+        for r in rep["ranks"]:
+            sums = r["sums"]
+            print(f"{label} rank {r['coords']}: {r['params_held'] / 1e9:.3f} B parameters held (of {n / 1e9:.3f} B), "
+                  f"drawn in {r['draw_s']:.3f} s; peak {r['peak_gib']:.3f} GiB; step {r['step_s']:.3f} s "
+                  f"(forward + backward {r['grad_s']:.3f}, AdamW {r['update_s']:.3f}); flash launches "
+                  f"{r['launches']['flash_attention']} at (B, T, S, H, KV, dh) = {r['flash_shape']}; "
+                  f"collectives {sums['calls']}, "
+                  f"{ {k: round(v / 2**20, 1) for k, v in sums['bytes'].items()} } MiB, "
+                  f"{ {k: round(v, 3) for k, v in sums['seconds'].items()} } s; loss {r['loss']!r} (meshless "
+                  f"{rep['oracle_loss']!r}), grad norm {r['grad_norm']!r} (meshless {rep['oracle_grad_norm']!r}); "
+                  f"worst gradient block max|a-b|/max|b| {r['grad_gap']:.3e} ({r['grad_gap_at']}), band "
+                  f"{TRAIN_MESH_BAND}; moments on state_shardings' blocks {r['moments_ok']}  [{card}]")
+            bad = []
+            if r["launches"]["flash_attention"] != 2 * cfg.n_layers or sum(r["launches"].values()) != 2 * cfg.n_layers:
+                bad.append(f"launches {r['launches']}")
+            if r["flash_shape"] != (8 // shape[0], 512, 512, cfg.n_heads // shape[1], cfg.n_kv_heads // shape[1],
+                                    cfg.head_dim):
+                bad.append(f"flash shape {r['flash_shape']}")
+            if r["grad_gap"] > TRAIN_MESH_BAND:
+                bad.append(f"gradient gap {r['grad_gap']:.3e} at {r['grad_gap_at']}")
+            if abs(r["loss"] - rep["oracle_loss"]) > 1e-5 * abs(rep["oracle_loss"]):
+                bad.append(f"loss {r['loss']!r}")
+            if abs(r["grad_norm"] - rep["oracle_grad_norm"]) > 1e-3 * rep["oracle_grad_norm"]:
+                bad.append(f"grad norm {r['grad_norm']!r}")
+            if not r["moments_ok"]:
+                bad.append("moments off state_shardings' blocks")
+            if bad:
+                raise AssertionError(f"train mesh {label} rank {r['coords']}: " + "; ".join(bad))
+        counts[f"{shape} gloo, a rank"] = rep["ranks"][0]["launches"]["flash_attention"]
+        shapes[f"{shape} gloo, a rank"] = rep["ranks"][0]["flash_shape"]
+    tmp.cleanup()
+    return {"counts": counts, "shapes": shapes}
+
+
 MESH_BAND = 2e-2  # the bf16 band of phase "serve moe"'s kernel-against-plain prefills
 
 
@@ -1797,16 +1956,27 @@ def main() -> int:
                     g=torch.Generator(device=dev).manual_seed(args.seed + 3))
         check_flash("prefill moe, a rank of (2, 2): H=KV=8", 2, 2048, 2048, 8, 8, 128,
                     g=torch.Generator(device=dev).manual_seed(args.seed + 4))
+        # ... and a rank's heads of phase "train mesh": qwen3-1.7b's 8 of 16 query
+        # heads over 4 of 8 KV heads, 8 x 512 tokens on (1, 2) and 4 x 512 on (2, 2).
+        check_flash("train mesh, a rank of (1, 2): H=8 KV=4", 8, 512, 512, 8, 4, 128,
+                    g=torch.Generator(device=dev).manual_seed(args.seed + 5))
+        check_flash("train mesh, a rank of (2, 2): H=8 KV=4", 4, 512, 512, 8, 4, 128,
+                    g=torch.Generator(device=dev).manual_seed(args.seed + 6))
         # The frontends' prefill shapes, never launched before: internvl2-1b
         # (group size 7, dh 64) and musicgen-large (H = KV = 32, dh 64).
         check_flash("prefill internvl2-1b H=14 KV=2", 4, 2048, 2048, 14, 2, 64,
                     g=torch.Generator(device=dev).manual_seed(args.seed + 1))
         check_flash("prefill musicgen-large H=KV=32", 4, 2048, 2048, 32, 32, 64,
                     g=torch.Generator(device=dev).manual_seed(args.seed + 2))
-        # The autograd Function: qwen3-1.7b's training shape in bf16, a ragged f32 one.
+        # The autograd Function: qwen3-1.7b's training shape in bf16, a ragged f32 one,
+        # one group's rows, and a rank's heads of phase "train mesh" on (1, 2) and (2, 2).
         flash_grads = [flash_grad_check("train qwen3-1.7b", (8, 512, 16, 8, 128), torch.bfloat16, args.seed, card),
                        flash_grad_check("ragged f32", (2, 300, 8, 2, 64), torch.float32, args.seed, card),
                        flash_grad_check("train qwen3-1.7b one group", (3, 512, 16, 8, 128), torch.bfloat16,
+                                        args.seed, card),
+                       flash_grad_check("train mesh, a rank of (1, 2)", (8, 512, 8, 4, 128), torch.bfloat16,
+                                        args.seed, card),
+                       flash_grad_check("train mesh, a rank of (2, 2)", (4, 512, 8, 4, 128), torch.bfloat16,
                                         args.seed, card)]
 
         # pairwise_sqdist: ragged n and k, odd d, k = 1, k over one tile,
@@ -2925,6 +3095,9 @@ def main() -> int:
     with phase("train device recovery"):
         train_device = train_device_recovery(args.seed, card, train_full["mean_step_s"])
 
+    with phase("train mesh"):
+        train_meshes = train_mesh(args.seed, card)
+
     with phase("timing"):
         B, m, d = xs_d.shape
         c = rows_of(xs_d, k_full)
@@ -3027,7 +3200,11 @@ def main() -> int:
                                  "train qwen3-1.7b step (forward)": train_full["flash_per_step"],
                                  "train 100m step (forward)": train_small["flash_per_step"],
                                  "train device recovery qwen3-1.7b step (forward, a launch a group and "
-                                 "layer)": train_device["flash_per_step"]},
+                                 "layer)": train_device["flash_per_step"],
+                                 **{f"train mesh qwen3-1.7b step, mesh {k} at (B, T, S, H, KV, dh) = "
+                                    f"{train_meshes['shapes'][k]} (forward"
+                                    + (")" if k.startswith("(1, 1)") else " and its recompute, remat full)"): v
+                                    for k, v in train_meshes["counts"].items()}},
             "ms": cuda_ms(lambda: fa_ops.flash_attention(fq, fk, fv), 20),
             "plain_ms": cuda_ms(lambda: fa_ops.flash_attention(fq, fk, fv, impl="torch_ref"), 3),
             "bound_ms": f_bound, "bound_by": f_by,
@@ -3067,6 +3244,22 @@ def main() -> int:
             "mesh_rank_plain_ms": cuda_ms(lambda: fa_ops.flash_attention(rq, rk, rv, impl="torch_ref"), 3),
             "mesh_rank_library_ms": cuda_ms(lambda: sdpa(rqh, rkh, rvh, is_causal=True), 20),
             "mesh_rank_bound_ms": 1e3 * max(m_flops / 2 / PEAK_BF16_FLOPS, m_bytes / 2 / PEAK_BYTES),
+        })
+        # ... and at a rank's heads of phase "train mesh"'s (1, 2) mesh: qwen3-1.7b's
+        # 8 of 16 query heads over 4 of 8 KV heads, 8 x 512 tokens
+        tB, tT, tH, tKV = 8, 512, 8, 4
+        tq = torch.randn((tB, tT, tH, fdh), generator=gen, device=dev).bfloat16()
+        tk = torch.randn((tB, tT, tKV, fdh), generator=gen, device=dev).bfloat16()
+        tv = torch.randn((tB, tT, tKV, fdh), generator=gen, device=dev).bfloat16()
+        t_flops = 4.0 * tB * tH * fdh * (tT * (tT + 1) / 2)
+        t_bytes = 2.0 * (2 * tB * tT * tH * fdh + 2 * tB * tT * tKV * fdh)
+        tqh, tkh, tvh = (t.transpose(1, 2).contiguous() for t in (tq, tk, tv))
+        beside["flash_attention"].update({
+            "train_mesh_rank_shape": [tB, tT, tT, tH, tKV, fdh],
+            "train_mesh_rank_ms": cuda_ms(lambda: fa_ops.flash_attention(tq, tk, tv), 20),
+            "train_mesh_rank_plain_ms": cuda_ms(lambda: fa_ops.flash_attention(tq, tk, tv, impl="torch_ref"), 5),
+            "train_mesh_rank_library_ms": cuda_ms(lambda: sdpa(tqh, tkh, tvh, is_causal=True, enable_gqa=True), 20),
+            "train_mesh_rank_bound_ms": 1e3 * max(t_flops / PEAK_BF16_FLOPS, t_bytes / PEAK_BYTES),
         })
         # pairwise_sqdist at its full-width path shape: the full (n, k) output.
         n_q, k_q = pts_d.shape[0], k_full

@@ -17,7 +17,10 @@ explicit comparison against the kernel only.  Measured selection
 
 Every kernel wrapper owns a :class:`LaunchCounter` that it bumps where it
 launches its kernel, so a run can show that its main path went through the
-kernels (:func:`launch_counts`, :func:`reset_launch_counts`).
+kernels (:func:`launch_counts`, :func:`reset_launch_counts`).  The resolver
+counts the calls of each op, whichever impl takes them
+(:func:`call_counts`, :func:`reset_call_counts`): on the CPU, the plain
+versions' calls.
 """
 
 from __future__ import annotations
@@ -29,9 +32,11 @@ import torch
 __all__ = [
     "IMPLS",
     "LaunchCounter",
+    "call_counts",
     "impl_names",
     "launch_counts",
     "register_impl",
+    "reset_call_counts",
     "reset_launch_counts",
     "resolve",
 ]
@@ -40,6 +45,7 @@ IMPLS = ("cuda", "torch_ref", "torch_chunked")
 
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}
 _COUNTERS: Dict[str, "LaunchCounter"] = {}
+_CALLS: Dict[str, int] = {}
 
 
 class LaunchCounter:
@@ -58,6 +64,15 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for c in _COUNTERS.values():
         c.count = 0
+
+
+def call_counts() -> dict[str, int]:
+    """The calls of each op resolved since the last reset."""
+    return dict(_CALLS)
+
+
+def reset_call_counts() -> None:
+    _CALLS.clear()
 
 
 def register_impl(op: str, name: str, fn: Callable) -> Callable:
@@ -88,4 +103,5 @@ def resolve(op: str, impl: str, *tensors: torch.Tensor) -> tuple[str, Callable]:
         raise ValueError(f"{op}: unknown impl {impl!r}; registered: {impl_names(op)}")
     if name == "cuda" and device.type != "cuda":
         raise ValueError(f"{op}: impl='cuda' needs CUDA tensors, got {device}")
+    _CALLS[op] = _CALLS.get(op, 0) + 1
     return name, impls[name]

@@ -91,6 +91,7 @@ __all__ = [
     "digest",
     "layout_backend",
     "node_mesh",
+    "rank_threads",
     "run_ranks",
 ]
 
@@ -414,10 +415,20 @@ def default_mesh_executor() -> MeshExecutor:
 # ------------------------------------------------------------------ launch
 
 
+def rank_threads(world: int, device) -> int:
+    """The intra-op threads of one rank: one on the CPU, where every rank
+    computes and several worlds may run at once (a share of the cores per
+    rank oversubscribes them as soon as two worlds overlap, and gloo's
+    lockstep then waits on the slowest rank), and the host's cores shared
+    out among the ranks when a card computes."""
+    if torch.device(device).type == "cpu":
+        return 1
+    return max(1, (os.cpu_count() or 1) // world)
+
+
 def _rank_main(fn, args, rank, world, backend, device, store_path, results):
     try:
-        # The host's cores shared out among the ranks.
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+        torch.set_num_threads(rank_threads(world, device))
         device = torch.device(device)
         if device.type == "cuda":
             torch.cuda.set_device(device)

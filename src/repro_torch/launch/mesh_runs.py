@@ -28,11 +28,18 @@ The workloads are those of the reference's multi-device tests:
   teacher-forced decode, one MoE layer, one sLSTM block), each on a mesh
   of the world's size, their outputs gathered whole on every rank;
 * :func:`moe_serve_rank` — phase "serve mesh" of ``chip_smoke.py``:
-  deepseek-moe-16b at full width, each rank drawing only its blocks.
+  deepseek-moe-16b at full width, each rank drawing only its blocks;
+* :func:`train_lm_rank` — the LM mesh training jobs of
+  ``tests/test_torch_lm_mesh_train.py`` (each collective's backward, the
+  train step, the trainer), each on a mesh of the world's size;
+* :func:`train_mesh_rank` — phase "train mesh" of ``chip_smoke.py``:
+  qwen3-1.7b at full width, one train step a rank against the meshless
+  oracle's gradient blocks.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Optional
 
@@ -58,7 +65,8 @@ from ..kernels import dispatch
 __all__ = [
     "fig1", "fig1_rank", "multiround", "multiround_rank", "stream", "stream_rank",
     "eight_rank_twins", "update_rows_rank", "alg1_problem", "alg1_rank", "full_width_rank",
-    "train", "train_rank", "lm_rank", "lm_job", "moe_mesh_oracle", "moe_serve_rank",
+    "train", "train_rank", "lm_rank", "lm_job", "moe_mesh_oracle", "moe_serve_rank", "train_lm_rank",
+    "train_mesh_batches", "train_mesh_rank",
 ]
 
 
@@ -737,3 +745,319 @@ def moe_serve_rank(seed: int, shape, oracle_dir: str, decode_steps: int, greedy:
         **{k: v for k, v in report.items() if k != "ranks"}})
     report["lockstep"] = lockstep
     return report
+
+
+# ------------------------------------------------------ LM mesh training
+
+
+def _gather_blocks(tensors: dict, mesh) -> tuple:
+    """The whole tensors of every rank's blocks (``tensors``: name → (spec,
+    the rank's block)) as numpy arrays on every rank, and whether the ranks
+    that hold the same block hold the same bits: ({name: array}, bool)."""
+    import torch.distributed as dist
+
+    from .sharding import full_shape
+
+    mine = {n: (tuple(spec) if spec else None, t.detach().float().cpu().numpy()) for n, (spec, t) in tensors.items()}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (mesh.coords, mine))
+    out, same = {}, True
+    for name in mine:
+        spec, blk = mine[name]
+        spec = spec or (None,) * blk.ndim
+        whole = np.full(full_shape(blk.shape, spec, mesh), np.nan, dtype=np.float32)
+        for coords, theirs in every:
+            b = theirs[name][1]
+            at = tuple(slice(coords[mesh.axis_names.index(ax)] * n, (coords[mesh.axis_names.index(ax)] + 1) * n)
+                       if ax is not None else slice(None) for ax, n in zip(spec, b.shape))
+            held = whole[at]
+            if not np.isnan(held).all():
+                same = same and bool(np.array_equal(held, b))
+            whole[at] = b
+        out[name] = whole
+    return out, same
+
+
+def _blocks(model, tree: dict) -> dict:
+    """(spec, tensor) by name for a dict keyed by ``model``'s parameter names."""
+    specs = {n: getattr(p, "mesh_spec", None) for n, p in model.named_parameters()}
+    return {n: (specs[n], t) for n, t in tree.items()}
+
+
+def _collective_cases(mesh) -> dict:
+    """The cases of :func:`_collectives_job`: name → (whether the input is
+    one that the model ranks of a data shard hold alike, fn(x, a, c, w)
+    → the output, whether the output is alike on the model ranks)."""
+    from . import collectives as C
+
+    axes = mesh.axis_names
+    live = [a for a in axes if mesh.shape[a] > 1]
+    cases = {"psum": (False, lambda x, a, c, w: C.psum(x, mesh, axes), True),
+             "gather_axes": (False, lambda x, a, c, w: C.gather_axes(x, mesh, axes, -1), True)}
+    for ax in live:
+        cases[f"gather_{ax}"] = (False, lambda x, a, c, w, ax=ax: C.gather(x, mesh, ax, -1), ax == C.MODEL)
+    if C.MODEL in live:
+        cases["chain_model"] = (False, lambda x, a, c, w: C.chain(lambda s: s * c + a, x, mesh, C.MODEL), True)
+        cases["enter"] = (True, lambda x, a, c, w: x, True)
+        cases["split_linear"] = (True, lambda x, a, c, w: C.split_linear(x, w, mesh, C.MODEL), False)
+        cases["split_linear_gathered"] = (
+            True, lambda x, a, c, w: C.split_linear(x, w, mesh, C.MODEL, gather_out=True), True)
+    return cases
+
+
+def _collectives_job(mesh, seed: int) -> dict:
+    """Each collective's backward under ``launch.collectives``' convention,
+    every rank ``r`` with its own weights ``W_r``: the global loss L = Σ
+    over ranks of Σ W_r ⊙ z_r, where z_r is the case's output (passed
+    through ``collectives.enter`` when the model ranks hold it alike, since
+    each reads it with its own weights), L summed by ``psum`` over every
+    axis, and each rank backpropagating ``L / nd``.  A case's input is the
+    rank's own ``X[r]``, or ``XR[d]``, which the model ranks of data shard
+    ``d`` hold alike; ``a``, ``c`` (the chain's steps) and ``w`` (the split
+    product's columns) are the rank's own.  Returns each case's gradients
+    on every rank and the collectives it counted.  The inputs come from
+    ``seed``; the test holds the gradients against autograd of the meshless
+    L."""
+    import torch.distributed as dist
+
+    from . import collectives as C
+
+    g = torch.Generator().manual_seed(seed)
+    world = mesh.size
+    r = dist.get_rank()
+    d = r // mesh.shape.get(C.MODEL, 1)
+    nd = world // mesh.shape.get(C.MODEL, 1)
+    dev = _rank_dev()
+    X = torch.randn((world, 3, 4), generator=g, dtype=torch.float64)
+    XR = torch.randn((nd, 3, 4), generator=g, dtype=torch.float64)
+    W = torch.randn((world, 3, 4 * world), generator=g, dtype=torch.float64)
+    A = torch.randn((world, 3, 4), generator=g, dtype=torch.float64)
+    Cm = torch.randn((world, 3, 4), generator=g, dtype=torch.float64)
+    Wl = torch.randn((world, 4, 2), generator=g, dtype=torch.float64)
+    out = {}
+    for name, (alike_in, fn, alike_out) in _collective_cases(mesh).items():
+        leaves = [t.clone().to(dev).requires_grad_(True) for t in ((XR[d] if alike_in else X[r]), A[r], Cm[r], Wl[r])]
+        C.STATS.reset()
+        with C.sequence(dev) as opened:
+            y = fn(*leaves)
+            z = C.enter(y, mesh, C.MODEL) if alike_out else y
+            loss = C.psum((W[r, :, :z.shape[-1]].to(dev) * z).sum(), mesh, mesh.axis_names)
+            if opened:
+                loss = loss + 0.0 * C.sequence_token()
+        grads = torch.autograd.grad(loss * (1.0 / nd), leaves, allow_unused=True)
+        every = [None] * world
+        dist.all_gather_object(every, [None if t is None else t.cpu().numpy() for t in grads])
+        out[name] = {"grads": every, "calls": dict(C.STATS.calls)}
+    return out
+
+
+def _rank_dev():
+    from .distributed import _RANK_DEVICE
+
+    return _RANK_DEVICE[0] or torch.device("cpu")
+
+
+def _step_job(mesh, cfg, sd, batches, ocfg: dict, remat: str = "none", accum_steps: int = 1,
+              routing: str = "pjit", replay=None) -> dict:
+    """``len(batches)`` steps of ``train_step.make_train_step`` from the
+    weights ``sd``, each through its two halves: the first step's
+    gradients (whole, as the step applies them), each step's loss and grad
+    norm, the parameters and the first moments after the last step
+    (whole), each moment's block shape beside ``state_shardings``', the
+    attention calls a step, the first step's collectives, the MoE routing
+    of the first forward (every rank's record), and whether the ranks
+    agree.  ``replay``: a routing record for each rank (a list by rank) to
+    replay in every forward."""
+    import torch.distributed as dist
+
+    from ..models import moe as M
+    from ..models import transformer as T
+    from ..train.optimizer import AdamWConfig, moment_blocks
+    from ..train.train_step import init_train_state, make_train_step
+    from . import collectives as C
+    from .sharding import local_rows, make_context
+
+    dev = _rank_dev()
+    ctx = make_context(mesh, remat=remat, moe_routing=routing)
+    state = init_train_state(cfg, generator=None, model=T.model_from_state_dict(cfg, {
+        k: v.to(dev).clone() for k, v in sd.items()}), mesh=mesh)
+    rank = dist.get_rank()
+
+    def rows(batch):
+        return {k: (v if k == "group_weights" else local_rows(v, mesh)).to(dev) for k, v in batch.items()}
+
+    mine = None if replay is None else replay[rank]
+    step = make_train_step(cfg, ctx, AdamWConfig(**ocfg), accum_steps=accum_steps)
+    hist, first, grads_whole, same, routing_log = [], None, None, True, None
+    for i, batch in enumerate(batches):
+        record = cfg.moe is not None and i == 0
+        C.STATS.reset()
+        dispatch.reset_call_counts()
+        with (M.recorded_routing(replay=mine) if record or mine is not None else contextlib.nullcontext()) as log:
+            loss, metrics, grads = step.grads(state, rows(batch))
+        calls = dispatch.call_counts().get("flash_attention", 0)
+        if i == 0:
+            first = {"loss": float(loss), "attention_calls": calls, "calls": dict(C.STATS.calls),
+                     "bytes": dict(C.STATS.bytes), "tokens": float(metrics["tokens"])}
+            grads_whole, same = _gather_blocks(_blocks(state.params, grads), mesh)
+            if record:
+                routing_log = [None] * dist.get_world_size()
+                dist.all_gather_object(routing_log, [t.cpu().numpy() for t in log])
+        state, m = step.apply(state, loss, metrics, grads)
+        del grads
+        hist.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]), "attention_calls": calls})
+    params = dict(state.params.named_parameters())
+    whole, same_p = _gather_blocks(_blocks(state.params, params), mesh)
+    m_whole, _ = _gather_blocks(_blocks(state.params, state.opt.m), mesh)
+    blocks = moment_blocks(params, mesh)
+    moments = {n: (tuple(state.opt.m[n].shape), tuple(state.opt.v[n].shape), blocks[n]) for n in params}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, (first["loss"], [h["loss"] for h in hist], [h["grad_norm"] for h in hist]))
+    return {"first": first, "grads": grads_whole, "history": hist, "params": whole, "m": m_whole,
+            "moments": moments, "routing": routing_log,
+            "lockstep": same and same_p and len(set(map(repr, every))) == 1}
+
+
+def _trainer_job(mesh, cfg, sd, tcfg_kw: dict, ocfg: dict) -> dict:
+    """``Trainer(ctx=make_context(mesh))``'s host path from the weights
+    ``sd``: its history, the parameters whole, and whether every rank
+    recorded the same lockstep hash each step and holds the same blocks."""
+    import torch.distributed as dist
+
+    from ..models import transformer as T
+    from ..train.optimizer import AdamWConfig
+    from ..train.train_step import TrainState
+    from ..train.trainer import Trainer, TrainerConfig
+    from .sharding import make_context
+
+    dev = _rank_dev()
+    model = T.model_from_state_dict(cfg, {k: v.to(dev).clone() for k, v in sd.items()})
+    t = Trainer(cfg, TrainerConfig(**tcfg_kw), None if ocfg is None else AdamWConfig(**ocfg), make_context(mesh),
+                device=dev,
+                initial_state=TrainState(params=model, opt=None, ef=None))
+    state = t.run()
+    whole, same = _gather_blocks(_blocks(state.params, dict(state.params.named_parameters())), mesh)
+    hashes = [None] * dist.get_world_size()
+    dist.all_gather_object(hashes, [h.get("lockstep") for h in t.history])
+    return {"history": [{k: v for k, v in h.items() if k != "lockstep"} for h in t.history], "params": whole,
+            "lockstep": same and len({repr(h) for h in hashes}) == 1,
+            "hashes_per_step": len(hashes[0])}
+
+
+def _card_job(mesh, **kw) -> dict:
+    """:func:`train_mesh_rank`, the card phase's rank program, on a mesh of
+    ``mesh``'s shape (a rehearsal at a cut size)."""
+    return train_mesh_rank(shape=mesh.sizes, **kw)
+
+
+_TRAIN_JOBS = {"collectives": _collectives_job, "step": _step_job, "trainer": _trainer_job, "card": _card_job}
+
+
+def train_lm_rank(jobs: list) -> list:
+    """Every training job ``(kind, shape, kwargs)`` of the list, in order,
+    each on a mesh of ``shape`` over the current ranks (the rank program of
+    the LM mesh training tests)."""
+    from .mesh import make_test_mesh
+
+    out = []
+    for kind, shape, kw in jobs:
+        axes = ("pod", "data", "model") if len(shape) == 3 else ("data", "model")
+        out.append(_TRAIN_JOBS[kind](make_test_mesh(tuple(shape), axes), **kw))
+    return out
+
+
+# ------------------------------------------------------ LM mesh training, card
+
+
+def train_mesh_batches(cfg, seed: int, device, n: int, *, rows: int = 8, seq_len: int = 512,
+                       data_vocab: int = 8192) -> list:
+    """``n`` global batches of phase "train mesh": ``rows`` × ``seq_len``
+    tokens over the ids below ``data_vocab`` drawn on ``device`` from
+    ``seed`` (the same on every rank), 4 groups weighted (1, 0.5, 1, 0)."""
+    g = torch.Generator(device=device).manual_seed(seed + 7)
+    return [{"tokens": torch.randint(0, min(data_vocab, cfg.vocab), (rows, seq_len), generator=g, device=device),
+             "group_weights": torch.tensor([1.0, 0.5, 1.0, 0.0], device=device)} for _ in range(n)]
+
+
+def train_mesh_rank(seed: int, shape, oracle_path: str, remat: str = "full",
+                    cfg_overrides: Optional[dict] = None, seq_len: int = 512) -> dict:
+    """Phase "train mesh" of ``chip_smoke.py`` on one rank: qwen3-1.7b
+    (f32 parameters, bf16 compute) on a ``shape`` (data, model) mesh, the
+    rank's blocks drawn by ``init_sharded`` from ``seed`` (the meshless
+    draw's values), one train step on its rows of the first batch of
+    :func:`train_mesh_batches` under ``remat`` through the two halves of
+    ``train_step.make_train_step``: the gradients it applies (reduced over
+    the replicated axes) held block by block against the meshless oracle
+    in ``oracle_path`` (``{"grads", "loss", "grad_norm", "top"}``, read
+    memory-mapped), then AdamW on the blocks.  Returns every
+    rank's figures: parameters held, peak memory, seconds, flash launches
+    and their shape, the collectives' count, bytes and seconds by kind, the
+    gaps, the moments' shapes against ``state_shardings``' blocks.
+    ``cfg_overrides`` and ``seq_len`` cut the model (a rehearsal at the
+    smoke size on the CPU)."""
+    import torch.distributed as dist
+
+    from ..models import attention as A
+    from ..models.registry import get_config
+    from ..train.optimizer import AdamWConfig, moment_blocks
+    from ..train.train_step import init_train_state, make_train_step
+    from . import collectives as C
+    from .distributed import _RANK_DEVICE, _sync
+    from .mesh import make_test_mesh
+    from .sharding import _block_of, local_rows, make_context
+
+    dev = _RANK_DEVICE[0] or torch.device("cpu")
+    sync = lambda: _sync(dev)  # noqa: E731
+    cfg = get_config("qwen3-1.7b", **(cfg_overrides or {}))
+    mesh = make_test_mesh(tuple(shape))
+    ctx = make_context(mesh, remat=remat)
+    _reset_peak(dev)
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, generator=torch.Generator(device=dev).manual_seed(seed), mesh=mesh)
+    sync()
+    draw_s = time.perf_counter() - t0
+    params = dict(state.params.named_parameters())
+    held = sum(p.numel() for p in params.values())
+    batch = train_mesh_batches(cfg, seed, dev, 1, seq_len=seq_len)[0]
+    rows = {"tokens": local_rows(batch["tokens"], mesh), "group_weights": batch["group_weights"]}
+    (h0, h1), (k0, k1), pick, _ = A.local_heads(state.params.blocks[0].attn, cfg, ctx)
+    kv = len(pick) if pick is not None else k1 - k0
+    flash_shape = (rows["tokens"].shape[0], seq_len, seq_len, h1 - h0, kv, cfg.head_dim)
+    C.STATS.timing = {}
+    C.STATS.reset()
+    dispatch.reset_launch_counts()
+    sync()
+    step = make_train_step(cfg, ctx, AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=8))
+    t0 = time.perf_counter()
+    loss, metrics, grads = step.grads(state, rows)
+    sync()
+    grad_s = time.perf_counter() - t0
+    launches = dispatch.launch_counts()
+    specs = {n: getattr(p, "mesh_spec", None) for n, p in params.items()}
+    t0 = time.perf_counter()
+    state, om = step.apply(state, loss, metrics, grads)
+    opt = state.opt
+    sync()
+    update_s = time.perf_counter() - t0
+    sums = {"calls": dict(C.STATS.calls), "bytes": dict(C.STATS.bytes), "seconds": dict(C.STATS.timing)}
+    C.STATS.timing = None
+    peak = _peak(dev)
+    oracle = torch.load(oracle_path, mmap=True)
+    floor = 1e-5 * oracle["top"]
+    worst, where = 0.0, None
+    for name, g in grads.items():
+        want = _block_of(oracle["grads"][name], specs[name] or (None,) * g.dim(), mesh).to(dev)
+        gap = float((g.float() - want).abs().max()) / max(float(want.abs().max()), floor)
+        if gap > worst:
+            worst, where = gap, name
+        del want
+    blocks = moment_blocks(params, mesh)
+    moments_ok = all(tuple(opt.m[n].shape) == tuple(opt.v[n].shape) == blocks[n] for n in params)
+    mine = {"coords": mesh.coords, "params_held": held, "draw_s": draw_s, "grad_s": grad_s,
+            "update_s": update_s, "step_s": grad_s + update_s, "peak_gib": peak, "launches": launches,
+            "flash_shape": flash_shape, "sums": sums, "grad_gap": worst, "grad_gap_at": where,
+            "loss": float(loss), "grad_norm": float(om["grad_norm"]), "tokens": float(metrics["tokens"]),
+            "moments_ok": moments_ok}
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    return {"ranks": ranks, "oracle_loss": oracle["loss"], "oracle_grad_norm": oracle["grad_norm"]}

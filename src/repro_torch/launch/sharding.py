@@ -44,6 +44,8 @@ from .mesh import axis_sizes
 
 __all__ = [
     "batch_shardings",
+    "block_shape",
+    "full_shape",
     "cache_shardings",
     "gather_rows",
     "init_sharded",
@@ -52,6 +54,7 @@ __all__ = [
     "param_spec",
     "param_shardings",
     "shard_model",
+    "split_axes",
     "state_shardings",
 ]
 
@@ -127,12 +130,12 @@ def _axes_of(mesh):
     return batch, model, fsdp
 
 
-def make_context(mesh, *, attn_impl: str = "auto", moe_routing: str = "pjit") -> T.ModelContext:
+def make_context(mesh, *, attn_impl: str = "auto", moe_routing: str = "pjit", remat: str = "none") -> T.ModelContext:
     if mesh is None:
-        return T.ModelContext(attn_impl=attn_impl, moe_routing=moe_routing)
+        return T.ModelContext(attn_impl=attn_impl, moe_routing=moe_routing, remat=remat)
     batch, model, fsdp = _axes_of(mesh)
     return T.ModelContext(mesh=mesh, batch_axes=batch, model_axis=model, fsdp_axis=fsdp,
-                          attn_impl=attn_impl, moe_routing=moe_routing)
+                          attn_impl=attn_impl, moe_routing=moe_routing, remat=remat)
 
 
 def _path_str(path) -> str:
@@ -266,6 +269,25 @@ def cache_shardings(cache, mesh, batch_size: int, *, layout: str = "feature"):
 
 
 # ------------------------------------------------------------------ blocks
+
+
+def split_axes(spec) -> tuple:
+    """The mesh axes a spec splits its tensor over, in the order of its dims."""
+    out = []
+    for ax in spec or ():
+        out += [a for a in ((ax,) if isinstance(ax, str) else (ax or ())) if a not in out]
+    return tuple(out)
+
+
+def block_shape(shape, spec, mesh) -> tuple:
+    """The shape of a rank's block of a tensor of ``shape`` under ``spec``."""
+    return tuple(d // mesh.shape[ax] if isinstance(ax, str) else d for d, ax in zip(shape, spec))
+
+
+def full_shape(block, spec, mesh) -> tuple:
+    """The shape of the whole tensor whose blocks under ``spec`` have the
+    shape ``block``."""
+    return tuple(d * mesh.shape[ax] if isinstance(ax, str) else d for d, ax in zip(block, spec))
 
 
 def _block_of(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:

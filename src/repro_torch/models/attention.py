@@ -15,7 +15,11 @@ gathered), the meshless model's product to the bit.  Where the KV heads
 do not divide the model axis (GQA with KV < m), ``wk``/``wv`` are
 gathered and the rank keeps the KV heads its query heads read.  Otherwise
 every rank runs all heads on its rows with the weights gathered.  The
-decode cache holds the rank's KV heads of its rows."""
+decode cache holds the rank's KV heads of its rows.  In training the
+projections to the rank's heads are ``collectives.split_linear``
+products (under the GQA fallback the input passes
+``collectives.enter`` to the KV heads instead, whose counts may differ
+between ranks)."""
 
 from __future__ import annotations
 
@@ -69,11 +73,20 @@ def local_heads(p, cfg: ModelConfig, ctx=None):
 def _project_qkv(p, x, cfg: ModelConfig, positions, compute_dtype, ctx=None):
     B, T, _ = x.shape
     dh = cfg.head_dim
-    (h0, h1), (k0, k1), pick, _ = local_heads(p, cfg, ctx)
+    (h0, h1), (k0, k1), pick, split = local_heads(p, cfg, ctx)
     xc = x.to(compute_dtype)
-    q = xc @ L.weight(p["wq"], ctx, 1, h0 * dh, h1 * dh).to(compute_dtype)
-    k = xc @ L.weight(p["wk"], ctx, 1, k0 * dh, k1 * dh).to(compute_dtype)
-    v = xc @ L.weight(p["wv"], ctx, 1, k0 * dh, k1 * dh).to(compute_dtype)
+
+    def proj(name, a, b, even=True):
+        w = L.weight(p[name], ctx, 1, a * dh, b * dh).to(compute_dtype)
+        if not split:
+            return xc @ w
+        if even:  # every rank the same count of columns
+            return C.split_linear(xc, w, ctx.mesh, ctx.model_axis)
+        return C.enter(xc, ctx.mesh, ctx.model_axis) @ w
+
+    q = proj("wq", h0, h1)
+    k = proj("wk", k0, k1, pick is None)
+    v = proj("wv", k0, k1, pick is None)
     if cfg.qkv_bias:
         q = q + L.weight(p["bq"], ctx, 0, h0 * dh, h1 * dh).to(compute_dtype)
         k = k + L.weight(p["bk"], ctx, 0, k0 * dh, k1 * dh).to(compute_dtype)
@@ -83,9 +96,10 @@ def _project_qkv(p, x, cfg: ModelConfig, positions, compute_dtype, ctx=None):
     v = v.reshape(B, T, k1 - k0, dh)
     if pick is not None:  # one KV head per query head
         k, v = k[:, :, pick], v[:, :, pick]
-    if cfg.qk_norm:
-        q = L.rmsnorm(q, p["q_norm"], eps=cfg.rms_eps)
-        k = L.rmsnorm(k, p["k_norm"], eps=cfg.rms_eps)
+    if cfg.qk_norm:  # the norms, alike on every model rank, read at the rank's heads
+        qn, kn = (C.enter(p[n], ctx.mesh, ctx.model_axis) if split else p[n] for n in ("q_norm", "k_norm"))
+        q = L.rmsnorm(q, qn, eps=cfg.rms_eps)
+        k = L.rmsnorm(k, kn, eps=cfg.rms_eps)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

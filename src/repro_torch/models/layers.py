@@ -102,15 +102,22 @@ def mlp_apply(p, x, *, act: str, compute_dtype, ctx=None):
     model axis splits the ``d_ff`` columns of ``up``, each model rank runs
     its columns of gate and up, the hidden activations are gathered whole
     over the model axis, and every rank runs the whole down projection
-    (its weight gathered): the meshless model's product, to the bit."""
+    (its weight gathered): the meshless model's product, to the bit.  The
+    split columns are ``collectives.split_linear`` products, whose backward
+    forms the input's cotangent whole."""
     lo, hi, split = tp_part(p["up"], 1, ctx)
     xc = x.to(compute_dtype)
+
+    def cols(name):
+        w = weight(p[name], ctx, 1, lo, hi).to(compute_dtype)
+        return C.split_linear(xc, w, ctx.mesh, ctx.model_axis) if split else xc @ w
+
     if "gate" in p:
-        g = xc @ weight(p["gate"], ctx, 1, lo, hi).to(compute_dtype)
-        u = xc @ weight(p["up"], ctx, 1, lo, hi).to(compute_dtype)
+        g = cols("gate")
+        u = cols("up")
         h = (F.silu(g) if act == "silu_glu" else _gelu(g)) * u
     else:
-        h = _gelu(xc @ weight(p["up"], ctx, 1, lo, hi).to(compute_dtype))
+        h = _gelu(cols("up"))
     if split:
         h = C.gather(h, ctx.mesh, ctx.model_axis, -1)
     return h @ weight(p["down"], ctx).to(compute_dtype)
@@ -150,7 +157,9 @@ def tp_part(w, dim: int, ctx, unit: int = 1):
 def weight(w, ctx, dim=None, lo: int = 0, hi=None):
     """The full tensor w, or its slice [lo, hi) along ``dim``: the local
     block's part when the spec splits ``dim`` and this rank's block covers
-    the slice, gathered over every other split dim's axis."""
+    the slice, gathered over every other split dim's axis.  A slice of a
+    tensor that the model ranks hold alike passes ``collectives.enter``
+    first (each rank's slice is its own)."""
     spec = _spec(w)
     if spec is None or ctx is None or ctx.mesh is None:
         if dim is None or (lo == 0 and hi in (None, w.shape[dim])):
@@ -168,7 +177,8 @@ def weight(w, ctx, dim=None, lo: int = 0, hi=None):
         else:
             w = C.gather(w, mesh, ax, i)
     if dim is not None and not (lo == 0 and hi in (None, w.shape[dim])):
-        w = w.narrow(dim, lo, hi - lo)
+        # The model ranks hold w alike and each reads its own slice.
+        w = C.enter(w, mesh, ctx.model_axis).narrow(dim, lo, hi - lo)
     return w
 
 

@@ -288,8 +288,11 @@ def moe_apply(p: MoE, x, cfg: ModelConfig, ctx=None):
         w_sparse, aux = _routing(p.router, x_flat, m, mesh, ctx.batch_axes)
     else:
         raise ValueError(f"moe_apply: routing {ctx.moe_routing!r}, expected 'pjit' or 'local'")
+    # The tokens and the combine weights, alike on every model rank, enter
+    # the rank's experts (collectives.enter: their cotangents are summed).
     eo, idx, vals = _expert_outputs(
-        x_flat, w_sparse[:, lo:hi], L.weight(p.w_gate, ctx, 0, lo, hi), L.weight(p.w_up, ctx, 0, lo, hi),
+        C.enter(x_flat, mesh, ctx.model_axis), C.enter(w_sparse, mesh, ctx.model_axis)[:, lo:hi],
+        L.weight(p.w_gate, ctx, 0, lo, hi), L.weight(p.w_up, ctx, 0, lo, hi),
         L.weight(p.w_down, ctx, 0, lo, hi), capacity(n, m), compute_dtype)
     out = C.chain(lambda start: _combine(eo, idx, vals, n, min(m.top_k, e_loc), start),
                   torch.zeros((n, d), dtype=eo.dtype, device=eo.device), mesh, ctx.model_axis)

@@ -50,14 +50,30 @@ over ``model``), attention, MLP, MoE and sLSTM blocks run as their modules
 say, and the mLSTM, RG-LRU and local-attention blocks run whole on the
 rank's rows with their weights gathered.  Each rank returns its rows'
 logits with the vocabulary whole; every model rank of a data shard
-returns the same bits.  The serving entry points and a forward without
-gradients run on a mesh; training on one (a differentiable forward,
-autograd through the collectives) is ROADMAP item 9.2 and raises.
+returns the same bits.
+
+Training on a mesh differentiates through the collectives
+(``launch.collectives``: over the batch axes shard_map's unreplicated
+transposes, each rank backpropagating ``loss / nd`` over the nd data
+shards, the shards' parts of a gradient summed; over ``model`` Megatron's
+rule, every model rank holding the whole cotangent of what the model
+ranks hold alike, the split products' backward formed whole).
+:func:`loss_fn` sums each group's Σ ce·m and Σ m by the rows' GLOBAL
+index over the batch axes, so every rank returns the global loss and
+metrics (``train.train_step`` sums each block's gradient over the batch
+axes its spec leaves replicated).  :func:`forward_train` orders the
+collectives of its backward (``collectives.sequence``) and, with
+``ctx.remat`` ``full`` or ``dots``, recomputes each layer's block in the
+backward (``torch.utils.checkpoint``, non-reentrant, early stop off so
+that a recompute issues all of the block's collectives on every rank),
+meshless too, as the reference does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Any, Optional
 
 import torch
@@ -88,6 +104,7 @@ __all__ = [
     "prefill",
 ]
 
+_REMAT = ("none", "full", "dots")
 _BLOCKS = ("attn_mlp", "attn_moe", "lattn_mlp", "mlstm", "slstm", "rglru_mlp")  # every block type of the reference
 
 
@@ -98,6 +115,9 @@ class ModelContext:
     card, the plain version on the CPU; a local-attention layer's window
     takes the chunked attention on both), ``cuda``, ``torch_ref`` or
     ``torch_chunked`` (``cuda`` and ``torch_ref`` refuse a window).
+    ``remat`` is ``none``, ``full`` (each layer's block recomputed in the
+    backward) or ``dots`` (the same, keeping the outputs of the
+    unbatched matmuls: the reference's ``dots_with_no_batch_dims_saveable``).
     ``mesh`` is a :class:`~repro_torch.launch.mesh.Mesh` or ``None``;
     ``batch_axes``, ``model_axis`` and ``fsdp_axis`` name its axes
     (``launch.sharding.make_context`` fills them).  ``moe_routing`` is
@@ -111,10 +131,13 @@ class ModelContext:
     fsdp_axis: Optional[str] = None
     moe_routing: str = "pjit"  # pjit | local
     collective_dtype: str = "default"
+    remat: str = "none"  # none | full | dots
 
     def __post_init__(self):
         if self.mesh is not None and not isinstance(self.mesh, Mesh):
             raise TypeError(f"ModelContext: mesh must be a launch.mesh.Mesh, got {type(self.mesh).__name__}")
+        if self.remat not in _REMAT:
+            raise ValueError(f"ModelContext: remat {self.remat!r}, expected one of {_REMAT}")
 
     @property
     def batch_spec(self):
@@ -125,7 +148,7 @@ class ModelContext:
     def local(self) -> "ModelContext":
         """The meshless context with the same switches (a block that runs
         whole on the rank's rows)."""
-        return ModelContext(attn_impl=self.attn_impl, moe_routing=self.moe_routing)
+        return ModelContext(attn_impl=self.attn_impl, moe_routing=self.moe_routing, remat=self.remat)
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -370,9 +393,10 @@ def _logits(model: Transformer, x, cfg: ModelConfig, ctx: Optional[ModelContext]
     else:
         lo, hi, split = L.tp_part(model.lm_head, 1, ctx)
         head = L.weight(model.lm_head, ctx, 1, lo, hi)
-    logits = x.to(cd) @ head.to(cd)
     if split:
-        logits = C.gather(logits, ctx.mesh, ctx.model_axis, -1)
+        logits = C.split_linear(x.to(cd), head.to(cd), ctx.mesh, ctx.model_axis, gather_out=True)
+    else:
+        logits = x.to(cd) @ head.to(cd)
     if cfg.num_codebooks > 0:
         return logits.reshape(*x.shape[:2], cfg.num_codebooks, cfg.vocab)
     return logits
@@ -381,24 +405,59 @@ def _logits(model: Transformer, x, cfg: ModelConfig, ctx: Optional[ModelContext]
 # ------------------------------------------------------------------ train
 
 
+def _saved_by_dots(ctx, op, *args, **kwargs):
+    """``dots``: keep the outputs of the unbatched matmuls, recompute the
+    rest (the batched attention products and the flash Function too)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_apply(blk, x, cfg: ModelConfig, ctx: ModelContext, positions):
+    """One block under ``ctx.remat``: (x, aux or None).  The block's output
+    is multiplied by a ones tensor made inside it, so the first node of
+    the block that the backward reaches unpacks a saved tensor: every rank
+    recomputes the block before any of its backward collectives runs."""
+    from torch.utils import checkpoint as ckpt
+
+    def run(x):
+        y, a, _ = _block_apply(blk, x, cfg, ctx, positions)
+        return y * torch.ones((), dtype=y.dtype, device=y.device), a
+
+    kw = {}
+    if ctx.remat == "dots":
+        kw["context_fn"] = functools.partial(ckpt.create_selective_checkpoint_contexts, _saved_by_dots)
+    with ckpt.set_checkpoint_early_stop(False):
+        return ckpt.checkpoint(run, x, use_reentrant=False, **kw)
+
+
 def forward_train(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
     """Full forward, differentiable.  ``batch``: ``tokens`` (B, T), or
     (B, K, T) for a codebook model, and for a prefix model optionally
     ``prefix_embeds`` (B, P, d).  Returns (logits (B, P + T, V) or
     (B, T, K, V), aux (the layers' MoE aux losses summed, f32; 0 without
-    MoE), label_mask (B, P + T)).  Under a mesh, the rank's rows and no
-    gradient (training on a mesh is ROADMAP item 9.2)."""
-    if ctx.mesh is not None and torch.is_grad_enabled():
-        raise NotImplementedError("forward_train: training on an LM mesh is not ported yet (ROADMAP queue 1, "
-                                  "item 9.2); run the forward under torch.no_grad()")
-    x, mask = _embed(model, batch, cfg, ctx)
-    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for blk in model.blocks:
-        x, a, _ = _block_apply(blk, x, cfg, ctx, positions)
-        if a is not None:
-            aux = aux + a
-    return _logits(model, x, cfg, ctx), aux, mask
+    MoE), label_mask (B, P + T)).  Under a mesh, the rank's rows; with
+    grad mode on, the collectives' backward is ordered and the last token
+    of the order is folded into aux with weight 0."""
+    grad = torch.is_grad_enabled()
+    ordered = C.sequence(model.embed.device) if grad and ctx.mesh is not None else contextlib.nullcontext(False)
+    with ordered as opened:
+        x, mask = _embed(model, batch, cfg, ctx)
+        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for blk in model.blocks:
+            if grad and ctx.remat != "none":
+                x, a = _remat_apply(blk, x, cfg, ctx, positions)
+            else:
+                x, a, _ = _block_apply(blk, x, cfg, ctx, positions)
+            if a is not None:
+                aux = aux + a
+        logits = _logits(model, x, cfg, ctx)
+        if opened:
+            aux = aux + 0.0 * C.sequence_token()
+    return logits, aux, mask
 
 
 def _label_ce(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
@@ -420,40 +479,70 @@ def _label_ce(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
     return ce, mask[:, prefix:][:, 1:], aux
 
 
+def _group_sums(ce, m, groups: int, ctx: ModelContext):
+    """Each group's Σ ce·m and Σ m (groups,) over the GLOBAL batch, whose
+    rows split group-major into ``groups`` equal groups.  Meshless, or with
+    one data shard, the reshape of the reference; otherwise each local
+    row's sums go to the group of its global index (the data shard's
+    rows, row-major over the batch axes, as ``launch.sharding.local_rows``
+    slices them) and the partial sums are summed over the batch axes."""
+    nd, shard = M._data_shard(ctx.mesh, ctx.batch_axes) if ctx.mesh is not None else (1, 0)
+    if nd == 1:
+        ce_g, m_g = ce.reshape(groups, -1), m.reshape(groups, -1)
+        return torch.sum(ce_g * m_g, dim=1), torch.sum(m_g, dim=1)
+    rows = ce.shape[0]
+    if (rows * nd) % groups:
+        raise ValueError(f"loss_fn: a global batch of {rows} x {nd} rows does not split into {groups} groups")
+    per = rows * nd // groups
+    grp = torch.div(shard * rows + torch.arange(rows, device=ce.device), per, rounding_mode="floor")
+    part = torch.zeros((2, groups), dtype=ce.dtype, device=ce.device)
+    part = part.index_add(1, grp, torch.stack([torch.sum(ce * m, dim=1), torch.sum(m, dim=1)]))
+    s, c = C.psum(part, ctx.mesh, ctx.batch_axes).unbind(0)
+    return s, c
+
+
 def loss_fn(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
     """Group-weighted causal-LM cross entropy, as the reference's.
 
     ``batch["group_weights"]`` (G,) carries the paper's recovery weights
-    b_g (zero at straggling groups); the batch's leading dim must be
+    b_g (zero at straggling groups); the global batch's leading dim must be
     divisible by G, and the loss is Σ_g b_g·L_g / max(Σ_g b_g, 1e-6) over
     the per-group masked means L_g.  Without the key, plain uniform
     weighting.  A codebook model's CE is the mean over its K codebooks; a
     prefix model's labels start after the prefix.  The MoE aux term
     ``router_aux_weight · aux / n_layers`` is added.  Returns (total,
-    metrics {"ce", "aux", "tokens"})."""
+    metrics {"ce", "aux", "tokens"}).  Under a mesh ``batch`` holds the
+    rank's rows and the loss and metrics are the global batch's, the same
+    on every rank (:func:`_group_sums`)."""
     ce, m, aux = _label_ce(model, batch, cfg, ctx)
     gw = batch.get("group_weights")
     if gw is None:
-        loss = torch.sum(ce * m) / torch.clamp_min(torch.sum(m), 1.0)
+        if ctx.mesh is None:
+            s, c = torch.sum(ce * m), torch.sum(m)
+        else:
+            s, c = _group_sums(ce, m, 1, ctx)
+            s, c = s[0], c[0]
+        loss = s / torch.clamp_min(c, 1.0)
+        tokens = c
     else:
-        G = gw.shape[0]
-        ce_g, m_g = ce.reshape(G, -1), m.reshape(G, -1)
-        per_group = torch.sum(ce_g * m_g, dim=1) / torch.clamp_min(torch.sum(m_g, dim=1), 1.0)
+        s, c = _group_sums(ce, m, gw.shape[0], ctx)
+        per_group = s / torch.clamp_min(c, 1.0)
         loss = torch.sum(gw * per_group) / torch.clamp_min(torch.sum(gw), 1e-6)
+        tokens = torch.sum(m) if ctx.mesh is None else torch.sum(c)
     aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
     total = loss + aux_w * aux / max(1, cfg.n_layers)
-    return total, {"ce": loss, "aux": aux, "tokens": torch.sum(m)}
+    return total, {"ce": loss, "aux": aux, "tokens": tokens}
 
 
 def group_losses(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext, groups: int):
     """One forward of the batch split group-major into ``groups`` equal
     groups of rows: (each group's masked mean CE (groups,), each group's
     label count (groups,), aux over the whole batch).  ``loss_fn`` is
-    their ``group_weights``-weighted mean."""
+    their ``group_weights``-weighted mean.  Under a mesh, the groups of the
+    global batch (:func:`_group_sums`)."""
     ce, m, aux = _label_ce(model, batch, cfg, ctx)
-    ce_g, m_g = ce.reshape(groups, -1), m.reshape(groups, -1)
-    tok = torch.sum(m_g, dim=1)
-    return torch.sum(ce_g * m_g, dim=1) / torch.clamp_min(tok, 1.0), tok, aux
+    s, tok = _group_sums(ce, m, groups, ctx)
+    return s / torch.clamp_min(tok, 1.0), tok, aux
 
 
 # ------------------------------------------------------------------ serve

@@ -310,11 +310,17 @@ def _slstm_cell(r, pre, state):
 def _slstm_gates(p: SLSTMBlock, xn, cfg: ModelConfig, cols=(0, None), ctx=None):
     """The input projections of the four gates: (..., H, 4·dh) f32 from
     xn (..., d) in the compute dtype, at the columns [lo, hi) of whole
-    heads given."""
+    heads given (under a mesh, the rank's: ``collectives.split_linear``)."""
     cd = _cd(cfg)
     lo, hi = cols
     dh = cfg.d_model // cfg.n_heads
-    pre = [(xn @ L.weight(getattr(p, f"w_{g}"), ctx, 1, lo, hi).to(cd)
+
+    def mm(w):
+        if ctx is not None and ctx.mesh is not None:
+            return C.split_linear(xn, w, ctx.mesh, ctx.model_axis)
+        return xn @ w
+
+    pre = [(mm(L.weight(getattr(p, f"w_{g}"), ctx, 1, lo, hi).to(cd))
             + L.weight(getattr(p, f"b_{g}"), ctx, 0, lo, hi).to(cd)).float() for g in _GATES]
     return torch.stack([t.unflatten(-1, (-1, dh)) for t in pre], dim=-2).flatten(-2)
 

@@ -8,6 +8,19 @@ gradients with ``torch.autograd.grad`` (nothing is left in ``.grad``) and
 updates them and the moments in place.  The mesh-native resilient path's
 pieces are :func:`make_group_grad_fn` (per-group gradients for the
 executor's Lemma-3 combine) and :func:`make_recovered_apply_fn`.
+
+Under an LM mesh (``ctx.mesh``, from ``launch.sharding.make_context``) the
+model holds this rank's blocks and the batch this rank's rows
+(``launch.sharding.local_rows``).  The step backpropagates ``loss /
+nd`` over the nd data shards through the collectives
+(``launch.collectives``: a gathered weight's gradient comes back summed
+over ``data`` into its block, the FSDP reduction; the model ranks hold
+whole cotangents), then sums each block's gradient over the batch axes its
+spec leaves replicated (the data-parallel sum), in one ``all_reduce`` per
+set of axes and dtype;
+the global norm and AdamW run on the blocks.  ``accum_steps > 1`` needs
+whole groups on every data shard.  Compression on a mesh raises
+(ROADMAP item 9.3).
 """
 
 from __future__ import annotations
@@ -16,6 +29,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from ..models import moe as M
 from ..models import transformer as T
 from ..models.registry import ModelConfig
 from .compression import CompressionConfig, compress_with_error_feedback, init_ef_state
@@ -26,8 +40,10 @@ __all__ = [
     "init_train_state",
     "make_train_step",
     "make_eval_step",
+    "make_grad_fn",
     "make_group_grad_fn",
     "make_recovered_apply_fn",
+    "reduce_block_grads",
 ]
 
 
@@ -39,15 +55,67 @@ class TrainState(NamedTuple):
 
 def init_train_state(
     cfg: ModelConfig, *, generator: torch.Generator, compression: Optional[CompressionConfig] = None,
-    model=None,
+    model=None, mesh=None,
 ) -> TrainState:
     """A fresh state on ``generator``'s device: random weights drawn from
     it (or ``model``, e.g. weights carried from the reference), zero
-    moments, zero error-feedback buffers when compression is on."""
+    moments, zero error-feedback buffers when compression is on.  Under a
+    ``mesh`` the rank's blocks: drawn by ``launch.sharding.init_sharded``
+    (the meshless draw's values), or ``model`` narrowed by
+    ``launch.sharding.shard_model``; the moments on the same blocks."""
+    if mesh is not None:
+        from ..launch.sharding import init_sharded, shard_model
+
+        _no_mesh_compression(compression)
+        model = shard_model(model, mesh) if model is not None else init_sharded(cfg, generator=generator, mesh=mesh)
     model = model if model is not None else T.init_params(cfg, generator=generator)
     params = dict(model.named_parameters())
     ef = init_ef_state(params) if (compression and compression.enabled) else None
-    return TrainState(params=model, opt=init_opt_state(params), ef=ef)
+    return TrainState(params=model, opt=init_opt_state(params, mesh), ef=ef)
+
+
+def _no_mesh_compression(compression) -> None:
+    if compression is not None and compression.enabled:
+        raise NotImplementedError(
+            "compression on an LM mesh is not ported (ROADMAP queue 1, item 9.3): the reference quantizes the "
+            "global tensors in blocks of 256 along their last dim, and a rank holds only its blocks")
+
+
+def _data_shards(ctx: T.ModelContext) -> int:
+    """The number of data shards of ``ctx``'s mesh (1 without one)."""
+    return M._data_shard(ctx.mesh, ctx.batch_axes)[0] if ctx.mesh is not None else 1
+
+
+def _specs(params: dict) -> dict:
+    return {n: getattr(p, "mesh_spec", None) for n, p in params.items()}
+
+
+@torch.no_grad()
+def reduce_block_grads(grads: dict, params: dict, mesh) -> dict:
+    """Each block's gradient summed over the live batch axes its
+    parameter's spec does not split (all of them for an untagged
+    parameter; the model ranks hold the whole already,
+    ``launch.collectives``): one ``all_reduce`` (kind ``grad_sum``) per
+    set of axes and dtype, of the gradients concatenated flat in name
+    order."""
+    from ..launch import collectives as C
+    from ..launch.sharding import split_axes
+
+    if mesh is None or mesh.size == 1:
+        return grads
+    buckets: dict = {}
+    for n, g in grads.items():
+        spec = getattr(params[n], "mesh_spec", None)
+        axes = tuple(a for a in C.live_axes(mesh, mesh.axis_names) if a != C.MODEL and a not in split_axes(spec))
+        if axes:
+            buckets.setdefault((axes, g.dtype), []).append(n)
+    out = dict(grads)
+    for (axes, _), names in buckets.items():
+        flat = torch.cat([grads[n].reshape(-1) for n in names])
+        flat = C.psum(flat, mesh, axes, kind="grad_sum")
+        for n, part in zip(names, flat.split([grads[n].numel() for n in names])):
+            out[n] = part.view_as(grads[n])
+    return out
 
 
 def _split_microbatches(batch: dict, accum: int, num_groups: int) -> dict:
@@ -71,6 +139,25 @@ def _split_microbatches(batch: dict, accum: int, num_groups: int) -> dict:
     return out
 
 
+def make_grad_fn(cfg: ModelConfig, ctx: T.ModelContext):
+    """Returns grad_of(model, batch) -> (loss, metrics, grads): the loss
+    and metrics detached, and each parameter's gradient by name (zeros
+    where it has none).  Under ``ctx.mesh`` the rank backpropagates
+    ``loss / nd`` over the nd data shards, so each block's gradient is the
+    rank's share: :func:`reduce_block_grads` sums the shares."""
+    nd = _data_shards(ctx)
+
+    def grad_of(model, batch):
+        names, params = zip(*model.named_parameters())
+        loss, metrics = T.loss_fn(model, batch, cfg, ctx)
+        share = loss if nd == 1 else loss * (1.0 / nd)
+        grads = torch.autograd.grad(share, params, allow_unused=True)
+        grads = {n: torch.zeros_like(p) if g is None else g for n, p, g in zip(names, params, grads)}
+        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+    return grad_of
+
+
 def make_train_step(
     cfg: ModelConfig,
     ctx: T.ModelContext,
@@ -86,22 +173,32 @@ def make_train_step(
     group-aligned microbatches: the gradients summed in f32, then divided
     by A, the loss and ce the means of the microbatches' (aux and tokens
     read 0, as in the reference).  The metrics are 0-dim tensors, but
-    ``lr``, a float."""
+    ``lr``, a float.  Under ``ctx.mesh`` the batch is the rank's rows and
+    the state the rank's blocks (module docstring); the metrics are the
+    global ones, the same on every rank.
 
-    def grad_of(model, batch):
-        names, params = zip(*model.named_parameters())
-        loss, metrics = T.loss_fn(model, batch, cfg, ctx)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = {n: torch.zeros_like(p) if g is None else g for n, p, g in zip(names, params, grads)}
-        return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+    The step's two halves are ``train_step.grads(state, batch) -> (loss,
+    metrics, grads)``, the gradients it applies (accumulated, each block
+    reduced over the axes that replicate it), and ``train_step.apply(state,
+    loss, metrics, grads) -> (state, metrics)``; ``train_step(state,
+    batch)`` is the one after the other."""
+    mesh = ctx.mesh
+    if mesh is not None:
+        _no_mesh_compression(compression)
+    grad_of = make_grad_fn(cfg, ctx)
 
-    def train_step(state: TrainState, batch):
+    def step_grads(state: TrainState, batch):
         if accum_steps == 1:
             loss, metrics, grads = grad_of(state.params, batch)
         else:
             gw = batch.get("group_weights")
             G = num_groups or (gw.shape[0] if gw is not None else 1)
-            micro = _split_microbatches(batch, accum_steps, G)
+            nd = _data_shards(ctx)
+            if G % nd:
+                raise ValueError(f"make_train_step: accum_steps={accum_steps} needs whole groups on every data "
+                                 f"shard; {G} groups over the {nd} data shards of the mesh {dict(mesh.shape)} "
+                                 f"split a group")
+            micro = _split_microbatches(batch, accum_steps, G // nd)
             gsum, losses, ces = None, [], []
             for a in range(accum_steps):
                 mb = {k: v[a] for k, v in micro.items() if k != "group_weights"}
@@ -120,15 +217,24 @@ def make_train_step(
             loss = torch.stack(losses).mean()
             zero = torch.zeros((), device=loss.device)
             metrics = {"ce": torch.stack(ces).mean(), "aux": zero, "tokens": zero}
+        return loss, metrics, reduce_block_grads(grads, dict(state.params.named_parameters()), mesh)
+
+    def apply(state: TrainState, loss, metrics, grads):
+        params = dict(state.params.named_parameters())
         ef = state.ef
         if compression is not None and compression.enabled:
             grads, ef = compress_with_error_feedback(compression, grads, ef)
-        _, opt, opt_metrics = adamw_update(opt_cfg, dict(state.params.named_parameters()), grads, state.opt)
+        _, opt, opt_metrics = adamw_update(opt_cfg, params, grads, state.opt, mesh, _specs(params))
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
         return TrainState(params=state.params, opt=opt, ef=ef), metrics
 
+    def train_step(state: TrainState, batch):
+        return apply(state, *step_grads(state, batch))
+
+    train_step.grads = step_grads
+    train_step.apply = apply
     return train_step
 
 

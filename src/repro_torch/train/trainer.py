@@ -26,6 +26,17 @@ caller asks for the CPU).  Two recovery paths:
   (some shard with no alive replica) run the host-solved best-effort
   weights through the same step as ``b_override``.  Each step makes one
   device-to-host read, of all its scalars.
+
+The host path also runs on an LM mesh (``ctx`` from
+``launch.sharding.make_context``, inside a rank program such as
+``launch.mesh_runs.train_lm_rank``), as the reference reaches its mesh:
+each rank holds its blocks of the weights and the moments, draws the same
+global batch, pattern and host solve as every other rank, feeds its rows
+(``launch.sharding.local_rows``) to the mesh step
+(``train_step.make_train_step``), and records a hash of the step's losses,
+recovery weights and pattern (``lockstep``), equal on every rank.  The
+mesh-native path with an LM mesh does not exist in the reference and
+raises; checkpoints and compression on an LM mesh raise (ROADMAP item 9.3).
 """
 
 from __future__ import annotations
@@ -103,7 +114,9 @@ class TrainerConfig:
 class Trainer:
     """``initial_state`` (a :class:`TrainState`) replaces the random
     initial weights, e.g. weights carried from the reference; a checkpoint
-    in ``ckpt_dir`` still takes precedence, as a resume does."""
+    in ``ckpt_dir`` still takes precedence, as a resume does.  Under an LM
+    mesh (``ctx.mesh``) only its weights are taken, narrowed to the rank's
+    blocks, and the moments start from zero on the same blocks."""
 
     def __init__(
         self,
@@ -119,6 +132,15 @@ class Trainer:
             raise ValueError(
                 f"executor={tcfg.executor!r} is only consumed by the device_recovery path; the host path "
                 "always runs the single-process step (set device_recovery=True)")
+        self.mesh = None if ctx is None else ctx.mesh
+        if self.mesh is not None:
+            if tcfg.device_recovery:
+                raise ValueError("device_recovery=True runs the groups over an executor's ranks; with an LM mesh "
+                                 "in ctx it does not exist (the reference's trainer has no such path): use the "
+                                 "host path, device_recovery=False")
+            if tcfg.ckpt_dir:
+                raise NotImplementedError("checkpoints on an LM mesh are not ported (ROADMAP queue 1, item 9.3): "
+                                          "a rank holds only its blocks of the weights and moments")
         self.cfg = cfg
         self.tcfg = tcfg
         self.opt_cfg = opt_cfg or AdamWConfig(total_steps=tcfg.steps)
@@ -210,17 +232,26 @@ class Trainer:
     def init_state(self) -> tuple[TrainState, int]:
         """The initial state, or the newest checkpoint's if one exists."""
         state = self._initial_state
-        if state is None:
+        if state is None or self.mesh is not None:
             gen = torch.Generator(device=self.device).manual_seed(self.tcfg.seed)
-            state = init_train_state(self.cfg, generator=gen, compression=self.tcfg.compression)
+            model = None if state is None else state.params
+            state = init_train_state(self.cfg, generator=gen, compression=self.tcfg.compression, model=model,
+                                     mesh=self.mesh)
         start = 0
         if self.tcfg.ckpt_dir and latest_step(self.tcfg.ckpt_dir) is not None:
             state, start = restore_checkpoint(self.tcfg.ckpt_dir, state)
         return state, start
 
     def _batch(self, step: int, weights: np.ndarray) -> dict:
-        tokens = torch.from_numpy(self.pipeline.batch(step)).to(device=self.device, dtype=torch.long)
-        return {"tokens": tokens, "group_weights": torch.as_tensor(weights, device=self.device)}
+        """The step's batch: the global one, or this rank's rows of it
+        under an LM mesh; the group weights whole."""
+        tokens = torch.from_numpy(self.pipeline.batch(step))
+        if self.mesh is not None:
+            from ..launch.sharding import local_rows
+
+            tokens = local_rows(tokens, self.mesh)
+        return {"tokens": tokens.to(device=self.device, dtype=torch.long),
+                "group_weights": torch.as_tensor(weights, device=self.device)}
 
     # -------------------------------------------------- mesh-native step
 
@@ -365,6 +396,11 @@ class Trainer:
                     "covered": float(rec.covered_fraction),
                     "host_solves": self.plan.session.stats.host_solves,
                 }
+                if self.mesh is not None:
+                    from ..launch.distributed import digest
+
+                    record["lockstep"] = digest(record["loss"], record["ce"], record["grad_norm"], weights,
+                                                alive_t)
             if latencies.size == self.tcfg.num_groups:
                 # Only the deadline scenario models latency.
                 record["mean_latency"] = float(latencies.mean())

@@ -1014,3 +1014,44 @@ def test_mesh_on_card_matches_the_local_executor(cuda_device, world, backend):
     assert abs(mesh["cost"] / local.cost - 1.0) <= 1e-5
     assert len(mesh["launches"]) == world
     assert all(c["assign_min"] > 0 and c["weighted_segsum"] > 0 for c in mesh["launches"])
+
+
+@pytest.mark.gpu
+def test_mesh_train_step_on_card_matches_the_meshless_step(cuda_device, tmp_path):
+    """One train step of 2 layers at qwen3-1.7b's width (f32 parameters,
+    bf16 compute, 8 x 512 tokens) on a (1, 2) mesh of two gloo ranks on the
+    card, remat full (``mesh_runs.train_mesh_rank``, the rank program of
+    ``chip_smoke.py``'s phase "train mesh"), against the meshless gradient
+    of the same weights and batch: every gradient block within 2e-2 of its
+    parameter's scale (the bf16 band), the loss within 1e-5 and the grad
+    norm within 1e-3 relative, 2 flash launches a layer a rank (the forward
+    and its recompute), the moments on ``state_shardings``' blocks."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import distributed as mesh_dist
+    from repro_torch.launch import mesh_runs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import init_train_state, make_grad_fn
+
+    _build.build(("flash_attention",))  # once, before the ranks load it
+    overrides, seed = {"n_layers": 2}, 0
+    cfg = get_config("qwen3-1.7b", **overrides)
+    state = init_train_state(cfg, generator=torch.Generator(device=cuda_device).manual_seed(seed))
+    batch = mesh_runs.train_mesh_batches(cfg, seed, cuda_device, 1)[0]
+    loss, _, grads = make_grad_fn(cfg, T.ModelContext())(state.params, batch)
+    path = str(tmp_path / "oracle.pt")
+    torch.save({"grads": {n: g.cpu() for n, g in grads.items()}, "loss": float(loss),
+                "grad_norm": float(global_norm(grads)), "top": max(float(g.abs().max()) for g in grads.values())},
+               path)
+    del state, grads
+    torch.cuda.empty_cache()
+    rep = mesh_dist.run_ranks(mesh_runs.train_mesh_rank, 2, backend="gloo", device="cuda", timeout=600,
+                              args=(seed, (1, 2), path, "full", overrides))
+    for r in rep["ranks"]:
+        assert r["launches"]["flash_attention"] == 2 * cfg.n_layers, r["launches"]
+        assert r["flash_shape"] == (8, 512, 512, cfg.n_heads // 2, cfg.n_kv_heads // 2, cfg.head_dim)
+        assert r["grad_gap"] <= 2e-2, (r["grad_gap"], r["grad_gap_at"])
+        assert abs(r["loss"] - rep["oracle_loss"]) <= 1e-5 * abs(rep["oracle_loss"])
+        assert abs(r["grad_norm"] - rep["oracle_grad_norm"]) <= 1e-3 * rep["oracle_grad_norm"]
+        assert r["moments_ok"] and r["sums"]["calls"].get("split_bwd", 0) > 0

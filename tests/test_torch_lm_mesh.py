@@ -285,14 +285,39 @@ def test_a_world_of_one_mesh_is_the_meshless_port_bit_for_bit(inputs, meshless):
     assert torch.equal(got, want)
 
 
-def test_training_on_a_mesh_raises_until_its_item():
+def test_training_on_a_mesh_raises_where_it_is_not_ported():
+    """A no-grad forward on (1, 1) keeps its logits' shape.  The raises of
+    training on an LM mesh: compression and checkpoints (ROADMAP item
+    9.3), ``device_recovery`` with an LM mesh (no such path in the
+    reference), and accumulation that would split a group over the data
+    shards (checked before any collective, so its mesh needs no process
+    group)."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.train.compression import CompressionConfig
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.train_step import init_train_state, make_train_step
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
     D.node_mesh()
     cfg = _cfgs()[0]
-    model = T.init_params(cfg, generator=torch.Generator().manual_seed(0))
-    ctx = make_context(make_test_mesh((1, 1)))
+    mesh = make_test_mesh((1, 1))
+    ctx = make_context(mesh)
+    state = init_train_state(cfg, generator=torch.Generator().manual_seed(0), mesh=mesh)
     batch = {"tokens": torch.zeros((2, 4), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="item 9.2"):
-        T.loss_fn(model, batch, cfg, ctx)
     with torch.no_grad():
-        logits, _, _ = T.forward_train(model, batch, cfg, ctx)
+        logits, _, _ = T.forward_train(state.params, batch, cfg, ctx)
     assert logits.shape == (2, 4, cfg.vocab)
+    comp = CompressionConfig()
+    with pytest.raises(NotImplementedError, match="item 9.3"):
+        make_train_step(cfg, ctx, AdamWConfig(), compression=comp)
+    with pytest.raises(NotImplementedError, match="item 9.3"):
+        init_train_state(cfg, generator=torch.Generator().manual_seed(0), compression=comp, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="item 9.3"):
+        Trainer(cfg, TrainerConfig(ckpt_dir="unused", warm_start=False), ctx=ctx, device="cpu")
+    with pytest.raises(ValueError, match="device_recovery"):
+        Trainer(cfg, TrainerConfig(device_recovery=True), ctx=ctx, device="cpu")
+    split = Mesh(("data", "model"), (2, 1), coords=(0, 0), groups=(None, None))
+    step = make_train_step(cfg, make_context(split), AdamWConfig(), accum_steps=2)
+    tokens = torch.zeros((6, 4), dtype=torch.long)
+    with pytest.raises(ValueError, match="whole groups"):
+        step(state, {"tokens": tokens, "group_weights": torch.ones(3)})

@@ -21,6 +21,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from repro_torch.configs.qwen3_4b import smoke_config
 from repro_torch.launch import distributed as D
@@ -60,7 +61,14 @@ def _runs(tmp_path, world):
 def _start(world, tmp_path_factory):
     runs = _runs(tmp_path_factory.mktemp(f"world{world}"), world)
     mesh = D.run_ranks(mesh_runs.train_rank, world, backend="gloo", device="cpu", timeout=DEADLINE, args=(runs,))
-    local = {name: mesh_runs.train("local", "cpu", *spec) for name, spec in runs.items()}
+    # The local twin runs in this process with a rank's one thread: under
+    # the suite's parallel workers more threads only oversubscribe the cores.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(D.rank_threads(1, "cpu"))
+    try:
+        local = {name: mesh_runs.train("local", "cpu", *spec) for name, spec in runs.items()}
+    finally:
+        torch.set_num_threads(threads)
     return world, mesh, local
 
 
