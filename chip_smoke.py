@@ -168,9 +168,10 @@ Phases:
                  tokens: f32 at full width cut to 8 layers (7 mLSTM, 1
                  sLSTM) within 5e-4 of the logits' scale (the reference's
                  band for this comparison) beside a TF32 control that must
-                 exceed it, bf16 at 8 and at 48 layers printed; (c) greedy_generate, batch 4, prompt 16,
+                 exceed it; (c) greedy_generate, batch 4, prompt 16,
                  gen 32, 0 kernel launches, the recurrent state's bytes;
-                 (d) one prefill and 8 decode steps under torch.profiler
+                 (d) a prefill at 8 of the 48 layers (7 mLSTM, 1 sLSTM),
+                 timed, and 8 decode steps under torch.profiler
   16. serve rglru  recurrentgemma-9b (38 layers: 26 RG-LRU, 12 local
                  attention over a window of 2048, 16 heads over 1 KV head
                  of 256, d_model 4096, vocab 256000; 10,444,984,320
@@ -251,6 +252,35 @@ Phases:
                  >= 1, moved rows >= 1, no full repack, the last step off
                  the fallback; the host path's step time beside the
                  device path's
+  20a. serve mesh  deepseek-moe-16b on LM meshes: (a) a world of one over
+                 NCCL, mesh (1, 1), bit for bit the meshless model; (b) two
+                 gloo ranks on the card, mesh (1, 2), (c) four, mesh (2, 2)
+                 with FSDP: each rank draws its blocks, prefills its rows
+                 (28 flash launches), is held to the meshless oracle by the
+                 flip rule and with its routing replayed, and decodes
+                 teacher-forced in the oracle's cache slots with the routing
+                 replayed: bit for bit, or the first op whose output
+                 differs (launch.mesh_runs.decode_taps) is printed
+  20b. train mesh  qwen3-1.7b at full width and depth on LM meshes: (a) a
+                 world of one over NCCL, 2 steps bit for bit the meshless
+                 ones; (b) (1, 2) and (c) (2, 2) gloo ranks, remat full, one
+                 compressed step a rank, every gradient block within 2e-2
+                 of the meshless oracle's; (d) in those runs the oracle's
+                 gradient compressed through the mesh path bit for bit the
+                 meshless compression, lm_head's straddling block printed,
+                 the error-feedback buffers on state_shardings' blocks;
+                 (e) at 4 layers on (2, 2) with FSDP, TP and compression,
+                 Trainer(ctx=..., ckpt_dir=...): 3 steps with a checkpoint
+                 after the second, a resume bit for bit, the file restored
+                 meshless equal to the ranks' saved blocks, a meshless file
+                 restored onto the ranks; the file's bytes, the write and
+                 read seconds and the free disk
+                 Phases "serve" (13) and "train full width" (18) also run
+                 one untimed prefill / step under launch.op_analysis and
+                 print the roofline (launch.roofline on H100 terms):
+                 model_flops, the op count's FLOPs and bytes, the dominant
+                 term, roofline_fraction, the measured share of 989 TF/s,
+                 and the flash calls counted against the launch counter
   21. timing     each kernel, its plain version and one library call
                  (weighted_segsum also at the coordinator's (1, 2560, 256,
                  128), with its launches in Algorithm 1 by shape); the
@@ -362,13 +392,15 @@ def profiled(tag, fn, top=12):
         return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
 
     # Kernels only: an aten op's entry repeats the time of its kernels.
+    t0 = time.perf_counter()
     kernels = sorted(
         (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
         key=dev_us, reverse=True,
     )
     busy = sum(dev_us(e) for e in kernels) / 1e6
     print(f"{tag} under the profiler: wall {wall:.3f} s, kernels {busy:.3f} s "
-          f"({100 * busy / wall:.1f}% of the profiled wall, which the profiler inflates)")
+          f"({100 * busy / wall:.1f}% of the profiled wall, which the profiler inflates); the trace read in "
+          f"{time.perf_counter() - t0:.3f} s on the host")
     for e in kernels[:top]:
         print(f"  {dev_us(e) / 1e3:10.1f} ms  {e.count:7d} launches  {e.key[:90]}")
     return busy
@@ -573,10 +605,24 @@ def serve_xlstm(seed: int, card: str) -> None:
         raise AssertionError(f"greedy_generate returned {tuple(out.shape)} or ids outside the vocab")
     print(f"row 0: {out[0].tolist()}")
 
-    # (d) where the time goes
-    busy = profiled(f"xLSTM prefill {B_s} x {T_s}", lambda: prefill(served, {"tokens": tokens}), top=12)
-    print(f"xLSTM prefill device busy {busy:.3f} s of {prefill_s:.3f} s unprofiled "
-          f"(idle share {1 - busy / prefill_s:.3f})")
+    # (d) where the time goes.  The prefill is profiled at 8 of 48 layers (7
+    # mLSTM, 1 sLSTM), timed unprofiled beside: at full depth reading its
+    # trace (the sLSTM's ~200k launches) took 85.6 s of the host, more than
+    # the script's time allows (PERF.md, PR 26).
+    cfg_p = get_config("xlstm-1.3b", n_layers=8, param_dtype="bfloat16")
+    model_p = T.init_params(cfg_p, generator=torch.Generator(device=dev).manual_seed(seed))
+    prefill_p = D.make_prefill_fn(cfg_p, ctx)
+    prefill_p(model_p, {"tokens": tokens[:, :64]})  # warm-up
+    sync()
+    t0 = time.perf_counter()
+    prefill_p(model_p, {"tokens": tokens})
+    sync()
+    prefill_p_s = time.perf_counter() - t0
+    busy = profiled(f"xLSTM prefill {B_s} x {T_s} at 8 of 48 layers (7 mLSTM, 1 sLSTM)",
+                    lambda: prefill_p(model_p, {"tokens": tokens}), top=12)
+    print(f"xLSTM prefill at 8 layers device busy {busy:.3f} s of {prefill_p_s:.3f} s unprofiled "
+          f"(idle share {1 - busy / prefill_p_s:.3f}); at 48 layers {prefill_s:.3f} s unprofiled")
+    del model_p
     busy = profiled("xLSTM greedy_generate, prompt 4, gen 4 (8 steps)",
                     lambda: D.greedy_generate(served, cfg, prompt[:, :4], steps=4), top=12)
     print(f"xLSTM decode device busy {1e3 * busy / 8:.3f} ms per step of {1e3 * dec_s / steps:.3f} ms "
@@ -1012,6 +1058,31 @@ def _train_loop(trainer, state, sync, label, card, start_step=0):
     return state, rows
 
 
+def roofline_line(tag: str, cfg, cell, analysis: dict, measured_s: float, launches: int, card: str):
+    """Print the roofline of one call from its op-level analysis
+    (``launch.op_analysis.analyze``) against its measured seconds:
+    ``model_flops``, the op count's FLOPs and bytes, the report's dominant
+    term and ``roofline_fraction``, the measured call's share of the
+    card's dense bf16 peak; the flash launches the analysis counted must
+    equal the launch counter's."""
+    from repro_torch.launch import roofline
+
+    mf = roofline.model_flops(cfg, cell)
+    rep = roofline.roofline_terms(cfg.name, cell.name, "(1,)", 1, analysis, mf)
+    counted = analysis["kernel_ops"].get("flash_attention", 0)
+    print(f"{tag} roofline: model_flops {mf['model_flops']:.4e} (active parameters {mf['active_params']:,}); "
+          f"op count {analysis['flops']:.4e} FLOPs ({ {k: f'{v:.3e}' for k, v in analysis['flops_by_op'].items()} }), "
+          f"{analysis['bytes']:.4e} bytes unfused, {analysis['dot_ops']} matmul and kernel ops; terms compute "
+          f"{1e3 * rep.compute_s:.3f} ms, memory {1e3 * rep.memory_s:.3f} ms, collective "
+          f"{1e3 * rep.collective_s:.3f} ms: dominant {rep.dominant}, roofline_fraction "
+          f"{rep.roofline_fraction:.4f}; measured {measured_s:.4f} s, {mf['model_flops'] / measured_s / 1e12:.1f} "
+          f"TF/s = {mf['model_flops'] / measured_s / roofline.HW['peak_flops']:.4f} of 989 TF/s; flash launches "
+          f"counted {counted}, by the launch counter {launches}  [{card}]")
+    if counted != launches:
+        raise AssertionError(f"{tag}: the analysis counted {counted} flash calls, the kernel launched {launches}")
+    return rep
+
+
 def train_full_width(seed: int, card: str) -> dict:
     """Phase "train full width": qwen3-1.7b at full width and depth (f32
     parameters, bf16 compute) through the Trainer's host path: 4 groups, 4
@@ -1026,6 +1097,9 @@ def train_full_width(seed: int, card: str) -> dict:
     import numpy as np
     import torch
 
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch.specs import ShapeCell
     from repro_torch.models import transformer as T
     from repro_torch.models.registry import get_config
     from repro_torch.train.optimizer import AdamWConfig
@@ -1064,6 +1138,12 @@ def train_full_width(seed: int, card: str) -> dict:
     busy = [profiled(f"train step {i}", lambda: trainer._step_fn(state, batch), top=8) for i in range(2)]
     print(f"train step device busy {busy[0]:.3f} s, {busy[1]:.3f} s of {mean_s:.3f} s unprofiled (idle share "
           f"{1 - busy[1] / mean_s:.3f})")
+    # One more step, untimed, under the op-level analysis: the roofline.
+    dispatch.reset_launch_counts()
+    analysis = op_analysis.analyze(trainer._step_fn, state, batch)
+    sync()
+    roofline_line("train step", cfg, ShapeCell("train_8x512", tcfg.seq_len, 8, "train"), analysis, mean_s,
+                  dispatch.launch_counts()["flash_attention"], card)
     # Every parameter's .grad after one backward.
     loss, _ = T.loss_fn(state.params, batch, cfg, trainer.ctx)
     loss.backward()
@@ -1415,7 +1495,13 @@ def train_mesh(seed: int, card: str) -> dict:
     (``launch.mesh_runs.train_mesh_rank``): 56 flash launches a rank,
     every gradient block within ``TRAIN_MESH_BAND`` of its parameter's
     meshless scale, the loss within 1e-5 and the grad norm within 1e-3
-    relative, the moments on ``state_shardings``' blocks.  Returns the
+    relative, the moments on ``state_shardings``' blocks.  (d) In the same
+    runs the state carries error-feedback buffers: each rank first
+    compresses the oracle's gradient, narrowed to its blocks, through the
+    mesh path, bit for bit the meshless compression of the whole tensors
+    narrowed alike (``lm_head``'s straddling block and its scale printed),
+    and its step compresses (``CompressionConfig()``), the buffers on
+    ``state_shardings``' blocks.  (e) :func:`train_mesh_ckpt`.  Returns the
     flash launches a rank a step of each run and their shapes."""
     import os
     import tempfile
@@ -1505,7 +1591,7 @@ def train_mesh(seed: int, card: str) -> dict:
         world = shape[0] * shape[1]
         t0 = time.perf_counter()
         rep = mesh_dist.run_ranks(mesh_runs.train_mesh_rank, world, backend="gloo", device="cuda", timeout=800,
-                                  args=(seed, shape, oracle_path, "full"))
+                                  args=(seed, shape, oracle_path, "full", None, 512, True))
         wall = time.perf_counter() - t0
         print(f"{label} mesh {shape}, {world} gloo ranks on the card, remat full: {wall:.3f} s from spawn to exit"
               f"  [{card}]")
@@ -1535,12 +1621,131 @@ def train_mesh(seed: int, card: str) -> dict:
                 bad.append(f"grad norm {r['grad_norm']!r}")
             if not r["moments_ok"]:
                 bad.append("moments off state_shardings' blocks")
+            comp, head = r["compression"], r["compression"].get("lm_head")
+            print(f"(d) {shape} rank {r['coords']}: the oracle gradient's {comp['tensors']} tensors compressed "
+                  f"through the mesh path in {comp['mesh_s']:.3f} s, pmax {comp['pmax']['calls']} calls "
+                  f"{comp['pmax']['bytes'] / 2**20:.3f} MiB; dequantized gradient and buffer bit for bit the "
+                  f"meshless compression of the whole tensors narrowed {comp['bitwise']} {comp['differ']}; "
+                  + (f"lm_head's block {head['block']}, straddling: columns {head['columns']} here, scale at row "
+                     f"{head['row']} {head['scale']!r} (the whole tensor's {head['whole_scale']!r}), its padded "
+                     f"block {head['padded_block']}; " if head else "lm_head's blocks whole on this rank; ")
+                  + f"peak {comp['peak_gib']:.3f} GiB for the check; the step compressed (CompressionConfig(), "
+                  f"block 256): peak {r['peak_gib']:.3f} GiB, error-feedback buffers on state_shardings' blocks "
+                  f"{r['ef_ok']}  [{card}]")
+            if not comp["bitwise"]:
+                bad.append(f"mesh compression differs at {comp['differ']}")
+            if head is not None and head["scale"] != head["whole_scale"]:
+                bad.append(f"lm_head's straddling block {head['block']}: scale {head['scale']!r}")
+            if not r["ef_ok"]:
+                bad.append("error-feedback buffers off state_shardings' blocks")
             if bad:
                 raise AssertionError(f"train mesh {label} rank {r['coords']}: " + "; ".join(bad))
         counts[f"{shape} gloo, a rank"] = rep["ranks"][0]["launches"]["flash_attention"]
         shapes[f"{shape} gloo, a rank"] = rep["ranks"][0]["flash_shape"]
     tmp.cleanup()
+    train_mesh_ckpt(seed, card)
     return {"counts": counts, "shapes": shapes}
+
+
+CKPT_LAYERS = 4  # phase "train mesh" (e): qwen3-1.7b's depth cut for the disk and the phase's time
+
+
+def train_mesh_ckpt(seed: int, card: str) -> None:
+    """Phase "train mesh" (e): qwen3-1.7b at full width, depth cut to
+    ``CKPT_LAYERS``, on (2, 2) gloo ranks with FSDP, TP and compression,
+    through ``Trainer(ctx=..., ckpt_dir=...)`` in a temporary directory
+    (``launch.mesh_runs.ckpt_mesh_rank``): 3 steps uninterrupted with a
+    checkpoint after the second, then a new trainer resumed from it runs
+    the third: its loss and the digest of every block of params, m, v and
+    ef bit for bit the uninterrupted run's.  The checkpoint restored
+    meshless here, narrowed to each rank's blocks, must be the state the
+    ranks saved; a meshless checkpoint written here first, restored by the
+    ranks, must give its narrowed blocks.  Prints the file's bytes, the
+    write and read seconds and the free disk, and fails if the disk
+    cannot hold the two files."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import distributed as mesh_dist
+    from repro_torch.launch import mesh_runs
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.sharding import param_shardings
+    from repro_torch.models.registry import get_config
+    from repro_torch.train.checkpoint import checkpoint_bytes, restore_checkpoint, save_checkpoint
+    from repro_torch.train.compression import CompressionConfig
+    from repro_torch.train.train_step import init_train_state
+
+    dev = torch.device("cuda")
+    sync = torch.cuda.synchronize
+    shape = (2, 2)
+    cut = {"n_layers": CKPT_LAYERS}
+    cfg = get_config("qwen3-1.7b", **cut)
+    with tempfile.TemporaryDirectory(prefix="repro-train-mesh-ckpt-") as tmp:
+        state = init_train_state(cfg, generator=torch.Generator(device=dev).manual_seed(seed + 2),
+                                 compression=CompressionConfig())
+        g = torch.Generator(device=dev).manual_seed(seed + 3)
+        with torch.no_grad():
+            for t in list(state.opt.m.values()) + list(state.opt.v.values()) + list(state.ef.values()):
+                t.copy_(torch.rand(t.shape, generator=g, device=dev))
+        state = state._replace(opt=state.opt._replace(step=7))
+        nbytes, free = checkpoint_bytes(state), shutil.disk_usage(tmp).free
+        n = sum(p.numel() for p in state.params.parameters())
+        print(f"(e) qwen3-1.7b at {CKPT_LAYERS} layers: {n:,} parameters; a checkpoint of params, m, v and ef "
+              f"{nbytes / 1e9:.3f} GB; free disk under the temporary directory {free / 1e9:.3f} GB  [{card}]")
+        if free < 2.05 * nbytes:
+            raise AssertionError(f"train mesh (e): {free / 1e9:.3f} GB free, the two checkpoints need "
+                                 f"{2 * nbytes / 1e9:.3f} GB")
+        specs = param_shardings(dict(state.params.named_parameters()), MeshShape(("data", "model"), shape))
+        wrote = mesh_runs.narrowed_digests(state, specs, shape)
+        sync()
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(tmp, "meshless"), 7, state)
+        print(f"(e) a meshless checkpoint written: {os.path.getsize(os.path.join(tmp, 'meshless', 'step_7.npz')):,} "
+              f"bytes in {time.perf_counter() - t0:.3f} s  [{card}]")
+        del state
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rep = mesh_dist.run_ranks(mesh_runs.ckpt_mesh_rank, 4, backend="gloo", device="cuda", timeout=900,
+                                  args=(seed, shape, os.path.join(tmp, "mesh"), os.path.join(tmp, "meshless"), cut,
+                                        512, DATA_VOCAB))
+        print(f"(e) mesh {shape}, 4 gloo ranks on the card, FSDP + TP + compression: {time.perf_counter() - t0:.3f} s "
+              f"from spawn to exit  [{card}]")
+        path = os.path.join(tmp, "mesh", "step_2.npz")
+        size = os.path.getsize(path)
+        template = init_train_state(cfg, generator=torch.Generator(device=dev).manual_seed(seed + 4),
+                                    compression=CompressionConfig())
+        sync()
+        t0 = time.perf_counter()
+        restored, step = restore_checkpoint(os.path.join(tmp, "mesh"), template)
+        sync()
+        read_s = time.perf_counter() - t0
+        read = mesh_runs.narrowed_digests(restored, specs, shape)
+        del restored, template
+        torch.cuda.empty_cache()
+        bad = []
+        for r in rep["ranks"]:
+            runs, c = r["runs"], tuple(r["coords"])
+            whole, resumed = runs["whole"], runs["resumed"]
+            resume_ok = resumed["start"] == 2 and resumed["losses"] == whole["losses"][2:] and (
+                resumed["digests"] == whole["digests"])
+            saved_ok = r["saved"] == read[c]
+            meshless_ok = runs["meshless"]["digests"] == wrote[c] and runs["meshless"]["step"] == 7
+            print(f"(e) rank {c}: losses {whole['losses']} in {whole['seconds']:.3f} s; resumed at step "
+                  f"{resumed['start']}: loss {resumed['losses']}, loss and every block of params, m, v and ef bit "
+                  f"for bit the uninterrupted run's {resume_ok}; step_2.npz ({size:,} bytes) written in "
+                  f"{r['write_s'][0]:.3f} s, read back in {r['read_s'][0]:.3f} s; restored meshless here in "
+                  f"{read_s:.3f} s: the blocks the rank saved {saved_ok}; the meshless checkpoint read onto the "
+                  f"mesh in {r['read_s'][1]:.3f} s: its narrowed blocks {meshless_ok}; peak {r['peak_gib']:.3f} "
+                  f"GiB  [{card}]")
+            if r["specs"] != {k: tuple(v) for k, v in specs.items()}:
+                bad.append(f"rank {c}: specs differ from the parent's")
+            if not (resume_ok and saved_ok and meshless_ok and step == 2):
+                bad.append(f"rank {c}: resume {resume_ok}, saved {saved_ok}, meshless {meshless_ok}, step {step}")
+        if bad:
+            raise AssertionError("train mesh (e): " + "; ".join(bad))
 
 
 MESH_BAND = 2e-2  # the bf16 band of phase "serve moe"'s kernel-against-plain prefills
@@ -1560,8 +1765,10 @@ def serve_mesh(seed: int, card: str, holder: dict, kept: dict) -> dict:
     4 x 2048 (exactly 28 flash launches), is held by the flip rule and with
     the oracle's routing replayed (``MESH_BAND`` of the logits' scale), and
     decodes teacher-forced with the routing replayed (16 steps on (1, 2), 1
-    on (2, 2), whose every step gathers each layer's experts over ``data``;
-    the same band); (b) also decodes greedily 4 x (16 + 32).  Returns the flash launches a rank
+    on (2, 2), whose every step gathers each layer's experts over ``data``)
+    in a cache of the oracle's slots: bit for bit the oracle's logits, or
+    the first op that differs is printed and the phase fails; (b) also
+    decodes greedily 4 x (16 + 32).  Returns the flash launches a rank
     of each run."""
     import tempfile
 
@@ -1657,9 +1864,11 @@ def serve_mesh(seed: int, card: str, holder: dict, kept: dict) -> dict:
                          else f"K cache gaps up to it {[round(g, 6) for g in flip['k_gaps']]}")
                       + f"; with the oracle's routing replayed {r['replay_gap']:.3e}"
                       + (" (no decision differs: the free run is its own replay)" if flip["first"] is None else "")
-                      + f"; teacher-forced decode steps {r['decode_steps']}, routing replayed: worst max|a-b|/max|b| "
-                      f"{r['decode_gap']:.3e}, "
-                      f"{r['decode_ms_per_step']:.2f} ms/step"
+                      + f"; teacher-forced decode steps {r['decode_steps']} in the oracle's {r['decode_slots']} "
+                      f"cache slots, routing replayed: worst max|a-b|/max|b| {r['decode_gap']:.3e} ("
+                      + ("bit for bit" if r["decode_first_difference"] is None else
+                         "the first op that differs: {} by {:.3e}".format(*r["decode_first_difference"]))
+                      + f"), {r['decode_ms_per_step']:.2f} ms/step"
                       + (f"; greedy 4 x (16 + 32) {r['greedy_ms_per_step']:.2f} ms/step, ids agree with the "
                          f"oracle's {r['greedy_agree']:.4f}" if "greedy_agree" in r else "")
                       + f"  [{card}]")
@@ -1672,8 +1881,11 @@ def serve_mesh(seed: int, card: str, holder: dict, kept: dict) -> dict:
                     bad.append(f"logits gap {flip['logits_gap']:.3e} with no routing difference")
                 if flip["first"] is not None and max(flip["k_gaps"]) > MESH_BAND:
                     bad.append(f"K caches up to the first routing difference {flip['k_gaps']}")
-                if r["replay_gap"] > MESH_BAND or r["decode_gap"] > MESH_BAND:
-                    bad.append(f"replayed gaps {r['replay_gap']:.3e} / {r['decode_gap']:.3e}")
+                if r["replay_gap"] > MESH_BAND:
+                    bad.append(f"replayed prefill gap {r['replay_gap']:.3e}")
+                if r["decode_first_difference"] is not None or r["decode_gap"] != 0.0:
+                    bad.append(f"the replayed decode is not the meshless one bit for bit: {r['decode_gap']:.3e}, "
+                               f"first at {r['decode_first_difference']}")
                 if bad:
                     raise AssertionError(f"serve mesh {label} rank {r['coords']}: " + "; ".join(bad))
             if not rep["lockstep"]:
@@ -1699,6 +1911,7 @@ def main() -> int:
     import numpy as np
 
     from repro_torch import distributed_pca, quickstart, scenarios
+    from repro_torch.configs.paper_kmedian import paper_fig1, production_scale
     from repro_torch.core import (
         ElasticPolicy,
         LocalExecutor,
@@ -1732,6 +1945,8 @@ def main() -> int:
     from repro_torch.kernels.pairwise_dist import ops as pd_ops
     from repro_torch.kernels.pairwise_dist import ref as pd_ref
     from repro_torch.kernels.weighted_segsum import ops as ss_ops
+    from repro_torch.launch import op_analysis
+    from repro_torch.launch.specs import ShapeCell
 
     # The plain side runs in full fp32: no TF32 in matmuls or convolutions.
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1739,6 +1954,7 @@ def main() -> int:
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
     gen = torch.Generator(device=dev).manual_seed(args.seed)
+    FIG1, PRODUCTION = paper_fig1(), production_scale()  # the paper's Figure-1 sizes, the coreset size
     errs: dict[str, float] = {
         "assign_min": 0.0, "weighted_segsum": 0.0, "flash_attention": 0.0, "pairwise_sqdist": 0.0}
 
@@ -1874,11 +2090,12 @@ def main() -> int:
 
     # -------------------------------------------------------------- prelude
 
-    n_full, d_full, k_full, s, t = 1_000_000, 128, 256, 10, 3
+    # SIFT1M's shape under the paper's workers, stragglers and assignment rate
+    n_full, d_full, k_full, s, t = 1_000_000, 128, 256, FIG1.s, FIG1.t
     with phase("prelude"):
         t0 = time.perf_counter()
         pts, _, _ = gaussian_mixture(n_full, k_full, d_full, rng=np.random.default_rng(args.seed))
-        a = bernoulli_assignment(n_full, s, ell=0.2 * s, rng=np.random.default_rng(args.seed + 1))
+        a = bernoulli_assignment(n_full, s, ell=FIG1.p_a * s, rng=np.random.default_rng(args.seed + 1))
         alive = fixed_count_stragglers(s, t, np.random.default_rng(args.seed + 2))
         print(f"data + assignment (host): {time.perf_counter() - t0:.3f} s; "
               f"stragglers {sorted(np.flatnonzero(~alive).tolist())}")
@@ -1917,17 +2134,17 @@ def main() -> int:
         check_segsum("edge k=1000 d=5 (whole k in shared memory)", x, rand(1, 5000), idx, 1000)
 
         # Paper size: local shards (s, m, 2), coordinator (1, s*k, 2), full cost.
-        p_pts, _, _ = franti_s1_like(5000)
-        p_a = bernoulli_assignment(5000, s, ell=2.0, rng=np.random.default_rng(1))
+        p_pts, _, _ = franti_s1_like(FIG1.n)
+        p_a = bernoulli_assignment(FIG1.n, s, ell=FIG1.p_a * FIG1.s, rng=np.random.default_rng(1))
         _, _, _, _, p_xs, p_ws = ResilienceSession(p_a).prepare(p_pts, alive)
         px = torch.from_numpy(p_xs).to(dev)
-        idx = check_assign("paper local", px, rows_of(px, 15))
-        check_segsum("paper local", px, torch.from_numpy(p_ws).to(dev) * rand(*p_ws.shape), idx, 15)
-        py = rand(1, s * 15, 2)
-        idx = check_assign("paper coordinator", py, rows_of(py, 15))
-        check_segsum("paper coordinator", py, rand(1, s * 15), idx, 15)
+        idx = check_assign("paper local", px, rows_of(px, FIG1.k))
+        check_segsum("paper local", px, torch.from_numpy(p_ws).to(dev) * rand(*p_ws.shape), idx, FIG1.k)
+        py = rand(1, s * FIG1.k, FIG1.d)
+        idx = check_assign("paper coordinator", py, rows_of(py, FIG1.k))
+        check_segsum("paper coordinator", py, rand(1, s * FIG1.k), idx, FIG1.k)
         pp = torch.from_numpy(p_pts).to(dev)[None]
-        check_assign("paper full cost", pp, rows_of(pp, 15))
+        check_assign("paper full cost", pp, rows_of(pp, FIG1.k))
 
         # Full width: local solves (10, m, 128), coordinator, full cost.
         idx = check_assign("full local", xs_d, rows_of(xs_d, k_full))
@@ -2009,8 +2226,8 @@ def main() -> int:
             raise AssertionError(f"paper-size ratios not finite: {ratios}")
         # The same run through the kernels and through the plain versions.
         kw = dict(local_iters=15, coord_iters=30, device=dev)
-        out_k = resilient_kmedian(p_pts, 15, p_a, alive, **kw)
-        out_r = resilient_kmedian(p_pts, 15, p_a, alive, impl="torch_ref", **kw)
+        out_k = resilient_kmedian(p_pts, FIG1.k, p_a, alive, **kw)
+        out_r = resilient_kmedian(p_pts, FIG1.k, p_a, alive, impl="torch_ref", **kw)
         rel = abs(out_k.cost - out_r.cost) / out_r.cost
         print(f"paper p_a=0.2 cost: kernels {out_k.cost:.4f}  plain {out_r.cost:.4f}  rel {rel:.2e}")
         if rel > 1e-3:
@@ -2710,7 +2927,7 @@ def main() -> int:
                                    "weighted_union", "lloyd_subspace", "subspace_cost"), sync, steps):
             t0 = time.perf_counter()
             out2 = sub_mod.resilient_subspace_clustering(
-                X2, r2, k2, a2, alive, coreset_size=4096, seed=args.seed, device=dev)
+                X2, r2, k2, a2, alive, coreset_size=PRODUCTION.coreset_size, seed=args.seed, device=dev)
             sync()
             wall = time.perf_counter() - t0
         counts2 = dispatch.launch_counts()
@@ -2792,6 +3009,13 @@ def main() -> int:
         if cache[-1]["k"].shape != (B_s, T_s, cfg.n_kv_heads, cfg.head_dim):
             raise AssertionError(f"prefill cache of shape {tuple(cache[-1]['k'].shape)}")
         cache_a = cache
+        # One more prefill, untimed, under the op-level analysis: the roofline.
+        del cache
+        dispatch.reset_launch_counts()
+        analysis = op_analysis.analyze(prefill, served, {"tokens": tokens})
+        sync()
+        roofline_line("(a) prefill", cfg, ShapeCell("prefill_4x2048", T_s, B_s, "prefill"), analysis, prefill_s,
+                      dispatch.launch_counts()["flash_attention"], card)
 
         # (b) the same prefill through the plain attention
         t0 = time.perf_counter()

@@ -12,7 +12,9 @@ card can only be gloo ranks.  A gather broadcasts each rank's block to the
 others, which moves half the bytes of an ``all_reduce`` of the
 zero-padded whole (the executor's ``map_nodes`` gather) and copies bits.
 A sum of bf16 or f16 partials runs in f32 and rounds once, which at two
-ranks is the reference's bf16 ``psum`` bit for bit.  Every rank of the
+ranks is the reference's bf16 ``psum`` bit for bit.  :func:`pmax` (an
+``all_reduce`` with ``MAX``) joins the partial maxima of a quantization
+block that two ranks' columns share (``train.compression``).  Every rank of the
 group receives the same bits.  An axis of size 1 moves nothing: the tensor
 comes back as it is.
 
@@ -83,8 +85,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-__all__ = ["STATS", "MODEL", "chain", "enter", "gather", "gather_axes", "live_axes", "psum", "pmean", "sequence",
-           "sequence_token", "split_linear"]
+__all__ = ["STATS", "MODEL", "chain", "enter", "gather", "gather_axes", "live_axes", "pmax", "psum", "pmean",
+           "sequence", "sequence_token", "split_linear"]
 
 MODEL = "model"  # the tensor- and expert-parallel axis: Megatron's rule (module docstring)
 
@@ -155,10 +157,12 @@ def _broadcast(part: torch.Tensor, group, j: int, kind: str) -> None:
 
 def _gather_parts(x: torch.Tensor, mesh, axis: str, kind: str) -> list:
     """Every rank's block of x along ``axis``, in the order of their
-    coordinates: one ``broadcast`` from each rank."""
+    coordinates: one ``broadcast`` from each rank.  The rank broadcasts a
+    copy of x: a broadcast counts as an in-place write of its tensor, and
+    x may be a tensor that autograd saved (the flash Function's output)."""
     n, group, r = mesh.shape[axis], mesh.group(axis), mesh.coord(axis)
-    parts = [x.contiguous() if j == r else torch.empty_like(x, memory_format=torch.contiguous_format)
-             for j in range(n)]
+    parts = [x.clone(memory_format=torch.contiguous_format) if j == r
+             else torch.empty_like(x, memory_format=torch.contiguous_format) for j in range(n)]
     for j, part in enumerate(parts):
         _broadcast(part, group, j, kind)
     return parts
@@ -332,6 +336,19 @@ def psum(x: torch.Tensor, mesh, axes, *, kind: str = "sum") -> torch.Tensor:
     if _differentiable(x):
         return _apply(_Psum, x, mesh, live)
     return _sum(x, mesh, live, kind)
+
+
+def pmax(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """The elementwise max of x over the ranks of ``axes``, a new tensor
+    (kind ``pmax``): exact in any order, so every rank receives the bits
+    of the largest.  Not differentiable."""
+    live = live_axes(mesh, axes)
+    if not live:
+        return x
+    out = x.clone(memory_format=torch.contiguous_format)
+    for a in live:
+        _run("pmax", out, lambda: dist.all_reduce(out, op=dist.ReduceOp.MAX, group=mesh.group(a)))
+    return out
 
 
 def pmean(x: torch.Tensor, mesh, axes) -> torch.Tensor:

@@ -34,7 +34,11 @@ The workloads are those of the reference's multi-device tests:
   train step, the trainer), each on a mesh of the world's size;
 * :func:`train_mesh_rank` — phase "train mesh" of ``chip_smoke.py``:
   qwen3-1.7b at full width, one train step a rank against the meshless
-  oracle's gradient blocks.
+  oracle's gradient blocks, and with ``compress`` the mesh compression of
+  the oracle's gradient against the meshless one;
+* :func:`ckpt_mesh_rank` — phase "train mesh" (e): a compressed
+  ``Trainer`` on the mesh checkpointed, resumed and restored from a
+  meshless file.
 """
 
 from __future__ import annotations
@@ -65,8 +69,9 @@ from ..kernels import dispatch
 __all__ = [
     "fig1", "fig1_rank", "multiround", "multiround_rank", "stream", "stream_rank",
     "eight_rank_twins", "update_rows_rank", "alg1_problem", "alg1_rank", "full_width_rank",
-    "train", "train_rank", "lm_rank", "lm_job", "moe_mesh_oracle", "moe_serve_rank", "train_lm_rank",
-    "train_mesh_batches", "train_mesh_rank",
+    "train", "train_rank", "lm_rank", "lm_job", "decode_taps", "first_difference", "moe_mesh_oracle",
+    "moe_serve_rank", "train_lm_rank", "train_mesh_batches", "train_mesh_rank", "block_digests", "ckpt_mesh_rank",
+    "narrowed_digests",
 ]
 
 
@@ -577,6 +582,102 @@ def _experts_of(log, r: int, e_loc: int) -> list:
     return [t if i % 2 == 0 else t[r * e_loc:(r + 1) * e_loc] for i, t in enumerate(log)]
 
 
+@contextlib.contextmanager
+def decode_taps(ctx=None):
+    """Record the output of every op of the decode steps run while the
+    block is open, in call order and whole, as a list of (name, tensor on
+    the host): each step's token embedding, each layer's query, key and value
+    projections (``q``, ``k``, ``v``), its ``decode_attention``, the
+    output projection, the router's combine weights, the experts' outputs,
+    the MLP (the shared experts' under an MoE), the MoE's output and the
+    block's, then the logits; a name reads ``step<t>/layer<i>/<op>``,
+    counting the steps from the block's first.  Under an
+    LM mesh (``ctx.mesh``) a rank's heads and experts are gathered over the
+    model axis first, so that two runs' records compare op by op
+    (:func:`first_difference`).  Every rank must open it alike: the
+    gathers are collectives."""
+    from ..kernels.flash_attention import ops as fa
+    from ..models import attention as A
+    from ..models import layers as L
+    from ..models import moe as M
+    from ..models import transformer as T
+    from . import collectives as C
+
+    mesh = None if ctx is None else ctx.mesh
+    axis = None if mesh is None else ctx.model_axis
+    split = axis is not None and mesh.shape.get(axis, 1) > 1
+    log, step, layer, heads = [], [-1], [None], [False]
+
+    def keep(op, t, dim=None):
+        t = C.gather(t, mesh, axis, dim) if (split and dim is not None) else t
+        name = f"step{step[0]}/" + (op if layer[0] is None else f"layer{layer[0]}/{op}")
+        log.append((name, t.detach().cpu()))
+
+    def qkv(p, x, cfg, *args, **kw):
+        heads[0] = split and A.local_heads(p, cfg, *args[2:], **kw)[3]
+        q, k, v = saved["qkv"](p, x, cfg, *args, **kw)
+        for op, t in (("q", q), ("k", k), ("v", v)):
+            keep(op, t, 2 if heads[0] else None)
+        return q, k, v
+
+    def attention(*args, **kw):
+        o = saved["attention"](*args, **kw)
+        keep("attention", o, 2 if heads[0] else None)
+        return o
+
+    def experts(*args, **kw):
+        out = saved["experts"](*args, **kw)
+        keep("experts", out[0], 0)
+        return out
+
+    def block(p, x_t, *args, **kw):
+        layer[0] = 0 if layer[0] is None else layer[0] + 1
+        out = saved["block"](p, x_t, *args, **kw)
+        keep("block", out[0])
+        return out
+
+    def plain(key, op, first=False):
+        def call(*args, **kw):
+            if key == "embed":
+                step[0] += 1
+            out = saved[key](*args, **kw)
+            keep(op, out[0] if first else out)
+            if key == "logits":
+                layer[0] = None
+            return out
+        return call
+
+    sites = {"embed": (T, "_token_embed", plain("embed", "embed")), "qkv": (A, "_project_qkv", qkv),
+             "attention": (fa, "decode_attention", attention),
+             "out": (A, "_out", plain("out", "attn_out")),
+             "router": (M, "_routing", plain("router", "router", first=True)),
+             "experts": (M, "_expert_outputs", experts), "mlp": (L, "mlp_apply", plain("mlp", "mlp")),
+             "moe": (M, "moe_apply", plain("moe", "moe", first=True)), "block": (T, "_block_decode", block),
+             "logits": (T, "_logits", plain("logits", "logits"))}
+    saved = {key: getattr(mod, attr) for key, (mod, attr, _) in sites.items()}
+    for mod, attr, fn in sites.values():
+        setattr(mod, attr, fn)
+    try:
+        yield log
+    finally:
+        for key, (mod, attr, _) in sites.items():
+            setattr(mod, attr, saved[key])
+
+
+def first_difference(got: list, want: list) -> Optional[tuple]:
+    """The first op of two :func:`decode_taps` records (over the steps
+    both ran) whose outputs are not the same bits: (its name,
+    max|a-b|/max|b|), or None when every op agrees to the bit."""
+    n = min(len(got), len(want))
+    if [k for k, _ in got[:n]] != [k for k, _ in want[:n]]:
+        raise ValueError(f"first_difference: records of {len(got)} and {len(want)} ops that do not line up")
+    for (name, a), (_, b) in zip(got, want):
+        if not torch.equal(a, b):
+            a, b = a.float(), b.float()
+            return name, float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    return None
+
+
 def moe_mesh_oracle(served, cfg, tokens, kept: dict, out_dir: str, half_decode_steps: int) -> None:
     """The meshless oracles of :func:`moe_serve_rank`, written to
     ``out_dir``: ``full.pt`` (the meshless prefill of the 4 rows of
@@ -602,14 +703,15 @@ def moe_mesh_oracle(served, cfg, tokens, kept: dict, out_dir: str, half_decode_s
         del cache
         dcache = T.init_cache(cfg, seq[rows].shape[0], steps, device=tokens.device)
         dec_logits, dec_routing = [], []
-        for t in range(steps):
-            with moe_mod.recorded_routing() as dlog:
-                lg, dcache = T.decode_step(served, dcache, seq[rows, t:t + 1], t, cfg, ctx)
-            dec_logits.append(lg[:, 0].cpu())
-            dec_routing.append([x.cpu() for x in dlog])
+        with decode_taps() as taps:
+            for t in range(steps):
+                with moe_mod.recorded_routing() as dlog:
+                    lg, dcache = T.decode_step(served, dcache, seq[rows, t:t + 1], t, cfg, ctx)
+                dec_logits.append(lg[:, 0].cpu())
+                dec_routing.append([x.cpu() for x in dlog])
         torch.save({"logits": logits.cpu(), "routing": [x.cpu() for x in log], "prompt": kept["prompt"][rows],
                     "ids": kept["ids"][rows], "decode_logits": torch.stack(dec_logits, 1),
-                    "decode_routing": dec_routing}, os.path.join(out_dir, f"{name}.pt"))
+                    "decode_routing": dec_routing, "decode_taps": taps}, os.path.join(out_dir, f"{name}.pt"))
         return logits, log
 
     logits, log = run("full", slice(0, 4), seq.shape[1])
@@ -622,7 +724,8 @@ def moe_mesh_oracle(served, cfg, tokens, kept: dict, out_dir: str, half_decode_s
 
 
 def moe_serve_rank(seed: int, shape, oracle_dir: str, decode_steps: int, greedy: bool, warm_up: bool,
-                   cfg_overrides: Optional[dict] = None, seq_len: int = 2048) -> dict:
+                   cfg_overrides: Optional[dict] = None, seq_len: int = 2048,
+                   decode_slots: Optional[int] = None) -> dict:
     """Phase "serve mesh" of ``chip_smoke.py`` on one rank: deepseek-moe-16b
     at full width and depth in bf16 on a ``shape`` (data, model) mesh,
     drawn by :func:`~repro_torch.launch.sharding.init_sharded` from
@@ -633,7 +736,12 @@ def moe_serve_rank(seed: int, shape, oracle_dir: str, decode_steps: int, greedy:
     rule, and with the oracle's routing replayed (a run that made none of
     its decisions differently is its own replay); then ``greedy`` decode
     4 x (16 + 32), and ``decode_steps`` teacher-forced decode steps with the
-    oracle's routing replayed, against its logits.  Returns every rank's
+    oracle's routing replayed, against its logits, in a cache of
+    ``decode_slots`` slots (the oracle's count by default: the softmax
+    and the products over the slots round by their count, so another
+    count is another computation); where a step's logits are not the
+    oracle's bits, the steps again with each op's output held to the
+    oracle's (:func:`decode_taps`).  Returns every rank's
     figures (seconds, launches, sums and their seconds and bytes, peak
     memory) and the gaps.  ``cfg_overrides`` and ``seq_len`` cut the
     model and the prompt (a rehearsal at the smoke size on the CPU)."""
@@ -724,8 +832,9 @@ def moe_serve_rank(seed: int, shape, oracle_dir: str, decode_steps: int, greedy:
         report["greedy_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / (prompt.shape[1] + ids.shape[1])
         report["greedy_agree"] = float((ids.cpu() == oracle["ids"]).float().mean())
         lockstep = lockstep and _same_in_shards(mesh, ids)
+    slots = decode_slots or oracle["decode_logits"].shape[1]
     seq = torch.cat([oracle["prompt"], oracle["ids"]], 1).to(dev)[:, :decode_steps]
-    dcache = T.init_cache(cfg, seq.shape[0], seq.shape[1], device=dev, model=model, ctx=ctx)
+    dcache = T.init_cache(cfg, seq.shape[0], slots, device=dev, model=model, ctx=ctx)
     gaps = []
     sync()
     t0 = time.perf_counter()
@@ -735,7 +844,18 @@ def moe_serve_rank(seed: int, shape, oracle_dir: str, decode_steps: int, greedy:
         gaps.append(gap(lg[:, 0], oracle["decode_logits"][:, t]))
     sync()
     report.update(decode_gap=max(gaps), decode_ms_per_step=1e3 * (time.perf_counter() - t0) / seq.shape[1],
-                  decode_steps=seq.shape[1])
+                  decode_steps=seq.shape[1], decode_gaps=gaps, decode_slots=slots)
+    del dcache
+    first_diff = None
+    if any(gaps):  # the same steps again, each op's output held to the oracle's
+        dcache = T.init_cache(cfg, seq.shape[0], slots, device=dev, model=model, ctx=ctx)
+        with decode_taps(ctx) as taps:
+            for t in range(seq.shape[1]):
+                with M.recorded_routing(replay=mine(oracle["decode_routing"][t])):
+                    _, dcache = T.decode_step(model, dcache, seq[:, t:t + 1], t, cfg, ctx)
+        first_diff = first_difference(taps, oracle["decode_taps"])
+        del dcache, taps
+    report["decode_first_difference"] = first_diff
     report["ranks"] = [None] * dist.get_world_size()
     dist.all_gather_object(report["ranks"], {
         "coords": mesh.coords, "heads": (h0, h1), "kv_heads": (k0, k1), "tensor_parallel": tp,
@@ -944,13 +1064,119 @@ def _trainer_job(mesh, cfg, sd, tcfg_kw: dict, ocfg: dict) -> dict:
             "hashes_per_step": len(hashes[0])}
 
 
+def _compress_job(mesh, cfg, sd, batches, ocfg: dict, block: int) -> dict:
+    """``len(batches)`` compressed steps of ``train_step.make_train_step``
+    (``CompressionConfig(block=block)``) from the weights ``sd``, each
+    through its two halves: the step's gradient whole (the summed one that
+    ``apply`` compresses), the dequantized gradient and the buffer that
+    ``compress_with_error_feedback`` forms from it under the mesh (whole),
+    whether ``apply`` left those buffers, the ``pmax`` calls, the loss and
+    the grad norm; then the parameters whole, the buffers' shapes beside
+    ``state_shardings``' blocks, and whether the ranks agree."""
+    from ..models import transformer as T
+    from ..train.compression import CompressionConfig, compress_with_error_feedback
+    from ..train.optimizer import AdamWConfig, moment_blocks
+    from ..train.train_step import init_train_state, make_train_step
+    from . import collectives as C
+    from .sharding import local_rows, make_context
+
+    dev = _rank_dev()
+    ccfg = CompressionConfig(block=block)
+    state = init_train_state(cfg, generator=None, compression=ccfg, mesh=mesh, model=T.model_from_state_dict(
+        cfg, {k: v.to(dev).clone() for k, v in sd.items()}))
+    step = make_train_step(cfg, make_context(mesh), AdamWConfig(**ocfg), compression=ccfg)
+    specs = {n: getattr(p, "mesh_spec", None) for n, p in state.params.named_parameters()}
+    steps, same = [], True
+    for batch in batches:
+        rows = {k: (v if k == "group_weights" else local_rows(v, mesh)).to(dev) for k, v in batch.items()}
+        loss, metrics, grads = step.grads(state, rows)
+        C.STATS.reset()
+        deq, ef = compress_with_error_feedback(ccfg, grads, state.ef, mesh=mesh, specs=specs)
+        pmax = C.STATS.calls.get("pmax", 0)
+        state, m = step.apply(state, loss, metrics, grads)
+        rec = {"apply_ef": all(torch.equal(ef[n], state.ef[n]) for n in ef), "pmax": pmax,
+               "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
+        for key, tree in (("grads", grads), ("deq", deq), ("ef", ef)):
+            rec[key], alike = _gather_blocks(_blocks(state.params, tree), mesh)
+            same = same and alike
+        steps.append(rec)
+        del grads, deq, ef
+    params = dict(state.params.named_parameters())
+    whole, alike = _gather_blocks(_blocks(state.params, params), mesh)
+    blocks = moment_blocks(params, mesh)
+    return {"steps": steps, "params": whole, "lockstep": same and alike,
+            "ef_on_blocks": all(tuple(state.ef[n].shape) == blocks[n] for n in params)}
+
+
+def _state_whole(state, mesh) -> tuple:
+    """A train state's params, m, v and ef whole ({part: {name: array}})
+    and whether the ranks holding a block agree."""
+    out, same = {}, True
+    parts = {"params": dict(state.params.named_parameters()), "m": state.opt.m, "v": state.opt.v}
+    if state.ef is not None:
+        parts["ef"] = state.ef
+    for part, tree in parts.items():
+        out[part], alike = _gather_blocks(_blocks(state.params, tree), mesh)
+        same = same and alike
+    return out, same
+
+
+def _ckpt_job(mesh, cfg, sd, tcfg_kw: dict, ckpt_dir: str, restore_dirs: dict) -> dict:
+    """Checkpoints on an LM mesh through ``Trainer(ctx=...)`` with
+    compression, from the weights ``sd``: 3 steps uninterrupted; 2 steps
+    with a checkpoint in ``ckpt_dir`` (the state whole after them), then a
+    new trainer that resumes from it (its straggler stream advanced past
+    the 2 steps) and runs the third; each run's history and state whole.
+    Then each checkpoint of ``restore_dirs`` (label → directory) restored
+    onto the mesh into a fresh state, whole.  The test holds the resumed
+    run to the uninterrupted one, the file to the mesh state, and each
+    restore to the file."""
+    from ..models import transformer as T
+    from ..train.checkpoint import restore_checkpoint
+    from ..train.compression import CompressionConfig
+    from ..train.train_step import TrainState, init_train_state
+    from ..train.trainer import Trainer, TrainerConfig
+    from .sharding import make_context
+
+    dev = _rank_dev()
+    ctx = make_context(mesh)
+
+    def trainer(steps, **kw):
+        model = T.model_from_state_dict(cfg, {k: v.to(dev).clone() for k, v in sd.items()})
+        return Trainer(cfg, TrainerConfig(**{**tcfg_kw, "steps": steps, "compression": CompressionConfig(), **kw}),
+                       None, ctx, device=dev, initial_state=TrainState(params=model, opt=None, ef=None))
+
+    out, same = {}, True
+    for label, t, kw, skip in (("whole", trainer(3), {}, 0),
+                               ("first", trainer(2, ckpt_dir=ckpt_dir, ckpt_every=2), {}, 0),
+                               ("resumed", trainer(3, ckpt_dir=ckpt_dir, ckpt_every=2), {}, 2)):
+        for _ in range(skip):
+            next(t.scenario)
+        state, start = t.init_state()
+        state = t.run(state, start_step=start)
+        whole, alike = _state_whole(state, mesh)
+        same = same and alike
+        out[label] = {"start": start, "history": [{k: v for k, v in h.items() if k != "lockstep"}
+                                                  for h in t.history], "state": whole}
+    for label, path in restore_dirs.items():
+        template = init_train_state(cfg, generator=torch.Generator(device=dev).manual_seed(11),
+                                    compression=CompressionConfig(), mesh=mesh)
+        state, step = restore_checkpoint(path, template, mesh=mesh)
+        whole, alike = _state_whole(state, mesh)
+        same = same and alike
+        out[label] = {"step": step, "opt_step": state.opt.step, "state": whole}
+    out["lockstep"] = same
+    return out
+
+
 def _card_job(mesh, **kw) -> dict:
     """:func:`train_mesh_rank`, the card phase's rank program, on a mesh of
     ``mesh``'s shape (a rehearsal at a cut size)."""
     return train_mesh_rank(shape=mesh.sizes, **kw)
 
 
-_TRAIN_JOBS = {"collectives": _collectives_job, "step": _step_job, "trainer": _trainer_job, "card": _card_job}
+_TRAIN_JOBS = {"collectives": _collectives_job, "step": _step_job, "trainer": _trainer_job, "card": _card_job,
+               "compress": _compress_job, "ckpt": _ckpt_job}
 
 
 def train_lm_rank(jobs: list) -> list:
@@ -979,8 +1205,62 @@ def train_mesh_batches(cfg, seed: int, device, n: int, *, rows: int = 8, seq_len
              "group_weights": torch.tensor([1.0, 0.5, 1.0, 0.0], device=device)} for _ in range(n)]
 
 
+def _compression_check(oracle: dict, specs: dict, mesh, dev, ccfg) -> dict:
+    """Phase "train mesh" (d) on one rank: each tensor of the meshless
+    oracle's gradient, narrowed to the rank's block, compressed through the
+    mesh path from a zero buffer, against the meshless compression of the
+    whole tensor narrowed alike (the dequantized gradient and the buffer),
+    tensor by tensor so that no second copy of the gradient is held; and
+    ``lm_head``'s first straddling block: its columns on this rank, its
+    scale at the rank's first row and the whole tensor's."""
+    from ..train.compression import _quantize_split, compress_with_error_feedback, quantize_int8
+    from . import collectives as C
+    from .distributed import _sync
+    from .sharding import _block_of
+
+    sync = lambda: _sync(dev)  # noqa: E731
+    C.STATS.reset()
+    differ, mesh_s = [], 0.0
+    for name, whole in oracle["grads"].items():
+        spec = specs[name] or (None,) * whole.dim()
+        g = _block_of(whole, spec, mesh).to(dev)
+        sync()
+        t0 = time.perf_counter()
+        deq, ef = compress_with_error_feedback(ccfg, {name: g}, {name: torch.zeros_like(g)}, mesh=mesh,
+                                               specs={name: spec})
+        sync()
+        mesh_s += time.perf_counter() - t0
+        w = whole.to(dev)
+        wdeq, wef = compress_with_error_feedback(ccfg, {name: w}, {name: torch.zeros_like(w)})
+        if not (torch.equal(deq[name], _block_of(wdeq[name], spec, mesh))
+                and torch.equal(ef[name], _block_of(wef[name], spec, mesh))):
+            differ.append(name)
+        del g, w, deq, ef, wdeq, wef
+    pmax = {"calls": C.STATS.calls.get("pmax", 0), "bytes": C.STATS.bytes.get("pmax", 0)}
+    head = oracle["grads"]["lm_head"]
+    spec = specs["lm_head"] or (None,) * head.dim()
+    out = {"bitwise": not differ, "differ": differ[:4], "tensors": len(oracle["grads"]), "mesh_s": mesh_s,
+           "pmax": pmax}
+    axis, bk = spec[-1], ccfg.block
+    blk = _block_of(head, spec, mesh)
+    cols = blk.shape[-1]
+    r = mesh.coord(axis) if axis is not None else 0
+    first = r * cols
+    b = first // bk if first % bk else ((first + cols) // bk if (first + cols) % bk else None)
+    if axis is not None and cols % bk:  # blocks straddle: every rank joins the pmax
+        _, scale, _ = _quantize_split(blk.to(dev).float(), bk, mesh, axis)
+    if axis is not None and cols % bk and b is not None:  # the lowest block the rank shares with a neighbour
+        row = mesh.coord(spec[0]) * blk.shape[0] if spec[0] is not None else 0
+        _, whole_scale, _ = quantize_int8(head[row:row + 1].to(dev).float(), bk)
+        out["lm_head"] = {"block": b, "columns": (max(first, b * bk), min(first + cols, (b + 1) * bk)),
+                          "row": row, "scale": float(scale[0, b - first // bk, 0]),
+                          "whole_scale": float(whole_scale[0, b, 0]),
+                          "padded_block": -(-head.shape[-1] // bk) - 1}
+    return out
+
+
 def train_mesh_rank(seed: int, shape, oracle_path: str, remat: str = "full",
-                    cfg_overrides: Optional[dict] = None, seq_len: int = 512) -> dict:
+                    cfg_overrides: Optional[dict] = None, seq_len: int = 512, compress: bool = False) -> dict:
     """Phase "train mesh" of ``chip_smoke.py`` on one rank: qwen3-1.7b
     (f32 parameters, bf16 compute) on a ``shape`` (data, model) mesh, the
     rank's blocks drawn by ``init_sharded`` from ``seed`` (the meshless
@@ -994,11 +1274,16 @@ def train_mesh_rank(seed: int, shape, oracle_path: str, remat: str = "full",
     and their shape, the collectives' count, bytes and seconds by kind, the
     gaps, the moments' shapes against ``state_shardings``' blocks.
     ``cfg_overrides`` and ``seq_len`` cut the model (a rehearsal at the
-    smoke size on the CPU)."""
+    smoke size on the CPU).  ``compress`` (phase "train mesh" (d)): the
+    state carries error-feedback buffers, :func:`_compression_check` runs
+    first (the peak memory is then reset), and the step compresses
+    (``CompressionConfig()``); the buffers' shapes are held to
+    ``state_shardings``' blocks."""
     import torch.distributed as dist
 
     from ..models import attention as A
     from ..models.registry import get_config
+    from ..train.compression import CompressionConfig
     from ..train.optimizer import AdamWConfig, moment_blocks
     from ..train.train_step import init_train_state, make_train_step
     from . import collectives as C
@@ -1011,13 +1296,21 @@ def train_mesh_rank(seed: int, shape, oracle_path: str, remat: str = "full",
     cfg = get_config("qwen3-1.7b", **(cfg_overrides or {}))
     mesh = make_test_mesh(tuple(shape))
     ctx = make_context(mesh, remat=remat)
+    ccfg = CompressionConfig() if compress else None
     _reset_peak(dev)
     t0 = time.perf_counter()
-    state = init_train_state(cfg, generator=torch.Generator(device=dev).manual_seed(seed), mesh=mesh)
+    state = init_train_state(cfg, generator=torch.Generator(device=dev).manual_seed(seed), mesh=mesh,
+                             compression=ccfg)
     sync()
     draw_s = time.perf_counter() - t0
     params = dict(state.params.named_parameters())
     held = sum(p.numel() for p in params.values())
+    check = None
+    if compress:
+        specs = {n: getattr(p, "mesh_spec", None) for n, p in params.items()}
+        check = _compression_check(torch.load(oracle_path, mmap=True), specs, mesh, dev, ccfg)
+        check["peak_gib"] = _peak(dev)
+        _reset_peak(dev)
     batch = train_mesh_batches(cfg, seed, dev, 1, seq_len=seq_len)[0]
     rows = {"tokens": local_rows(batch["tokens"], mesh), "group_weights": batch["group_weights"]}
     (h0, h1), (k0, k1), pick, _ = A.local_heads(state.params.blocks[0].attn, cfg, ctx)
@@ -1027,7 +1320,7 @@ def train_mesh_rank(seed: int, shape, oracle_path: str, remat: str = "full",
     C.STATS.reset()
     dispatch.reset_launch_counts()
     sync()
-    step = make_train_step(cfg, ctx, AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=8))
+    step = make_train_step(cfg, ctx, AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=8), compression=ccfg)
     t0 = time.perf_counter()
     loss, metrics, grads = step.grads(state, rows)
     sync()
@@ -1053,7 +1346,9 @@ def train_mesh_rank(seed: int, shape, oracle_path: str, remat: str = "full",
         del want
     blocks = moment_blocks(params, mesh)
     moments_ok = all(tuple(opt.m[n].shape) == tuple(opt.v[n].shape) == blocks[n] for n in params)
-    mine = {"coords": mesh.coords, "params_held": held, "draw_s": draw_s, "grad_s": grad_s,
+    ef_ok = None if not compress else all(tuple(state.ef[n].shape) == blocks[n] for n in params)
+    mine = {"compression": check, "ef_ok": ef_ok,
+            "coords": mesh.coords, "params_held": held, "draw_s": draw_s, "grad_s": grad_s,
             "update_s": update_s, "step_s": grad_s + update_s, "peak_gib": peak, "launches": launches,
             "flash_shape": flash_shape, "sums": sums, "grad_gap": worst, "grad_gap_at": where,
             "loss": float(loss), "grad_norm": float(om["grad_norm"]), "tokens": float(metrics["tokens"]),
@@ -1061,3 +1356,130 @@ def train_mesh_rank(seed: int, shape, oracle_path: str, remat: str = "full",
     ranks = [None] * dist.get_world_size()
     dist.all_gather_object(ranks, mine)
     return {"ranks": ranks, "oracle_loss": oracle["loss"], "oracle_grad_norm": oracle["grad_norm"]}
+
+
+# ------------------------------------------------------ LM mesh checkpoints, card
+
+
+def block_digests(state) -> dict:
+    """A digest of each tensor of a train state by checkpoint name (the
+    rank's blocks under a mesh): the int64 sums, on its device, of its
+    32-bit words and of every other word."""
+    from ..train.checkpoint import _named_tensors
+
+    sums = {}
+    for key, (t, _) in _named_tensors(state).items():
+        words = t.detach().contiguous().reshape(-1).view(torch.int32)
+        sums[key] = torch.stack([words.sum(dtype=torch.int64), words[::2].sum(dtype=torch.int64)])
+    stacked = torch.stack(list(sums.values())).cpu().tolist()
+    return dict(zip(sums, map(tuple, stacked)))
+
+
+def ckpt_mesh_rank(seed: int, shape, ckpt_dir: str, meshless_dir: str, cfg_overrides: Optional[dict] = None,
+                   seq_len: int = 512, data_vocab: int = 8192) -> dict:
+    """Phase "train mesh" (e) of ``chip_smoke.py`` on one rank: qwen3-1.7b
+    (``cfg_overrides`` cut its depth) through ``Trainer(ctx=..., ckpt_dir=...)``
+    on a ``shape`` (data, model) mesh with compression: 3 steps
+    uninterrupted, a checkpoint in ``ckpt_dir`` after the second; a new
+    trainer resumed from it (its straggler stream advanced past the 2
+    steps) runs the third.  Then the meshless checkpoint in
+    ``meshless_dir`` restored onto the mesh.  Returns every rank's figures:
+    each run's losses, the digests (:func:`block_digests`) of the state
+    saved at step 2, after the third step of each run, and after the
+    meshless restore, the specs of the parameters, the write and read
+    seconds and the peak memory."""
+    import torch.distributed as dist
+
+    from ..models.registry import get_config
+    from ..train import trainer as trainer_mod
+    from ..train.compression import CompressionConfig
+    from ..train.optimizer import AdamWConfig
+    from ..train.train_step import init_train_state
+    from .distributed import _RANK_DEVICE, _sync
+    from .mesh import make_test_mesh
+    from .sharding import make_context
+
+    dev = _RANK_DEVICE[0] or torch.device("cpu")
+    cfg = get_config("qwen3-1.7b", **(cfg_overrides or {}))
+    mesh = make_test_mesh(tuple(shape))
+    ctx = make_context(mesh)
+    ocfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=8)
+    seen = {"write_s": [], "read_s": [], "saved": None}
+    save, restore = trainer_mod.save_checkpoint, trainer_mod.restore_checkpoint
+
+    def timed_save(path, step, state, **kw):
+        seen["saved"] = block_digests(state)
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = save(path, step, state, **kw)
+        seen["write_s"].append(time.perf_counter() - t0)
+        return out
+
+    def timed_restore(path, template, **kw):
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = restore(path, template, **kw)
+        _sync(dev)
+        seen["read_s"].append(time.perf_counter() - t0)
+        return out
+
+    def trainer(**kw):
+        tcfg = trainer_mod.TrainerConfig(num_groups=4, num_shards=4, redundancy=2, scheme="cyclic", microbatch=1,
+                                         seq_len=seq_len, steps=3, ckpt_every=2, ckpt_dir=ckpt_dir, ckpt_keep=1,
+                                         seed=seed, data_vocab=data_vocab, warm_start=False,
+                                         compression=CompressionConfig(), **kw)
+        return trainer_mod.Trainer(cfg, tcfg, ocfg, ctx, device=dev)
+
+    trainer_mod.save_checkpoint, trainer_mod.restore_checkpoint = timed_save, timed_restore
+    runs = {}
+    try:
+        _reset_peak(dev)
+        for label, skip in (("whole", 0), ("resumed", 2)):
+            t = trainer()
+            for _ in range(skip):
+                next(t.scenario)
+            t0 = time.perf_counter()
+            state, start = t.init_state()
+            state = t.run(state, start_step=start)
+            _sync(dev)
+            runs[label] = {"start": start, "losses": [h["loss"] for h in t.history],
+                           "stragglers": [h["stragglers"] for h in t.history], "seconds": time.perf_counter() - t0,
+                           "digests": block_digests(state)}
+            del state, t
+        specs = None
+        template = init_train_state(cfg, generator=torch.Generator(device=dev).manual_seed(seed + 1),
+                                    compression=CompressionConfig(), mesh=mesh)
+        specs = {n: getattr(p, "mesh_spec", None) for n, p in template.params.named_parameters()}
+        restored, step = timed_restore(meshless_dir, template, mesh=mesh)
+        runs["meshless"] = {"step": step, "opt_step": restored.opt.step, "digests": block_digests(restored)}
+        del restored, template
+    finally:
+        trainer_mod.save_checkpoint, trainer_mod.restore_checkpoint = save, restore
+    mine = {"coords": mesh.coords, "runs": runs, "saved": seen["saved"], "write_s": seen["write_s"],
+            "read_s": seen["read_s"], "specs": specs, "peak_gib": _peak(dev)}
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    return {"ranks": ranks}
+
+
+def narrowed_digests(state, specs: dict, shape) -> dict:
+    """:func:`block_digests` of the blocks that each rank of a ``shape``
+    (data, model) mesh holds of a whole (meshless) train state, by the
+    rank's coordinates: what :func:`ckpt_mesh_rank` reports, from the
+    parameters' ``specs`` (by parameter name) that the ranks hold."""
+    from ..train.checkpoint import _named_tensors
+    from .mesh import Mesh
+    from .sharding import _block_of
+
+    out = {}
+    for coords in np.ndindex(*shape):
+        grid = Mesh(("data", "model"), tuple(shape), coords=tuple(int(c) for c in coords))
+        sums = {}
+        for key, (t, _) in _named_tensors(state).items():
+            spec = specs[key.split("/")[-1]]  # params/<name>, opt/m/<name>, …: names hold no "/"
+            blk = _block_of(t.detach(), spec or (None,) * t.dim(), grid)
+            words = blk.reshape(-1).view(torch.int32)
+            sums[key] = torch.stack([words.sum(dtype=torch.int64), words[::2].sum(dtype=torch.int64)])
+        stacked = torch.stack(list(sums.values())).cpu().tolist()
+        out[grid.coords] = dict(zip(sums, map(tuple, stacked)))
+    return out

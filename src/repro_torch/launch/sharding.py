@@ -45,6 +45,7 @@ from .mesh import axis_sizes
 __all__ = [
     "batch_shardings",
     "block_shape",
+    "block_slices",
     "full_shape",
     "cache_shardings",
     "gather_rows",
@@ -290,14 +291,22 @@ def full_shape(block, spec, mesh) -> tuple:
     return tuple(d * mesh.shape[ax] if isinstance(ax, str) else d for d, ax in zip(block, spec))
 
 
+def block_slices(shape, spec, mesh) -> tuple:
+    """This rank's block of a tensor of ``shape`` under ``spec``, one
+    slice per dim (an index of a tensor or of an array)."""
+    out = []
+    for d, ax in zip(shape, spec):
+        if ax is None:
+            out.append(slice(None))
+        else:
+            blk = d // mesh.shape[ax]
+            out.append(slice(mesh.coord(ax) * blk, (mesh.coord(ax) + 1) * blk))
+    return tuple(out)
+
+
 def _block_of(t: torch.Tensor, spec: tuple, mesh) -> torch.Tensor:
     """This rank's block of the full tensor t under ``spec``, a copy."""
-    for i, ax in enumerate(spec):
-        if ax is not None:
-            n = mesh.shape[ax]
-            blk = t.shape[i] // n
-            t = t.narrow(i, mesh.coord(ax) * blk, blk)
-    return t.clone(memory_format=torch.contiguous_format)
+    return t[block_slices(t.shape, spec, mesh)].clone(memory_format=torch.contiguous_format)
 
 
 def _narrow_module(prefix: str, module: nn.Module, *, mesh, layout: str) -> None:

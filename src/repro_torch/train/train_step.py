@@ -19,8 +19,10 @@ whole cotangents), then sums each block's gradient over the batch axes its
 spec leaves replicated (the data-parallel sum), in one ``all_reduce`` per
 set of axes and dtype;
 the global norm and AdamW run on the blocks.  ``accum_steps > 1`` needs
-whole groups on every data shard.  Compression on a mesh raises
-(ROADMAP item 9.3).
+whole groups on every data shard.  Compression quantizes the summed
+gradient's blocks in the global tensor's quantization blocks
+(``train.compression``), its error-feedback buffers on the parameters'
+blocks.
 """
 
 from __future__ import annotations
@@ -62,23 +64,16 @@ def init_train_state(
     moments, zero error-feedback buffers when compression is on.  Under a
     ``mesh`` the rank's blocks: drawn by ``launch.sharding.init_sharded``
     (the meshless draw's values), or ``model`` narrowed by
-    ``launch.sharding.shard_model``; the moments on the same blocks."""
+    ``launch.sharding.shard_model``; the moments and the error-feedback
+    buffers on the same blocks."""
     if mesh is not None:
         from ..launch.sharding import init_sharded, shard_model
 
-        _no_mesh_compression(compression)
         model = shard_model(model, mesh) if model is not None else init_sharded(cfg, generator=generator, mesh=mesh)
     model = model if model is not None else T.init_params(cfg, generator=generator)
     params = dict(model.named_parameters())
     ef = init_ef_state(params) if (compression and compression.enabled) else None
     return TrainState(params=model, opt=init_opt_state(params, mesh), ef=ef)
-
-
-def _no_mesh_compression(compression) -> None:
-    if compression is not None and compression.enabled:
-        raise NotImplementedError(
-            "compression on an LM mesh is not ported (ROADMAP queue 1, item 9.3): the reference quantizes the "
-            "global tensors in blocks of 256 along their last dim, and a rank holds only its blocks")
 
 
 def _data_shards(ctx: T.ModelContext) -> int:
@@ -183,8 +178,6 @@ def make_train_step(
     loss, metrics, grads) -> (state, metrics)``; ``train_step(state,
     batch)`` is the one after the other."""
     mesh = ctx.mesh
-    if mesh is not None:
-        _no_mesh_compression(compression)
     grad_of = make_grad_fn(cfg, ctx)
 
     def step_grads(state: TrainState, batch):
@@ -221,10 +214,11 @@ def make_train_step(
 
     def apply(state: TrainState, loss, metrics, grads):
         params = dict(state.params.named_parameters())
+        specs = _specs(params)
         ef = state.ef
         if compression is not None and compression.enabled:
-            grads, ef = compress_with_error_feedback(compression, grads, ef)
-        _, opt, opt_metrics = adamw_update(opt_cfg, params, grads, state.opt, mesh, _specs(params))
+            grads, ef = compress_with_error_feedback(compression, grads, ef, mesh=mesh, specs=specs)
+        _, opt, opt_metrics = adamw_update(opt_cfg, params, grads, state.opt, mesh, specs)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss

@@ -34,9 +34,13 @@ each rank holds its blocks of the weights and the moments, draws the same
 global batch, pattern and host solve as every other rank, feeds its rows
 (``launch.sharding.local_rows``) to the mesh step
 (``train_step.make_train_step``), and records a hash of the step's losses,
-recovery weights and pattern (``lockstep``), equal on every rank.  The
+recovery weights and pattern (``lockstep``), equal on every rank.
+Compression quantizes in the global tensors' blocks, and a checkpoint
+holds the whole tensors, written by rank 0 and narrowed to each rank's
+blocks on restore (``train.compression``, ``train.checkpoint``), so a
+mesh run resumes from a meshless checkpoint and the other way round.  The
 mesh-native path with an LM mesh does not exist in the reference and
-raises; checkpoints and compression on an LM mesh raise (ROADMAP item 9.3).
+raises.
 """
 
 from __future__ import annotations
@@ -138,9 +142,6 @@ class Trainer:
                 raise ValueError("device_recovery=True runs the groups over an executor's ranks; with an LM mesh "
                                  "in ctx it does not exist (the reference's trainer has no such path): use the "
                                  "host path, device_recovery=False")
-            if tcfg.ckpt_dir:
-                raise NotImplementedError("checkpoints on an LM mesh are not ported (ROADMAP queue 1, item 9.3): "
-                                          "a rank holds only its blocks of the weights and moments")
         self.cfg = cfg
         self.tcfg = tcfg
         self.opt_cfg = opt_cfg or AdamWConfig(total_steps=tcfg.steps)
@@ -239,7 +240,7 @@ class Trainer:
                                      mesh=self.mesh)
         start = 0
         if self.tcfg.ckpt_dir and latest_step(self.tcfg.ckpt_dir) is not None:
-            state, start = restore_checkpoint(self.tcfg.ckpt_dir, state)
+            state, start = restore_checkpoint(self.tcfg.ckpt_dir, state, mesh=self.mesh)
         return state, start
 
     def _batch(self, step: int, weights: np.ndarray) -> dict:
@@ -408,5 +409,5 @@ class Trainer:
             if on_step:
                 on_step(step, record)
             if self.tcfg.ckpt_dir and (step + 1) % self.tcfg.ckpt_every == 0:
-                save_checkpoint(self.tcfg.ckpt_dir, step + 1, state, keep=self.tcfg.ckpt_keep)
+                save_checkpoint(self.tcfg.ckpt_dir, step + 1, state, keep=self.tcfg.ckpt_keep, mesh=self.mesh)
         return state

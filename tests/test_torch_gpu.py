@@ -1055,3 +1055,42 @@ def test_mesh_train_step_on_card_matches_the_meshless_step(cuda_device, tmp_path
         assert abs(r["loss"] - rep["oracle_loss"]) <= 1e-5 * abs(rep["oracle_loss"])
         assert abs(r["grad_norm"] - rep["oracle_grad_norm"]) <= 1e-3 * rep["oracle_grad_norm"]
         assert r["moments_ok"] and r["sums"]["calls"].get("split_bwd", 0) > 0
+
+
+def test_compressed_mesh_train_step_on_card_without_remat(cuda_device, tmp_path):
+    """The step of ``test_mesh_train_step_on_card_matches_the_meshless_step``
+    under remat none and with compression (``train_mesh_rank(compress=True)``):
+    the flash Function saves its output, which the heads' gather reads, and
+    gloo's broadcast of a CUDA tensor writes its source in place, so a
+    gather must broadcast a copy (a checkpointed mesh trainer failed so on
+    the card); the oracle's gradient compressed through the mesh path bit
+    for bit the meshless compression narrowed, the buffers on
+    ``state_shardings``' blocks, one flash launch a layer a rank."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import distributed as mesh_dist
+    from repro_torch.launch import mesh_runs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.registry import get_config
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import init_train_state, make_grad_fn
+
+    _build.build(("flash_attention",))
+    overrides, seed = {"n_layers": 2}, 0
+    cfg = get_config("qwen3-1.7b", **overrides)
+    state = init_train_state(cfg, generator=torch.Generator(device=cuda_device).manual_seed(seed))
+    batch = mesh_runs.train_mesh_batches(cfg, seed, cuda_device, 1)[0]
+    loss, _, grads = make_grad_fn(cfg, T.ModelContext())(state.params, batch)
+    path = str(tmp_path / "oracle.pt")
+    torch.save({"grads": {n: g.cpu() for n, g in grads.items()}, "loss": float(loss),
+                "grad_norm": float(global_norm(grads)), "top": max(float(g.abs().max()) for g in grads.values())},
+               path)
+    del state, grads
+    torch.cuda.empty_cache()
+    rep = mesh_dist.run_ranks(mesh_runs.train_mesh_rank, 2, backend="gloo", device="cuda", timeout=600,
+                              args=(seed, (1, 2), path, "none", overrides, 512, True))
+    for r in rep["ranks"]:
+        assert r["launches"]["flash_attention"] == cfg.n_layers, r["launches"]
+        assert r["grad_gap"] <= 2e-2, (r["grad_gap"], r["grad_gap_at"])
+        assert r["compression"]["bitwise"] and r["ef_ok"] and r["moments_ok"]
+        head = r["compression"]["lm_head"]
+        assert head["scale"] == head["whole_scale"] and head["block"] == 296

@@ -286,11 +286,13 @@ def test_a_world_of_one_mesh_is_the_meshless_port_bit_for_bit(inputs, meshless):
 
 
 def test_training_on_a_mesh_raises_where_it_is_not_ported():
-    """A no-grad forward on (1, 1) keeps its logits' shape.  The raises of
-    training on an LM mesh: compression and checkpoints (ROADMAP item
-    9.3), ``device_recovery`` with an LM mesh (no such path in the
-    reference), and accumulation that would split a group over the data
-    shards (checked before any collective, so its mesh needs no process
+    """A no-grad forward on (1, 1) keeps its logits' shape.  Compression
+    and checkpoints on an LM mesh are ported: the step, the state and the
+    trainer take them (``tests/test_torch_lm_mesh_ckpt.py`` holds them to
+    the reference).  The raises of training on an LM mesh that remain:
+    ``device_recovery`` with an LM mesh (no such path in the reference),
+    and accumulation that would split a group over the data shards
+    (checked before any collective, so its mesh needs no process
     group)."""
     from repro_torch.launch.mesh import Mesh
     from repro_torch.train.compression import CompressionConfig
@@ -308,12 +310,12 @@ def test_training_on_a_mesh_raises_where_it_is_not_ported():
         logits, _, _ = T.forward_train(state.params, batch, cfg, ctx)
     assert logits.shape == (2, 4, cfg.vocab)
     comp = CompressionConfig()
-    with pytest.raises(NotImplementedError, match="item 9.3"):
-        make_train_step(cfg, ctx, AdamWConfig(), compression=comp)
-    with pytest.raises(NotImplementedError, match="item 9.3"):
-        init_train_state(cfg, generator=torch.Generator().manual_seed(0), compression=comp, mesh=mesh)
-    with pytest.raises(NotImplementedError, match="item 9.3"):
-        Trainer(cfg, TrainerConfig(ckpt_dir="unused", warm_start=False), ctx=ctx, device="cpu")
+    assert callable(make_train_step(cfg, ctx, AdamWConfig(), compression=comp))
+    compressed = init_train_state(cfg, generator=torch.Generator().manual_seed(0), compression=comp, mesh=mesh)
+    assert {n: tuple(t.shape) for n, t in compressed.ef.items()} == {
+        n: tuple(p.shape) for n, p in compressed.params.named_parameters()}
+    trainer = Trainer(cfg, TrainerConfig(ckpt_dir="unused", warm_start=False), ctx=ctx, device="cpu")
+    assert trainer.mesh is mesh and trainer.tcfg.ckpt_dir == "unused"
     with pytest.raises(ValueError, match="device_recovery"):
         Trainer(cfg, TrainerConfig(device_recovery=True), ctx=ctx, device="cpu")
     split = Mesh(("data", "model"), (2, 1), coords=(0, 0), groups=(None, None))
