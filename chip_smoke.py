@@ -1654,10 +1654,10 @@ def train_mesh_ckpt(seed: int, card: str) -> None:
     """Phase "train mesh" (e): qwen3-1.7b at full width, depth cut to
     ``CKPT_LAYERS``, on (2, 2) gloo ranks with FSDP, TP and compression,
     through ``Trainer(ctx=..., ckpt_dir=...)`` in a temporary directory
-    (``launch.mesh_runs.ckpt_mesh_rank``): 3 steps uninterrupted with a
-    checkpoint after the second, then a new trainer resumed from it runs
-    the third: its loss and the digest of every block of params, m, v and
-    ef bit for bit the uninterrupted run's.  The checkpoint restored
+    (``launch.mesh_runs.ckpt_mesh_rank``): 3 steps uninterrupted; 2 steps
+    with a checkpoint, then a new trainer resumed from it runs the third:
+    its losses and the digest of every block of params, m, v and ef bit for
+    bit the uninterrupted run's.  The checkpoint restored
     meshless here, narrowed to each rank's blocks, must be the state the
     ranks saved; a meshless checkpoint written here first, restored by the
     ranks, must give its narrowed blocks.  Prints the file's bytes, the
@@ -1709,8 +1709,8 @@ def train_mesh_ckpt(seed: int, card: str) -> None:
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         rep = mesh_dist.run_ranks(mesh_runs.ckpt_mesh_rank, 4, backend="gloo", device="cuda", timeout=900,
-                                  args=(seed, shape, os.path.join(tmp, "mesh"), os.path.join(tmp, "meshless"), cut,
-                                        512, DATA_VOCAB))
+                                  args=(seed, shape, os.path.join(tmp, "mesh"),
+                                        {"meshless": os.path.join(tmp, "meshless")}, cut, 512, DATA_VOCAB))
         print(f"(e) mesh {shape}, 4 gloo ranks on the card, FSDP + TP + compression: {time.perf_counter() - t0:.3f} s "
               f"from spawn to exit  [{card}]")
         path = os.path.join(tmp, "mesh", "step_2.npz")
@@ -1728,18 +1728,20 @@ def train_mesh_ckpt(seed: int, card: str) -> None:
         bad = []
         for r in rep["ranks"]:
             runs, c = r["runs"], tuple(r["coords"])
-            whole, resumed = runs["whole"], runs["resumed"]
-            resume_ok = resumed["start"] == 2 and resumed["losses"] == whole["losses"][2:] and (
-                resumed["digests"] == whole["digests"])
-            saved_ok = r["saved"] == read[c]
-            meshless_ok = runs["meshless"]["digests"] == wrote[c] and runs["meshless"]["step"] == 7
-            print(f"(e) rank {c}: losses {whole['losses']} in {whole['seconds']:.3f} s; resumed at step "
-                  f"{resumed['start']}: loss {resumed['losses']}, loss and every block of params, m, v and ef bit "
-                  f"for bit the uninterrupted run's {resume_ok}; step_2.npz ({size:,} bytes) written in "
-                  f"{r['write_s'][0]:.3f} s, read back in {r['read_s'][0]:.3f} s; restored meshless here in "
-                  f"{read_s:.3f} s: the blocks the rank saved {saved_ok}; the meshless checkpoint read onto the "
-                  f"mesh in {r['read_s'][1]:.3f} s: its narrowed blocks {meshless_ok}; peak {r['peak_gib']:.3f} "
-                  f"GiB  [{card}]")
+            whole, first, resumed = runs["whole"], runs["first"], runs["resumed"]
+            losses = {k: [h["loss"] for h in run["history"]] for k, run in runs.items()}
+            resume_ok = resumed["start"] == 2 and losses["resumed"] == losses["whole"][2:] and (
+                losses["first"] == losses["whole"][:2] and resumed["digests"] == whole["digests"])
+            saved_ok = first["digests"] == read[c]
+            meshless = r["restored"]["meshless"]
+            meshless_ok = meshless["digests"] == wrote[c] and meshless["step"] == 7
+            print(f"(e) rank {c}: losses {losses['whole']} in {whole['seconds']:.3f} s; 2 steps and a checkpoint in "
+                  f"{first['seconds']:.3f} s, resumed at step {resumed['start']}: loss {losses['resumed']}, losses "
+                  f"and every block of params, m, v and ef bit for bit the uninterrupted run's {resume_ok}; "
+                  f"step_2.npz ({size:,} bytes) written in {first['history'][-1]['ckpt_write_s']:.3f} s, read back "
+                  f"in {resumed['read_s']:.3f} s; restored meshless here in {read_s:.3f} s: the blocks the rank "
+                  f"saved {saved_ok}; the meshless checkpoint read onto the mesh in {meshless['read_s']:.3f} s: its "
+                  f"narrowed blocks {meshless_ok}; peak {r['peak_gib']:.3f} GiB  [{card}]")
             if r["specs"] != {k: tuple(v) for k, v in specs.items()}:
                 bad.append(f"rank {c}: specs differ from the parent's")
             if not (resume_ok and saved_ok and meshless_ok and step == 2):

@@ -20,12 +20,15 @@ launches its kernel, so a run can show that its main path went through the
 kernels (:func:`launch_counts`, :func:`reset_launch_counts`).  The resolver
 counts the calls of each op, whichever impl takes them
 (:func:`call_counts`, :func:`reset_call_counts`): on the CPU, the plain
-versions' calls.
+versions' calls.  While an :func:`observed` block is open, each resolved
+op is called through its observer, which sees the op, the impl and the
+arguments (``launch.op_analysis`` counts the op's work by its shapes).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+import contextlib
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -35,6 +38,7 @@ __all__ = [
     "call_counts",
     "impl_names",
     "launch_counts",
+    "observed",
     "register_impl",
     "reset_call_counts",
     "reset_launch_counts",
@@ -46,6 +50,7 @@ IMPLS = ("cuda", "torch_ref", "torch_chunked")
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}
 _COUNTERS: Dict[str, "LaunchCounter"] = {}
 _CALLS: Dict[str, int] = {}
+_OBSERVER: Optional[Callable] = None
 
 
 class LaunchCounter:
@@ -73,6 +78,19 @@ def call_counts() -> dict[str, int]:
 
 def reset_call_counts() -> None:
     _CALLS.clear()
+
+
+@contextlib.contextmanager
+def observed(observer: Callable):
+    """While the block is open, every op that :func:`resolve` hands out
+    runs as ``observer(op, fn, *args, **kwargs)``, where ``fn`` is the
+    resolved impl, which the observer calls and whose result it returns."""
+    global _OBSERVER
+    outer, _OBSERVER = _OBSERVER, observer
+    try:
+        yield
+    finally:
+        _OBSERVER = outer
 
 
 def register_impl(op: str, name: str, fn: Callable) -> Callable:
@@ -104,4 +122,7 @@ def resolve(op: str, impl: str, *tensors: torch.Tensor) -> tuple[str, Callable]:
     if name == "cuda" and device.type != "cuda":
         raise ValueError(f"{op}: impl='cuda' needs CUDA tensors, got {device}")
     _CALLS[op] = _CALLS.get(op, 0) + 1
-    return name, impls[name]
+    fn, observer = impls[name], _OBSERVER
+    if observer is None:
+        return name, fn
+    return name, lambda *args, **kwargs: observer(op, fn, *args, **kwargs)

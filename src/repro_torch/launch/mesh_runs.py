@@ -36,9 +36,10 @@ The workloads are those of the reference's multi-device tests:
   qwen3-1.7b at full width, one train step a rank against the meshless
   oracle's gradient blocks, and with ``compress`` the mesh compression of
   the oracle's gradient against the meshless one;
-* :func:`ckpt_mesh_rank` — phase "train mesh" (e): a compressed
-  ``Trainer`` on the mesh checkpointed, resumed and restored from a
-  meshless file.
+* :func:`ckpt_mesh_rank` — phase "train mesh" (e) and the checkpoint
+  tests of ``tests/test_torch_lm_mesh_ckpt.py``: a compressed ``Trainer``
+  on the mesh checkpointed, resumed, and restored from meshless, mesh and
+  reference files.
 """
 
 from __future__ import annotations
@@ -70,8 +71,8 @@ __all__ = [
     "fig1", "fig1_rank", "multiround", "multiround_rank", "stream", "stream_rank",
     "eight_rank_twins", "update_rows_rank", "alg1_problem", "alg1_rank", "full_width_rank",
     "train", "train_rank", "lm_rank", "lm_job", "decode_taps", "first_difference", "moe_mesh_oracle",
-    "moe_serve_rank", "train_lm_rank", "train_mesh_batches", "train_mesh_rank", "block_digests", "ckpt_mesh_rank",
-    "narrowed_digests",
+    "moe_serve_rank", "train_lm_rank", "train_mesh_batches", "train_mesh_rank", "compression_check",
+    "block_digests", "ckpt_mesh_rank", "narrowed_digests",
 ]
 
 
@@ -585,83 +586,33 @@ def _experts_of(log, r: int, e_loc: int) -> list:
 @contextlib.contextmanager
 def decode_taps(ctx=None):
     """Record the output of every op of the decode steps run while the
-    block is open, in call order and whole, as a list of (name, tensor on
-    the host): each step's token embedding, each layer's query, key and value
-    projections (``q``, ``k``, ``v``), its ``decode_attention``, the
-    output projection, the router's combine weights, the experts' outputs,
-    the MLP (the shared experts' under an MoE), the MoE's output and the
-    block's, then the logits; a name reads ``step<t>/layer<i>/<op>``,
-    counting the steps from the block's first.  Under an
-    LM mesh (``ctx.mesh``) a rank's heads and experts are gathered over the
-    model axis first, so that two runs' records compare op by op
-    (:func:`first_difference`).  Every rank must open it alike: the
-    gathers are collectives."""
-    from ..kernels.flash_attention import ops as fa
-    from ..models import attention as A
-    from ..models import layers as L
-    from ..models import moe as M
-    from ..models import transformer as T
+    block is open (``models.taps``), in call order and whole, as a list of
+    (name, tensor on the host); a name reads ``step<t>/layer<i>/<op>``
+    (``step<t>/embed`` and ``step<t>/logits`` outside the layers), counting
+    the steps from the block's first.  Under an LM mesh (``ctx.mesh``) a
+    rank's heads and experts are gathered over the model axis first, so
+    that two runs' records compare op by op (:func:`first_difference`).
+    Every rank must open it alike: the gathers are collectives."""
+    from ..models import taps
     from . import collectives as C
 
     mesh = None if ctx is None else ctx.mesh
     axis = None if mesh is None else ctx.model_axis
     split = axis is not None and mesh.shape.get(axis, 1) > 1
-    log, step, layer, heads = [], [-1], [None], [False]
+    log, step, layer = [], [-1], [0]
 
-    def keep(op, t, dim=None):
-        t = C.gather(t, mesh, axis, dim) if (split and dim is not None) else t
-        name = f"step{step[0]}/" + (op if layer[0] is None else f"layer{layer[0]}/{op}")
-        log.append((name, t.detach().cpu()))
+    def record(op, t, dim):
+        if split and dim is not None:
+            t = C.gather(t, mesh, axis, dim)
+        if op == "embed":
+            step[0], layer[0] = step[0] + 1, 0
+        inside = op not in ("embed", "logits")
+        log.append((f"step{step[0]}/" + (f"layer{layer[0]}/{op}" if inside else op), t.detach().cpu()))
+        if op == "block":
+            layer[0] += 1
 
-    def qkv(p, x, cfg, *args, **kw):
-        heads[0] = split and A.local_heads(p, cfg, *args[2:], **kw)[3]
-        q, k, v = saved["qkv"](p, x, cfg, *args, **kw)
-        for op, t in (("q", q), ("k", k), ("v", v)):
-            keep(op, t, 2 if heads[0] else None)
-        return q, k, v
-
-    def attention(*args, **kw):
-        o = saved["attention"](*args, **kw)
-        keep("attention", o, 2 if heads[0] else None)
-        return o
-
-    def experts(*args, **kw):
-        out = saved["experts"](*args, **kw)
-        keep("experts", out[0], 0)
-        return out
-
-    def block(p, x_t, *args, **kw):
-        layer[0] = 0 if layer[0] is None else layer[0] + 1
-        out = saved["block"](p, x_t, *args, **kw)
-        keep("block", out[0])
-        return out
-
-    def plain(key, op, first=False):
-        def call(*args, **kw):
-            if key == "embed":
-                step[0] += 1
-            out = saved[key](*args, **kw)
-            keep(op, out[0] if first else out)
-            if key == "logits":
-                layer[0] = None
-            return out
-        return call
-
-    sites = {"embed": (T, "_token_embed", plain("embed", "embed")), "qkv": (A, "_project_qkv", qkv),
-             "attention": (fa, "decode_attention", attention),
-             "out": (A, "_out", plain("out", "attn_out")),
-             "router": (M, "_routing", plain("router", "router", first=True)),
-             "experts": (M, "_expert_outputs", experts), "mlp": (L, "mlp_apply", plain("mlp", "mlp")),
-             "moe": (M, "moe_apply", plain("moe", "moe", first=True)), "block": (T, "_block_decode", block),
-             "logits": (T, "_logits", plain("logits", "logits"))}
-    saved = {key: getattr(mod, attr) for key, (mod, attr, _) in sites.items()}
-    for mod, attr, fn in sites.values():
-        setattr(mod, attr, fn)
-    try:
+    with taps.recording(record):
         yield log
-    finally:
-        for key, (mod, attr, _) in sites.items():
-            setattr(mod, attr, saved[key])
 
 
 def first_difference(got: list, want: list) -> Optional[tuple]:
@@ -1067,17 +1018,15 @@ def _trainer_job(mesh, cfg, sd, tcfg_kw: dict, ocfg: dict) -> dict:
 def _compress_job(mesh, cfg, sd, batches, ocfg: dict, block: int) -> dict:
     """``len(batches)`` compressed steps of ``train_step.make_train_step``
     (``CompressionConfig(block=block)``) from the weights ``sd``, each
-    through its two halves: the step's gradient whole (the summed one that
-    ``apply`` compresses), the dequantized gradient and the buffer that
-    ``compress_with_error_feedback`` forms from it under the mesh (whole),
-    whether ``apply`` left those buffers, the ``pmax`` calls, the loss and
-    the grad norm; then the parameters whole, the buffers' shapes beside
-    ``state_shardings``' blocks, and whether the ranks agree."""
+    through its two halves: the step's summed gradient whole (the one that
+    ``apply`` compresses) and :func:`compression_check` of it, from the
+    buffers whole before the step, against the buffers ``apply`` left; the
+    loss.  Then the parameters and the buffers whole, the buffers' shapes
+    beside ``state_shardings``' blocks, and whether the ranks agree."""
     from ..models import transformer as T
-    from ..train.compression import CompressionConfig, compress_with_error_feedback
+    from ..train.compression import CompressionConfig
     from ..train.optimizer import AdamWConfig, moment_blocks
     from ..train.train_step import init_train_state, make_train_step
-    from . import collectives as C
     from .sharding import local_rows, make_context
 
     dev = _rank_dev()
@@ -1090,89 +1039,33 @@ def _compress_job(mesh, cfg, sd, batches, ocfg: dict, block: int) -> dict:
     for batch in batches:
         rows = {k: (v if k == "group_weights" else local_rows(v, mesh)).to(dev) for k, v in batch.items()}
         loss, metrics, grads = step.grads(state, rows)
-        C.STATS.reset()
-        deq, ef = compress_with_error_feedback(ccfg, grads, state.ef, mesh=mesh, specs=specs)
-        pmax = C.STATS.calls.get("pmax", 0)
+        grads_whole, alike = _gather_blocks(_blocks(state.params, grads), mesh)
+        ef_whole, alike_ef = _gather_blocks(_blocks(state.params, state.ef), mesh)
         state, m = step.apply(state, loss, metrics, grads)
-        rec = {"apply_ef": all(torch.equal(ef[n], state.ef[n]) for n in ef), "pmax": pmax,
-               "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}
-        for key, tree in (("grads", grads), ("deq", deq), ("ef", ef)):
-            rec[key], alike = _gather_blocks(_blocks(state.params, tree), mesh)
-            same = same and alike
-        steps.append(rec)
-        del grads, deq, ef
+        check = compression_check({n: torch.from_numpy(a) for n, a in grads_whole.items()},
+                                  {n: torch.from_numpy(a) for n, a in ef_whole.items()}, specs, mesh, dev, ccfg,
+                                  applied=state.ef)
+        steps.append({"grads": grads_whole, "check": check, "loss": float(m["loss"])})
+        same = same and alike and alike_ef
+        del grads
     params = dict(state.params.named_parameters())
     whole, alike = _gather_blocks(_blocks(state.params, params), mesh)
+    ef, alike_ef = _gather_blocks(_blocks(state.params, state.ef), mesh)
     blocks = moment_blocks(params, mesh)
-    return {"steps": steps, "params": whole, "lockstep": same and alike,
+    return {"steps": steps, "params": whole, "ef": ef, "lockstep": same and alike and alike_ef,
             "ef_on_blocks": all(tuple(state.ef[n].shape) == blocks[n] for n in params)}
-
-
-def _state_whole(state, mesh) -> tuple:
-    """A train state's params, m, v and ef whole ({part: {name: array}})
-    and whether the ranks holding a block agree."""
-    out, same = {}, True
-    parts = {"params": dict(state.params.named_parameters()), "m": state.opt.m, "v": state.opt.v}
-    if state.ef is not None:
-        parts["ef"] = state.ef
-    for part, tree in parts.items():
-        out[part], alike = _gather_blocks(_blocks(state.params, tree), mesh)
-        same = same and alike
-    return out, same
-
-
-def _ckpt_job(mesh, cfg, sd, tcfg_kw: dict, ckpt_dir: str, restore_dirs: dict) -> dict:
-    """Checkpoints on an LM mesh through ``Trainer(ctx=...)`` with
-    compression, from the weights ``sd``: 3 steps uninterrupted; 2 steps
-    with a checkpoint in ``ckpt_dir`` (the state whole after them), then a
-    new trainer that resumes from it (its straggler stream advanced past
-    the 2 steps) and runs the third; each run's history and state whole.
-    Then each checkpoint of ``restore_dirs`` (label → directory) restored
-    onto the mesh into a fresh state, whole.  The test holds the resumed
-    run to the uninterrupted one, the file to the mesh state, and each
-    restore to the file."""
-    from ..models import transformer as T
-    from ..train.checkpoint import restore_checkpoint
-    from ..train.compression import CompressionConfig
-    from ..train.train_step import TrainState, init_train_state
-    from ..train.trainer import Trainer, TrainerConfig
-    from .sharding import make_context
-
-    dev = _rank_dev()
-    ctx = make_context(mesh)
-
-    def trainer(steps, **kw):
-        model = T.model_from_state_dict(cfg, {k: v.to(dev).clone() for k, v in sd.items()})
-        return Trainer(cfg, TrainerConfig(**{**tcfg_kw, "steps": steps, "compression": CompressionConfig(), **kw}),
-                       None, ctx, device=dev, initial_state=TrainState(params=model, opt=None, ef=None))
-
-    out, same = {}, True
-    for label, t, kw, skip in (("whole", trainer(3), {}, 0),
-                               ("first", trainer(2, ckpt_dir=ckpt_dir, ckpt_every=2), {}, 0),
-                               ("resumed", trainer(3, ckpt_dir=ckpt_dir, ckpt_every=2), {}, 2)):
-        for _ in range(skip):
-            next(t.scenario)
-        state, start = t.init_state()
-        state = t.run(state, start_step=start)
-        whole, alike = _state_whole(state, mesh)
-        same = same and alike
-        out[label] = {"start": start, "history": [{k: v for k, v in h.items() if k != "lockstep"}
-                                                  for h in t.history], "state": whole}
-    for label, path in restore_dirs.items():
-        template = init_train_state(cfg, generator=torch.Generator(device=dev).manual_seed(11),
-                                    compression=CompressionConfig(), mesh=mesh)
-        state, step = restore_checkpoint(path, template, mesh=mesh)
-        whole, alike = _state_whole(state, mesh)
-        same = same and alike
-        out[label] = {"step": step, "opt_step": state.opt.step, "state": whole}
-    out["lockstep"] = same
-    return out
 
 
 def _card_job(mesh, **kw) -> dict:
     """:func:`train_mesh_rank`, the card phase's rank program, on a mesh of
     ``mesh``'s shape (a rehearsal at a cut size)."""
     return train_mesh_rank(shape=mesh.sizes, **kw)
+
+
+def _ckpt_job(mesh, **kw) -> dict:
+    """:func:`ckpt_mesh_rank`, the card phase's checkpoint rank program, on
+    a mesh of ``mesh``'s shape (at a cut size)."""
+    return ckpt_mesh_rank(shape=mesh.sizes, **kw)
 
 
 _TRAIN_JOBS = {"collectives": _collectives_job, "step": _step_job, "trainer": _trainer_job, "card": _card_job,
@@ -1205,14 +1098,20 @@ def train_mesh_batches(cfg, seed: int, device, n: int, *, rows: int = 8, seq_len
              "group_weights": torch.tensor([1.0, 0.5, 1.0, 0.0], device=device)} for _ in range(n)]
 
 
-def _compression_check(oracle: dict, specs: dict, mesh, dev, ccfg) -> dict:
-    """Phase "train mesh" (d) on one rank: each tensor of the meshless
-    oracle's gradient, narrowed to the rank's block, compressed through the
-    mesh path from a zero buffer, against the meshless compression of the
-    whole tensor narrowed alike (the dequantized gradient and the buffer),
-    tensor by tensor so that no second copy of the gradient is held; and
-    ``lm_head``'s first straddling block: its columns on this rank, its
-    scale at the rank's first row and the whole tensor's."""
+def compression_check(grads: dict, ef: Optional[dict], specs: dict, mesh, dev, ccfg,
+                      applied: Optional[dict] = None) -> dict:
+    """The mesh compression of a global gradient, held on one rank: each
+    whole tensor of ``grads`` (by parameter name, on the host), narrowed to
+    the rank's block and compressed through the mesh path from the rank's
+    block of the whole buffer in ``ef`` (None: zero), against the meshless
+    ``compress_with_error_feedback`` of the whole tensor and buffer
+    narrowed alike (the dequantized gradient and the buffer), tensor by
+    tensor, so that no second copy of the gradient is held; with
+    ``applied`` (the rank's buffers that a train step's ``apply`` left),
+    the mesh path's buffers against those too.  Also ``lm_head``'s first
+    straddling block: its columns on this rank, its scale at the rank's
+    first row and the whole tensor's.  Phase "train mesh" (d) runs it on
+    the meshless oracle's gradient, the tests on a mesh step's."""
     from ..train.compression import _quantize_split, compress_with_error_feedback, quantize_int8
     from . import collectives as C
     from .distributed import _sync
@@ -1220,27 +1119,29 @@ def _compression_check(oracle: dict, specs: dict, mesh, dev, ccfg) -> dict:
 
     sync = lambda: _sync(dev)  # noqa: E731
     C.STATS.reset()
-    differ, mesh_s = [], 0.0
-    for name, whole in oracle["grads"].items():
+    differ, unapplied, mesh_s = [], [], 0.0
+    for name, whole in grads.items():
         spec = specs[name] or (None,) * whole.dim()
-        g = _block_of(whole, spec, mesh).to(dev)
+        w = whole.to(dev)
+        e = torch.zeros_like(w) if ef is None else ef[name].to(dev)
+        g, eb = _block_of(w, spec, mesh), _block_of(e, spec, mesh)
         sync()
         t0 = time.perf_counter()
-        deq, ef = compress_with_error_feedback(ccfg, {name: g}, {name: torch.zeros_like(g)}, mesh=mesh,
-                                               specs={name: spec})
+        deq, ef_out = compress_with_error_feedback(ccfg, {name: g}, {name: eb}, mesh=mesh, specs={name: spec})
         sync()
         mesh_s += time.perf_counter() - t0
-        w = whole.to(dev)
-        wdeq, wef = compress_with_error_feedback(ccfg, {name: w}, {name: torch.zeros_like(w)})
+        wdeq, wef = compress_with_error_feedback(ccfg, {name: w}, {name: e})
         if not (torch.equal(deq[name], _block_of(wdeq[name], spec, mesh))
-                and torch.equal(ef[name], _block_of(wef[name], spec, mesh))):
+                and torch.equal(ef_out[name], _block_of(wef[name], spec, mesh))):
             differ.append(name)
-        del g, w, deq, ef, wdeq, wef
+        if applied is not None and not torch.equal(ef_out[name], applied[name]):
+            unapplied.append(name)
+        del w, e, g, eb, deq, ef_out, wdeq, wef
     pmax = {"calls": C.STATS.calls.get("pmax", 0), "bytes": C.STATS.bytes.get("pmax", 0)}
-    head = oracle["grads"]["lm_head"]
+    out = {"bitwise": not differ, "differ": differ[:4], "tensors": len(grads), "mesh_s": mesh_s, "pmax": pmax,
+           "applied": None if applied is None else not unapplied}
+    head = grads["lm_head"]
     spec = specs["lm_head"] or (None,) * head.dim()
-    out = {"bitwise": not differ, "differ": differ[:4], "tensors": len(oracle["grads"]), "mesh_s": mesh_s,
-           "pmax": pmax}
     axis, bk = spec[-1], ccfg.block
     blk = _block_of(head, spec, mesh)
     cols = blk.shape[-1]
@@ -1275,8 +1176,8 @@ def train_mesh_rank(seed: int, shape, oracle_path: str, remat: str = "full",
     gaps, the moments' shapes against ``state_shardings``' blocks.
     ``cfg_overrides`` and ``seq_len`` cut the model (a rehearsal at the
     smoke size on the CPU).  ``compress`` (phase "train mesh" (d)): the
-    state carries error-feedback buffers, :func:`_compression_check` runs
-    first (the peak memory is then reset), and the step compresses
+    state carries error-feedback buffers, :func:`compression_check` of the
+    oracle's gradient runs first (the peak memory is then reset), and the step compresses
     (``CompressionConfig()``); the buffers' shapes are held to
     ``state_shardings``' blocks."""
     import torch.distributed as dist
@@ -1308,7 +1209,7 @@ def train_mesh_rank(seed: int, shape, oracle_path: str, remat: str = "full",
     check = None
     if compress:
         specs = {n: getattr(p, "mesh_spec", None) for n, p in params.items()}
-        check = _compression_check(torch.load(oracle_path, mmap=True), specs, mesh, dev, ccfg)
+        check = compression_check(torch.load(oracle_path, mmap=True)["grads"], None, specs, mesh, dev, ccfg)
         check["peak_gib"] = _peak(dev)
         _reset_peak(dev)
     batch = train_mesh_batches(cfg, seed, dev, 1, seq_len=seq_len)[0]
@@ -1361,40 +1262,69 @@ def train_mesh_rank(seed: int, shape, oracle_path: str, remat: str = "full",
 # ------------------------------------------------------ LM mesh checkpoints, card
 
 
-def block_digests(state) -> dict:
-    """A digest of each tensor of a train state by checkpoint name (the
-    rank's blocks under a mesh): the int64 sums, on its device, of its
-    32-bit words and of every other word."""
-    from ..train.checkpoint import _named_tensors
-
+def _digests(tensors: dict) -> dict:
+    """A digest of each tensor by name: the int64 sums, on its device, of
+    its 32-bit words and of every other word."""
     sums = {}
-    for key, (t, _) in _named_tensors(state).items():
+    for key, t in tensors.items():
         words = t.detach().contiguous().reshape(-1).view(torch.int32)
         sums[key] = torch.stack([words.sum(dtype=torch.int64), words[::2].sum(dtype=torch.int64)])
     stacked = torch.stack(list(sums.values())).cpu().tolist()
     return dict(zip(sums, map(tuple, stacked)))
 
 
-def ckpt_mesh_rank(seed: int, shape, ckpt_dir: str, meshless_dir: str, cfg_overrides: Optional[dict] = None,
+def block_digests(state) -> dict:
+    """The digest of each tensor of a train state by checkpoint name (the
+    rank's blocks under a mesh)."""
+    from ..train.checkpoint import _named_tensors
+
+    return _digests({key: t for key, (t, _) in _named_tensors(state).items()})
+
+
+def narrowed_digests(state, specs: dict, shape) -> dict:
+    """:func:`block_digests` of the blocks that each rank of a ``shape``
+    (data, model) mesh holds of a whole (meshless) train state, by the
+    rank's coordinates, from the parameters' ``specs`` (by parameter name)
+    that the ranks hold."""
+    from ..train.checkpoint import _named_tensors
+    from .mesh import Mesh
+    from .sharding import _block_of
+
+    out = {}
+    for coords in np.ndindex(*shape):
+        grid = Mesh(("data", "model"), tuple(shape), coords=tuple(int(c) for c in coords))
+        blocks = {}
+        for key, (t, _) in _named_tensors(state).items():
+            spec = specs[key.split("/")[-1]]  # params/<name>, opt/m/<name>, …: names hold no "/"
+            blocks[key] = _block_of(t.detach(), spec or (None,) * t.dim(), grid)
+        out[grid.coords] = _digests(blocks)
+    return out
+
+
+def ckpt_mesh_rank(seed: int, shape, ckpt_dir: str, restore_dirs: dict, cfg_overrides: Optional[dict] = None,
                    seq_len: int = 512, data_vocab: int = 8192) -> dict:
-    """Phase "train mesh" (e) of ``chip_smoke.py`` on one rank: qwen3-1.7b
-    (``cfg_overrides`` cut its depth) through ``Trainer(ctx=..., ckpt_dir=...)``
-    on a ``shape`` (data, model) mesh with compression: 3 steps
-    uninterrupted, a checkpoint in ``ckpt_dir`` after the second; a new
-    trainer resumed from it (its straggler stream advanced past the 2
-    steps) runs the third.  Then the meshless checkpoint in
-    ``meshless_dir`` restored onto the mesh.  Returns every rank's figures:
-    each run's losses, the digests (:func:`block_digests`) of the state
-    saved at step 2, after the third step of each run, and after the
-    meshless restore, the specs of the parameters, the write and read
-    seconds and the peak memory."""
+    """Phase "train mesh" (e) of ``chip_smoke.py`` on one rank:
+    qwen3-1.7b (``cfg_overrides`` cut it) through
+    ``Trainer(ctx=..., ckpt_dir=...)`` on a ``shape`` (data, model) mesh
+    with compression, drawn from ``seed``: 3 steps uninterrupted; 2 steps
+    with a checkpoint in ``ckpt_dir``; a new trainer that resumes from it
+    (its straggler stream advanced past the 2 steps) and runs the third.
+    Then each checkpoint of ``restore_dirs`` (label → directory) restored
+    onto the mesh into a fresh state.  Returns every rank's figures: each
+    run's history (its lockstep hashes aside) and the digests
+    (:func:`block_digests`) of its state at its end, with the trainer's
+    write seconds (the history's ``ckpt_write_s``) and the resume's read
+    seconds (``ckpt_read_s``); each restore's step, optimizer step, digests
+    and read seconds; the parameters' specs and the peak memory.  The
+    checkpoint tests run it at the smoke size."""
     import torch.distributed as dist
 
     from ..models.registry import get_config
-    from ..train import trainer as trainer_mod
+    from ..train.checkpoint import restore_checkpoint
     from ..train.compression import CompressionConfig
     from ..train.optimizer import AdamWConfig
     from ..train.train_step import init_train_state
+    from ..train.trainer import Trainer, TrainerConfig
     from .distributed import _RANK_DEVICE, _sync
     from .mesh import make_test_mesh
     from .sharding import make_context
@@ -1404,82 +1334,36 @@ def ckpt_mesh_rank(seed: int, shape, ckpt_dir: str, meshless_dir: str, cfg_overr
     mesh = make_test_mesh(tuple(shape))
     ctx = make_context(mesh)
     ocfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=8)
-    seen = {"write_s": [], "read_s": [], "saved": None}
-    save, restore = trainer_mod.save_checkpoint, trainer_mod.restore_checkpoint
-
-    def timed_save(path, step, state, **kw):
-        seen["saved"] = block_digests(state)
-        _sync(dev)
+    runs, restored = {}, {}
+    _reset_peak(dev)
+    for label, steps, ckpt, skip in (("whole", 3, None, 0), ("first", 2, ckpt_dir, 0), ("resumed", 3, ckpt_dir, 2)):
+        tcfg = TrainerConfig(num_groups=4, num_shards=4, redundancy=2, scheme="cyclic", microbatch=1,
+                             seq_len=seq_len, steps=steps, ckpt_every=2, ckpt_dir=ckpt, ckpt_keep=1, seed=seed,
+                             data_vocab=data_vocab, straggler_deadline=1.4, warm_start=False,
+                             compression=CompressionConfig())
+        t = Trainer(cfg, tcfg, ocfg, ctx, device=dev)
+        for _ in range(skip):
+            next(t.scenario)
         t0 = time.perf_counter()
-        out = save(path, step, state, **kw)
-        seen["write_s"].append(time.perf_counter() - t0)
-        return out
-
-    def timed_restore(path, template, **kw):
+        state, start = t.init_state()
+        state = t.run(state, start_step=start)
         _sync(dev)
-        t0 = time.perf_counter()
-        out = restore(path, template, **kw)
-        _sync(dev)
-        seen["read_s"].append(time.perf_counter() - t0)
-        return out
-
-    def trainer(**kw):
-        tcfg = trainer_mod.TrainerConfig(num_groups=4, num_shards=4, redundancy=2, scheme="cyclic", microbatch=1,
-                                         seq_len=seq_len, steps=3, ckpt_every=2, ckpt_dir=ckpt_dir, ckpt_keep=1,
-                                         seed=seed, data_vocab=data_vocab, warm_start=False,
-                                         compression=CompressionConfig(), **kw)
-        return trainer_mod.Trainer(cfg, tcfg, ocfg, ctx, device=dev)
-
-    trainer_mod.save_checkpoint, trainer_mod.restore_checkpoint = timed_save, timed_restore
-    runs = {}
-    try:
-        _reset_peak(dev)
-        for label, skip in (("whole", 0), ("resumed", 2)):
-            t = trainer()
-            for _ in range(skip):
-                next(t.scenario)
-            t0 = time.perf_counter()
-            state, start = t.init_state()
-            state = t.run(state, start_step=start)
-            _sync(dev)
-            runs[label] = {"start": start, "losses": [h["loss"] for h in t.history],
-                           "stragglers": [h["stragglers"] for h in t.history], "seconds": time.perf_counter() - t0,
-                           "digests": block_digests(state)}
-            del state, t
-        specs = None
+        runs[label] = {"start": start, "history": [{k: v for k, v in h.items() if k != "lockstep"}
+                                                   for h in t.history],
+                       "seconds": time.perf_counter() - t0, "read_s": t.ckpt_read_s, "digests": block_digests(state)}
+        specs = {n: getattr(p, "mesh_spec", None) for n, p in state.params.named_parameters()}
+        del state, t
+    for label, path in restore_dirs.items():
         template = init_train_state(cfg, generator=torch.Generator(device=dev).manual_seed(seed + 1),
                                     compression=CompressionConfig(), mesh=mesh)
-        specs = {n: getattr(p, "mesh_spec", None) for n, p in template.params.named_parameters()}
-        restored, step = timed_restore(meshless_dir, template, mesh=mesh)
-        runs["meshless"] = {"step": step, "opt_step": restored.opt.step, "digests": block_digests(restored)}
-        del restored, template
-    finally:
-        trainer_mod.save_checkpoint, trainer_mod.restore_checkpoint = save, restore
-    mine = {"coords": mesh.coords, "runs": runs, "saved": seen["saved"], "write_s": seen["write_s"],
-            "read_s": seen["read_s"], "specs": specs, "peak_gib": _peak(dev)}
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, step = restore_checkpoint(path, template, mesh=mesh)
+        _sync(dev)
+        restored[label] = {"step": step, "opt_step": state.opt.step, "read_s": time.perf_counter() - t0,
+                           "digests": block_digests(state)}
+        del state, template
+    mine = {"coords": mesh.coords, "runs": runs, "restored": restored, "specs": specs, "peak_gib": _peak(dev)}
     ranks = [None] * dist.get_world_size()
     dist.all_gather_object(ranks, mine)
     return {"ranks": ranks}
-
-
-def narrowed_digests(state, specs: dict, shape) -> dict:
-    """:func:`block_digests` of the blocks that each rank of a ``shape``
-    (data, model) mesh holds of a whole (meshless) train state, by the
-    rank's coordinates: what :func:`ckpt_mesh_rank` reports, from the
-    parameters' ``specs`` (by parameter name) that the ranks hold."""
-    from ..train.checkpoint import _named_tensors
-    from .mesh import Mesh
-    from .sharding import _block_of
-
-    out = {}
-    for coords in np.ndindex(*shape):
-        grid = Mesh(("data", "model"), tuple(shape), coords=tuple(int(c) for c in coords))
-        sums = {}
-        for key, (t, _) in _named_tensors(state).items():
-            spec = specs[key.split("/")[-1]]  # params/<name>, opt/m/<name>, …: names hold no "/"
-            blk = _block_of(t.detach(), spec or (None,) * t.dim(), grid)
-            words = blk.reshape(-1).view(torch.int32)
-            sums[key] = torch.stack([words.sum(dtype=torch.int64), words[::2].sum(dtype=torch.int64)])
-        stacked = torch.stack(list(sums.values())).cpu().tolist()
-        out[grid.coords] = dict(zip(sums, map(tuple, stacked)))
-    return out

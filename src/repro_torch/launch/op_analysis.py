@@ -16,7 +16,8 @@ HLO text of a jitted call).
   change in ``launch.collectives.STATS`` over the call.
 * ``dot_ops``: the matmul calls and the kernel ops below.
 
-A call through ``kernels/dispatch.py`` is counted as one op by its shapes
+A call through ``kernels/dispatch.py`` (seen by its ``observed`` hook) is
+counted as one op by its shapes
 (:data:`KERNEL_FLOPS`: flash attention 4·B·H·T·S·dh, the two dots of the
 reference's ``attention_ref``; the distance kernels 2·n·k·d; the segment
 sum none), its inputs read once and its output written once, and nothing
@@ -98,33 +99,23 @@ def analyze(fn, *args, **kwargs) -> dict:
     from ..kernels import dispatch
     from . import collectives as C
 
-    resolve = dispatch.resolve
     kernel_ops: dict = {}
     kernel_flops: dict = {}
     kernel_bytes = [0]
 
-    def counted_resolve(op, impl, *tensors):
-        name, fn_op = resolve(op, impl, *tensors)
-
-        def call(*a, **kw):
-            with _disable_current_modes():  # nothing inside the kernel or its plain version
-                out = fn_op(*a, **kw)
-            kernel_ops[op] = kernel_ops.get(op, 0) + 1
-            kernel_flops[op] = kernel_flops.get(op, 0.0) + KERNEL_FLOPS[op](*a, **kw)
-            kernel_bytes[0] += _nbytes((a, kw)) + _nbytes(out)
-            return out
-
-        return name, call
+    def count(op, fn_op, *a, **kw):
+        with _disable_current_modes():  # nothing inside the kernel or its plain version
+            out = fn_op(*a, **kw)
+        kernel_ops[op] = kernel_ops.get(op, 0) + 1
+        kernel_flops[op] = kernel_flops.get(op, 0.0) + KERNEL_FLOPS[op](*a, **kw)
+        kernel_bytes[0] += _nbytes((a, kw)) + _nbytes(out)
+        return out
 
     calls0, bytes0 = dict(C.STATS.calls), dict(C.STATS.bytes)
     traffic = _Traffic()
     flop_mode = FlopCounterMode(display=False)
-    dispatch.resolve = counted_resolve
-    try:
-        with flop_mode, traffic:
-            fn(*args, **kwargs)
-    finally:
-        dispatch.resolve = resolve
+    with dispatch.observed(count), flop_mode, traffic:
+        fn(*args, **kwargs)
     by_kind = {k: float(v - bytes0.get(k, 0)) for k, v in C.STATS.bytes.items() if v != bytes0.get(k, 0)}
     flops_by_op = {str(op): float(n) for op, n in flop_mode.get_flop_counts().get("Global", {}).items()}
     flops_by_op.update({f"kernel:{op}": f for op, f in kernel_flops.items()})

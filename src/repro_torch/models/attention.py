@@ -29,6 +29,7 @@ from torch import nn
 from ..kernels.flash_attention import ops as fa
 from ..launch import collectives as C
 from . import layers as L
+from . import taps
 from .registry import ModelConfig
 
 __all__ = ["attn_init", "attn_apply", "attn_decode_step", "local_heads"]
@@ -140,4 +141,10 @@ def attn_decode_step(p, x_t, cache_k, cache_v, cur_len: int, cfg: ModelConfig, *
     cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
     cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
     o = fa.decode_attention(q, cache_k, cache_v, min(cur_len + 1, S) if window is not None else cur_len + 1)
-    return _out(p, o, cfg, ctx, compute_dtype).to(x_t.dtype), cache_k, cache_v
+    out = _out(p, o, cfg, ctx, compute_dtype)
+    if taps.active():
+        heads = 2 if local_heads(p, cfg, ctx)[3] else None
+        for op, t, dim in (("q", q, heads), ("k", k, heads), ("v", v, heads), ("attention", o, heads),
+                           ("attn_out", out, None)):
+            taps.tap(op, t, dim)
+    return out.to(x_t.dtype), cache_k, cache_v

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..launch import collectives as C
+from . import taps
 
 __all__ = [
     "gathered",
@@ -120,7 +121,9 @@ def mlp_apply(p, x, *, act: str, compute_dtype, ctx=None):
         h = _gelu(cols("up"))
     if split:
         h = C.gather(h, ctx.mesh, ctx.model_axis, -1)
-    return h @ weight(p["down"], ctx).to(compute_dtype)
+    out = h @ weight(p["down"], ctx).to(compute_dtype)
+    taps.tap("mlp", out)
+    return out
 
 
 # ------------------------------------------------------------------ mesh

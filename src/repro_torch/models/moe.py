@@ -62,6 +62,7 @@ from torch import nn
 
 from ..launch import collectives as C
 from . import layers as L
+from . import taps
 from .registry import ModelConfig, MoEConfig
 
 __all__ = ["MoE", "capacity", "kept_tokens", "moe_apply", "recorded_routing", "routing_differences"]
@@ -191,6 +192,7 @@ def _routing(router, x, m: MoEConfig, mesh=None, batch_axes=()):
         n = logits.shape[0] * nd
         frac = C.psum(picked.sum(0), mesh, batch_axes) / n / m.top_k
         prob = C.psum(torch.softmax(logits, dim=-1).sum(0), mesh, batch_axes) / n
+    taps.tap("router", w_sparse)
     return w_sparse, m.num_experts * torch.sum(frac * prob)
 
 
@@ -236,7 +238,9 @@ def _expert_outputs(x_flat, w_cols, wg, wu, wd, cap: int, compute_dtype):
     vals, idx = _topk(w_cols.T, c)  # (E, C) each
     xe = x_flat[idx.reshape(-1)].reshape(e, c, d).to(compute_dtype)
     h = F.silu(torch.bmm(xe, wg.to(compute_dtype))) * torch.bmm(xe, wu.to(compute_dtype))
-    return torch.bmm(h, wd.to(compute_dtype)), idx, vals
+    out = torch.bmm(h, wd.to(compute_dtype))
+    taps.tap("experts", out, 0)  # a model axis splits the experts
+    return out, idx, vals
 
 
 def _expert_compute(x_flat, w_cols, wg, wu, wd, cap: int, compute_dtype, top_k: int):

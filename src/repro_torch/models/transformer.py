@@ -85,6 +85,7 @@ from . import attention as A
 from . import layers as L
 from . import moe as M
 from . import rglru as G
+from . import taps
 from . import xlstm as X
 from .registry import ModelConfig
 
@@ -335,6 +336,7 @@ def _block_decode(p, x_t, cache, cur_len: int, cfg: ModelConfig, ctx: ModelConte
                                    ctx=ctx)
     x_t = x_t + a
     f, _ = _ffn(p, L.rmsnorm(x_t, p.mlp_norm, eps=cfg.rms_eps), cfg, ctx)
+    taps.tap("ffn", f)
     return x_t + f, {"k": ck, "v": cv}
 
 
@@ -595,11 +597,15 @@ def decode_step(model: Transformer, cache, tokens_t, cur_len: int, cfg: ModelCon
     returns (logits_t (B, 1, V) or (B, 1, K, V), cache).  Under a mesh,
     the rank's rows and the cache of :func:`init_cache` under the mesh."""
     x = _token_embed(model, tokens_t, cfg, ctx)
+    taps.tap("embed", x)
     new_cache = []
     for blk, c in zip(model.blocks, cache):
         x, nc = _block_decode(blk, x, c, int(cur_len), cfg, ctx)
+        taps.tap("block", x)
         new_cache.append(nc)
-    return _logits(model, x, cfg, ctx), new_cache
+    logits = _logits(model, x, cfg, ctx)
+    taps.tap("logits", logits)
+    return logits, new_cache
 
 
 @torch.no_grad()

@@ -120,16 +120,13 @@ class _Members:
         self._zip.close()
 
 
-def checkpoint_bytes(state, mesh=None) -> int:
-    """The bytes of the arrays :func:`save_checkpoint` writes for ``state``
-    (whole tensors, f32 for a bf16 one): the file's size, less its zip
-    and array headers."""
-    from ..launch.sharding import full_shape
-
+def checkpoint_bytes(state) -> int:
+    """The bytes of the arrays :func:`save_checkpoint` writes for a
+    meshless ``state`` (f32 for a bf16 tensor): the file's size, less its
+    zip and array headers."""
     total = 4
-    for t, spec in _named_tensors(state).values():
-        shape = full_shape(tuple(t.shape), spec, mesh) if _split(spec, mesh) else tuple(t.shape)
-        total += int(np.prod(shape)) * (4 if t.dtype == torch.bfloat16 else t.element_size())
+    for t, _ in _named_tensors(state).values():
+        total += t.numel() * (4 if t.dtype == torch.bfloat16 else t.element_size())
     return total
 
 

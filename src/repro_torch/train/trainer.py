@@ -46,6 +46,7 @@ raises.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Optional
 
 import numpy as np
@@ -120,7 +121,11 @@ class Trainer:
     initial weights, e.g. weights carried from the reference; a checkpoint
     in ``ckpt_dir`` still takes precedence, as a resume does.  Under an LM
     mesh (``ctx.mesh``) only its weights are taken, narrowed to the rank's
-    blocks, and the moments start from zero on the same blocks."""
+    blocks, and the moments start from zero on the same blocks.
+
+    A step that writes a checkpoint records its seconds in its history
+    entry (``ckpt_write_s``); a resume's read seconds are ``ckpt_read_s``
+    (None until :meth:`init_state` restores)."""
 
     def __init__(
         self,
@@ -183,6 +188,7 @@ class Trainer:
             self._step_fn = make_train_step(cfg, self.ctx, self.opt_cfg, compression=tcfg.compression)
         self._initial_state = initial_state
         self.history: list[dict] = []
+        self.ckpt_read_s: Optional[float] = None
         self.warmup_report: Optional[autotune.WarmupReport] = None
 
     # ------------------------------------------- mesh-native resident state
@@ -240,7 +246,9 @@ class Trainer:
                                      mesh=self.mesh)
         start = 0
         if self.tcfg.ckpt_dir and latest_step(self.tcfg.ckpt_dir) is not None:
+            t0 = time.perf_counter()
             state, start = restore_checkpoint(self.tcfg.ckpt_dir, state, mesh=self.mesh)
+            self.ckpt_read_s = time.perf_counter() - t0
         return state, start
 
     def _batch(self, step: int, weights: np.ndarray) -> dict:
@@ -409,5 +417,7 @@ class Trainer:
             if on_step:
                 on_step(step, record)
             if self.tcfg.ckpt_dir and (step + 1) % self.tcfg.ckpt_every == 0:
+                t0 = time.perf_counter()
                 save_checkpoint(self.tcfg.ckpt_dir, step + 1, state, keep=self.tcfg.ckpt_keep, mesh=self.mesh)
+                record["ckpt_write_s"] = time.perf_counter() - t0
         return state

@@ -248,3 +248,70 @@ def test_the_card_phase_rank_program_keeps_the_meshless_roundings(shape, tmp_pat
         assert r["params_held"] == held
         if greedy:
             assert r["greedy_agree"] == 1.0
+
+
+def _phase_model():
+    """The card phase's model at the smoke widths in bf16, its weights and a
+    prompt of 4 x 64 tokens, from seed 0."""
+    over = dict(vocab=256, d_model=64, n_layers=4, n_heads=4, n_kv_heads=4, d_ff=32, head_dim=16,
+                moe=MoEConfig(num_experts=8, top_k=2, d_expert=32, num_shared=2))
+    cfg = get_config("deepseek-moe-16b", param_dtype="bfloat16", **over)
+    model = T.init_params(cfg, generator=torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (4, 64), generator=torch.Generator().manual_seed(0))
+    return over, cfg, model, tokens
+
+
+def _taps_of_decode(model, cfg, tokens, steps):
+    cache = T.init_cache(cfg, tokens.shape[0], steps, device=tokens.device)
+    with torch.no_grad(), mesh_runs.decode_taps() as taps:
+        for t in range(steps):
+            _, cache = T.decode_step(model, cache, tokens[:, t:t + 1], t, cfg, T.ModelContext())
+    return taps
+
+
+def test_decode_taps_name_every_op_and_the_first_that_differs():
+    """``mesh_runs.decode_taps`` records each op of a decode step in order,
+    named by step and layer, and ``first_difference`` names the first op
+    whose output changes when one layer's output projection is moved."""
+    _, cfg, model, tokens = _phase_model()
+    taps = _taps_of_decode(model, cfg, tokens, 2)
+    layer = ["q", "k", "v", "attention", "attn_out", "router", "experts", "mlp", "ffn", "block"]
+    want = [f"step{t}/{op}" for t in range(2) for op in
+            ["embed"] + [f"layer{i}/{o}" for i in range(cfg.n_layers) for o in layer] + ["logits"]]
+    assert [name for name, _ in taps] == want
+    assert all(t.device.type == "cpu" for _, t in taps)
+    assert mesh_runs.first_difference(_taps_of_decode(model, cfg, tokens, 2), taps) is None
+    with torch.no_grad():
+        model.blocks[1].attn["wo"].add_(1e-2)
+    name, gap = mesh_runs.first_difference(_taps_of_decode(model, cfg, tokens, 2), taps)
+    assert name == "step0/layer1/attn_out" and gap > 0
+
+
+def test_the_card_phase_rank_program_names_the_first_op_that_differs(tmp_path):
+    """Phase "serve mesh"'s rank program on (1, 2) at the smoke widths, with
+    the oracle's logits of decode step 1 and the output of its layer-1
+    ``decode_attention`` moved in the oracle's file: the rank sees a gap at
+    step 1 alone, decodes again with each op's output gathered over the
+    model axis and held to the oracle's, and names that op, every earlier
+    one (the rank's heads and experts gathered whole) the meshless op's
+    bits."""
+    over, cfg, model, tokens = _phase_model()
+    with torch.no_grad(), M.recorded_routing() as log:
+        logits, _ = T.prefill(model, {"tokens": tokens}, cfg, T.ModelContext())
+    prompt = tokens[:, :16].contiguous()
+    kept = {"logits": logits, "routing": log, "prompt": prompt,
+            "ids": SD.greedy_generate(model, cfg, prompt, steps=8)}
+    mesh_runs.moe_mesh_oracle(model, cfg, tokens, kept, str(tmp_path), half_decode_steps=2)
+    path = tmp_path / "full.pt"
+    oracle = torch.load(path)
+    oracle["decode_logits"][:, 1] += 1.0
+    names = [name for name, _ in oracle["decode_taps"]]
+    moved = names.index("step1/layer1/attention")
+    oracle["decode_taps"][moved] = (names[moved], oracle["decode_taps"][moved][1] + 1.0)
+    torch.save(oracle, path)
+    rep = D.run_ranks(mesh_runs.moe_serve_rank, 2, backend="gloo", device="cpu", timeout=DEADLINE,
+                      args=(0, (1, 2), str(tmp_path), 3, False, False, over, 64))
+    for r in rep["ranks"]:
+        assert r["decode_gaps"][0] == 0.0 and r["decode_gaps"][1] > 0 and r["decode_gaps"][2] == 0.0
+        name, gap = r["decode_first_difference"]
+        assert name == "step1/layer1/attention" and gap > 0

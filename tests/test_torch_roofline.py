@@ -36,6 +36,7 @@ from repro.models import transformer as JT
 from repro_torch.configs import ARCHS, paper_kmedian
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import ops as fa
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.launch import collectives as C
 from repro_torch.launch import op_analysis
 from repro_torch.launch import roofline as R
@@ -112,7 +113,8 @@ def test_a_plain_flash_call_counts_its_shapes_and_nothing_inside():
     assert got["flops_by_op"] == {"kernel:flash_attention": 4.0 * 2 * 8 * 24 * 40 * 16}
     assert got["kernel_ops"] == {"flash_attention": 1} and got["dot_ops"] == 1
     assert got["bytes"] == (2 * q.numel() + 2 * k.numel()) * 4  # q, k, k read; o written
-    assert dispatch.resolve.__name__ == "resolve"
+    # The observer closed with the call: a resolved op is the registered impl again.
+    assert dispatch.resolve("flash_attention", "torch_ref", q, k, k)[1] is fa_ref.attention_ref
 
 
 def test_op_analysis_reads_the_collectives_moved_during_the_call():
@@ -132,3 +134,26 @@ def test_paper_kmedian_is_the_reference_config(name):
     assert dataclasses.asdict(getattr(paper_kmedian, name)()) == dataclasses.asdict(getattr(JP, name)())
     assert [f.name for f in dataclasses.fields(paper_kmedian.ClusteringConfig)] == [
         f.name for f in dataclasses.fields(JP.ClusteringConfig)]
+
+
+def test_dispatch_observers_see_each_resolved_op_and_nest():
+    """``dispatch.observed``: each op that ``resolve`` hands out runs through
+    the innermost open observer, which sees the op, the impl and the
+    arguments; the outer one is back when the inner block closes."""
+    q = torch.randn(1, 4, 2, 8)
+    seen = []
+
+    def observer(tag):
+        def call(op, fn, *a, **kw):
+            seen.append((tag, op, fn is fa_ref.attention_ref, tuple(a[0].shape)))
+            return fn(*a, **kw)
+        return call
+
+    want = fa.flash_attention(q, q, q, impl="torch_ref")
+    with dispatch.observed(observer("outer")):
+        with dispatch.observed(observer("inner")):
+            got = fa.flash_attention(q, q, q, impl="torch_ref")
+        fa.flash_attention(q, q, q, impl="torch_ref")
+    fa.flash_attention(q, q, q, impl="torch_ref")
+    assert torch.equal(got, want)
+    assert seen == [(tag, "flash_attention", True, (1, 4, 2, 8)) for tag in ("inner", "outer")]

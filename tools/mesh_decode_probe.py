@@ -7,9 +7,10 @@ On one CUDA card, deepseek-moe-16b at full width and depth in bf16 from
 
 1. a model rank's products at decode's few rows against the same columns
    of the whole product (its query, key and value projections, the shared
-   experts' gate and up, the vocab-parallel head), and
-   ``decode_attention`` over half the heads against the whole: bit for bit
-   or not, by the number of rows;
+   experts' gate and up, the vocab-parallel head): bit for bit or not, by
+   the number of rows; ``decode_attention`` over half the heads and over
+   half the rows against the whole, length by length, and its two
+   products on their own (``_attention_split``);
 2. the meshless teacher-forced decode of 16 steps in a cache of 16 slots
    against the same decode in the 48 slots of the oracle's cache;
 3. two gloo ranks on the card, mesh (1, 2), each decoding the 16 steps
@@ -33,8 +34,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 def _products(dev) -> None:
     import torch
 
-    from repro_torch.kernels.flash_attention.ops import decode_attention
-
     torch.manual_seed(0)
     bf = torch.bfloat16
     for name, K, N in (("q/k/v", 2048, 2048), ("shared gate/up", 2048, 2816), ("lm_head", 2048, 102400)):
@@ -46,16 +45,65 @@ def _products(dev) -> None:
             same[M] = all(torch.equal(whole[:, r * h:(r + 1) * h], x @ w[:, r * h:(r + 1) * h].contiguous())
                           for r in range(2))
         print(f"{name} ({K} x {N}): a rank's half of the columns bit for bit the whole product's, by rows {same}")
-    q = torch.randn(4, 1, 16, 128, device=dev).to(bf)
-    k, v = (torch.randn(4, 48, 16, 128, device=dev).to(bf) for _ in range(2))
-    same = []
-    for cur in range(1, 49):
-        whole = decode_attention(q, k, v, cur)
-        same.append(all(torch.equal(whole[:, :, 8 * r:8 * r + 8], decode_attention(
-            q[:, :, 8 * r:8 * r + 8].contiguous(), k[:, :, 8 * r:8 * r + 8].contiguous(),
-            v[:, :, 8 * r:8 * r + 8].contiguous(), cur)) for r in range(2)))
-    print(f"decode_attention over 8 of 16 heads in 48 slots: bit for bit the whole's at {sum(same)} of 48 "
-          f"lengths")
+    _attention_split(dev)
+
+
+def _attention_split(dev) -> None:
+    """``decode_attention`` over half the heads (a (1, 2) mesh's model rank)
+    and over half the rows (a (2, 1) mesh's data rank) against the whole, at
+    each length of a 48-slot cache: the lengths where it differs, how many
+    outputs and by how much; then which of its two f32 products differs on
+    the same operands, in 48 and in 2048 slots, and whether the second
+    product in f64, rounded to f32, is the same bits on every split."""
+    import torch
+
+    from repro_torch.kernels.flash_attention.ops import decode_attention
+
+    torch.manual_seed(0)
+    bf = torch.bfloat16
+    B, H, dh = 4, 16, 128
+    q = torch.randn(B, 1, H, dh, device=dev).to(bf)
+    k, v = (torch.randn(B, 48, H, dh, device=dev).to(bf) for _ in range(2))
+    halves = {"heads": (2, [slice(0, H // 2), slice(H // 2, H)]), "rows": (0, [slice(0, B // 2), slice(B // 2, B)])}
+
+    def part(t, dim, sl):
+        return (t[:, :, sl] if dim == 2 else t[sl]).contiguous()
+
+    for split, (dim, sls) in halves.items():
+        differ = {}
+        for cur in range(1, 49):
+            whole = decode_attention(q, k, v, cur)
+            got = torch.cat([decode_attention(part(q, dim, sl), part(k, dim, sl), part(v, dim, sl), cur)
+                             for sl in sls], dim)
+            if not torch.equal(got, whole):
+                gap = (got.float() - whole.float()).abs()
+                differ[cur] = (int((gap > 0).sum()), float(gap.max()), float(whole.float().abs().max()))
+        print(f"decode_attention over half the {split} in 48 slots: bit for bit the whole's at {48 - len(differ)} "
+              f"of 48 lengths; where not, length: (outputs that differ of {whole.numel()}, max |diff|, max "
+              f"|whole|) {differ}")
+    for S in (48, 2048):
+        k, v = (torch.randn(B, S, H, dh, device=dev).to(bf) for _ in range(2))
+        qg = (q.reshape(B, H, 1, dh) * torch.tensor(dh ** -0.5, dtype=bf)).to(bf).float()
+        s = torch.einsum("bkgd,bskd->bkgs", qg, k.float())
+        p = torch.softmax(s, dim=-1).to(bf)
+        same = {}
+        for split, (dim, sls) in halves.items():
+            hd = 1 if dim == 2 else 0  # the heads of (B, KV, g, ·) lie on dim 1
+            cut = lambda t, sl, d: (t[:, sl] if d == 1 else t[sl]).contiguous()  # noqa: E731
+            kk = lambda sl: part(k, dim, sl).float()  # noqa: E731
+            vv = lambda sl, dt: part(v, dim, sl).to(dt)  # noqa: E731
+            s_parts = torch.cat([torch.einsum("bkgd,bskd->bkgs", cut(qg, sl, hd), kk(sl)) for sl in sls], hd)
+            o_whole = torch.einsum("bkgs,bskd->bkgd", p.float(), v.float())
+            o_parts = torch.cat([torch.einsum("bkgs,bskd->bkgd", cut(p, sl, hd).float(), vv(sl, torch.float32))
+                                 for sl in sls], hd)
+            o64 = torch.einsum("bkgs,bskd->bkgd", p.double(), v.double()).float()
+            o64_parts = torch.cat([torch.einsum("bkgs,bskd->bkgd", cut(p, sl, hd).double(),
+                                                vv(sl, torch.float64)).float() for sl in sls], hd)
+            same[split] = {"q.K": torch.equal(s_parts, s), "p.V": torch.equal(o_parts, o_whole),
+                           "p.V max |diff|": float((o_parts - o_whole).abs().max()),
+                           "p.V in f64": torch.equal(o64_parts, o64)}
+        print(f"decode_attention's products in {S} slots, half of each split against the whole, bit for bit: "
+              f"{same}")
 
 
 def main() -> int:
