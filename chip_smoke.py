@@ -17,8 +17,10 @@ depth (prefill and greedy decode) and moonshot-v1-16b-a3b at full width,
 trains qwen3-1.7b at full width and depth and the launcher's 100m scale
 through the trainer's host path and through its mesh-native path (the
 recovery solved on the card, resident token pools, an elastic patch, the
-mesh executor over NCCL), and fails loudly: there is no CPU
-fallback and no caught phase.  Every phase prints its seconds beside the card's name and
+mesh executor over NCCL), audits the hot paths for host syncs on the card,
+runs the multi-pod dry run of the port on a fake 256-rank group and holds
+its predictions against the mesh phases' ranks, and fails loudly: there is
+no CPU fallback and no caught phase.  Every phase prints its seconds beside the card's name and
 power limit.
 
 Phases:
@@ -275,6 +277,31 @@ Phases:
                  meshless equal to the ranks' saved blocks, a meshless file
                  restored onto the ranks; the file's bytes, the write and
                  read seconds and the free disk
+  20c. analysis  the port's host-sync analysis (repro_torch.analysis):
+                 layer 1, the AST lint over src/repro_torch, clean modulo
+                 the port's baseline; layer 2, the four registered hot
+                 paths (train.train_step, local.masked_reduce,
+                 query.assign_min, serve.batch_assign) on CUDA tensors,
+                 two shape buckets each, two calls a bucket with other
+                 values: 0 host syncs counted by a TorchDispatchMode and
+                 none raised under torch.cuda.set_sync_debug_mode("error"),
+                 the same aten ops on the same shapes in both calls, and
+                 the kernel launches by path (flash_attention in the train
+                 step, assign_min in the other three)
+  20d. dry run   python -m repro_torch.launch.dryrun, one process a cell,
+                 all at once, on the host (rank 0 of a fake process group,
+                 meta tensors): (a) deepseek-moe-16b's prefill of 4 x 2048
+                 and qwen3-1.7b's compressed step at 8 x 512 under remat
+                 full, each on (1, 2) and (2, 2): rank (0, 0)'s predicted
+                 parameter bytes and collectives (calls and bytes by kind)
+                 equal to what phases 20a and 20b measured on that gloo
+                 rank, the predicted peak beside max_memory_allocated,
+                 their ratio printed; (b) qwen3-1.7b train_4k on (16, 16),
+                 deepseek-moe-16b prefill at 32 x 8192 on (16, 16) (the
+                 prefill_32k cell's length cut: on meta tensors its
+                 32768-token chunked attention takes about 100 s of host
+                 time) and qwen3-4b decode_32k on (2, 16, 16), rendered by
+                 launch.make_tables; an error record fails the phase
                  Phases "serve" (13) and "train full width" (18) also run
                  one untimed prefill / step under launch.op_analysis and
                  print the roofline (launch.roofline on H100 terms):
@@ -376,14 +403,17 @@ def timed_steps(module, names, sync, log: list):
 
 def profiled(tag, fn, top=12):
     """Run fn under torch.profiler; print kernel time by name.  Returns
-    the seconds of kernel time (device busy)."""
+    the seconds of kernel time (device busy).  It records the CUDA activity
+    alone: the kernels are all it reads, and with the host's op events a
+    trace took up to 26 s to read (133-157 s over the script's 17 traces on
+    an H100 host), against the script's time limit."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1595,6 +1625,7 @@ def train_mesh(seed: int, card: str) -> dict:
         wall = time.perf_counter() - t0
         print(f"{label} mesh {shape}, {world} gloo ranks on the card, remat full: {wall:.3f} s from spawn to exit"
               f"  [{card}]")
+        MESH_RANKS[("train", shape)] = rep["ranks"]
         for r in rep["ranks"]:
             sums = r["sums"]
             print(f"{label} rank {r['coords']}: {r['params_held'] / 1e9:.3f} B parameters held (of {n / 1e9:.3f} B), "
@@ -1893,7 +1924,171 @@ def serve_mesh(seed: int, card: str, holder: dict, kept: dict) -> dict:
             if not rep["lockstep"]:
                 raise AssertionError(f"serve mesh {label}: the ranks of a data shard part")
             counts[f"{shape} gloo, a rank"] = ranks[0]["launches"]["flash_attention"]
+            MESH_RANKS[("serve", shape)] = ranks
     return counts
+
+
+# The gloo ranks' figures of phases "serve mesh" and "train mesh", by
+# (phase, mesh shape): phase "dry run" holds its predictions against them.
+MESH_RANKS: dict = {}
+
+
+def analysis_phase(card: str) -> dict:
+    """Phase "analysis": the port's host-sync analysis on the card.  Layer 1
+    (``repro_torch.analysis.ast_lint``) over ``src/repro_torch``, clean
+    modulo the port's baseline; layer 2 (``analysis.sync_audit``) of the
+    four registered hot paths on CUDA tensors: each bucket's two calls
+    (different values) dispatch the same ops on the same shapes, no op
+    moves a value to the host, and each call runs under
+    ``torch.cuda.set_sync_debug_mode("error")``, which raises on any
+    implicit synchronisation; the kernels' launches by path, from
+    ``kernels.dispatch``'s counters.  Returns the launches by path."""
+    from repro_torch.analysis import baseline as bl
+    from repro_torch.analysis.ast_lint import lint_paths
+    from repro_torch.analysis.sync_audit import audit_hot_paths
+
+    t0 = time.perf_counter()
+    findings = lint_paths([str(ROOT / "src" / "repro_torch")])
+    new, old = bl.split_findings(findings, bl.load_baseline(str(ROOT / bl.DEFAULT_RELPATH)))
+    failing = [f for f in new if f.fatal]
+    print(f"layer 1: {len(findings)} findings over src/repro_torch ({len(old)} baselined, {len(failing)} failing, "
+          f"{sum(not f.fatal for f in new)} info) in {time.perf_counter() - t0:.3f} s")
+    for f in failing:
+        print(f"  {f.format()}")
+    if failing:
+        raise AssertionError(f"analysis: {len(failing)} new layer-1 findings")
+    t0 = time.perf_counter()
+    audits = audit_hot_paths(device="cuda")
+    print(f"layer 2 on the card: {len(audits)} hot paths in {time.perf_counter() - t0:.3f} s  [{card}]")
+    launches = {}
+    for a in audits:
+        print(f"  {a.registry_name} ({a.kind}): host syncs by bucket {a.syncs} under set_sync_debug_mode="
+              f"{a.debug_mode!r}; one program a bucket {a.same_program} ({a.ops} aten ops a call); kernel "
+              f"launches {a.launches}, dispatched calls {a.calls}" + (f"; ERROR {a.error}" if a.error else ""))
+        launches[a.registry_name] = a.launches
+        if not a.ok or a.debug_mode != "error" or any(a.syncs.values()):
+            raise AssertionError(f"analysis: hot path {a.registry_name} fails its audit: {a.as_dict()}")
+    total = {}
+    for got in launches.values():
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    if launches["train.train_step"].get("flash_attention", 0) < 1 or total.get("assign_min", 0) < 1:
+        raise AssertionError(f"analysis: the hot paths launched {launches}")
+    print(f"analysis launches by kernel {total}  [{card}]")
+    return launches
+
+
+DRY_RUN_MESH_CELLS = (
+    # (label, phase the card ran it in, arguments of launch.dryrun)
+    ("serve (1, 2)", ("serve", (1, 2)), ["--arch", "deepseek-moe-16b", "--shape", "prefill_32k", "--batch", "4",
+                                         "--seq-len", "2048", "--mesh-shape", "1x2", "--remat", "none",
+                                         "--override", "param_dtype=bfloat16"]),
+    ("serve (2, 2)", ("serve", (2, 2)), ["--arch", "deepseek-moe-16b", "--shape", "prefill_32k", "--batch", "4",
+                                         "--seq-len", "2048", "--mesh-shape", "2x2", "--remat", "none",
+                                         "--override", "param_dtype=bfloat16"]),
+    ("train (1, 2)", ("train", (1, 2)), ["--arch", "qwen3-1.7b", "--shape", "train_4k", "--batch", "8",
+                                         "--seq-len", "512", "--num-groups", "4", "--compress", "--mesh-shape",
+                                         "1x2", "--remat", "full"]),
+    ("train (2, 2)", ("train", (2, 2)), ["--arch", "qwen3-1.7b", "--shape", "train_4k", "--batch", "8",
+                                         "--seq-len", "512", "--num-groups", "4", "--compress", "--mesh-shape",
+                                         "2x2", "--remat", "full"]),
+)
+# deepseek-moe-16b's prefill_32k cell is cut to 32 x 8192: on meta tensors
+# its 32768-token chunked attention takes about 100 s of host time.
+DRY_RUN_POD_CELLS = (
+    ("qwen3-1.7b train_4k (16, 16)", ["--arch", "qwen3-1.7b", "--shape", "train_4k"]),
+    ("deepseek-moe-16b prefill 32 x 8192 (16, 16)", ["--arch", "deepseek-moe-16b", "--shape", "prefill_32k",
+                                                     "--seq-len", "8192"]),
+    ("qwen3-4b decode_32k (2, 16, 16)", ["--arch", "qwen3-4b", "--shape", "decode_32k", "--multi-pod"]),
+)
+
+
+def dry_run_phase(card: str) -> None:
+    """Phase "dry run": ``python -m repro_torch.launch.dryrun`` spawned once
+    a cell, all cells at once (each is one process on the host's cores:
+    rank 0 of a fake process group, meta tensors, nothing on the card).
+    (a) The meshes and shapes phases "serve mesh" and "train mesh" ran on
+    the card's gloo ranks: the predicted parameter bytes and collectives
+    (calls and bytes by kind) of rank (0, 0) equal to what that rank
+    measured, the predicted peak (arguments + temporaries) beside its
+    ``torch.cuda.max_memory_allocated``, their ratio printed, no limit.
+    (b) Three production cells, ``launch.make_tables``' rendering printed.
+    Any ``error`` record fails the phase."""
+    import os
+    import tempfile
+
+    from repro_torch.launch import make_tables
+
+    tmp = tempfile.TemporaryDirectory(prefix="repro-dryrun-")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    cells = [(label, args) for label, _, args in DRY_RUN_MESH_CELLS] + list(DRY_RUN_POD_CELLS)
+    t0 = time.perf_counter()
+    procs = []
+    for i, (label, args) in enumerate(cells):
+        out = os.path.join(tmp.name, f"cell{i}.jsonl")
+        log = open(os.path.join(tmp.name, f"cell{i}.log"), "w")
+        procs.append((label, out, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out", out],
+            cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT)))
+    records = {}
+    try:
+        for label, out, log, proc in procs:
+            rc = proc.wait(timeout=600)
+            log.close()
+            text = Path(log.name).read_text()
+            rec = json.loads(Path(out).read_text().splitlines()[-1]) if os.path.exists(out) else {}
+            print(f"dry run {label}: exit {rc}, {rec.get('lower_s', float('nan')):.3f} s of analysis; "
+                  + (text.strip().splitlines()[-1] if text.strip() else ""))
+            if rc != 0 or "error" in rec or not rec:
+                raise AssertionError(f"dry run {label}: {rec.get('error')}\n{text[-3000:]}")
+            records[label] = rec
+    finally:
+        for _, _, log, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    print(f"dry run: {len(cells)} cells in {time.perf_counter() - t0:.3f} s of wall time, on the host  [{card}]")
+
+    bad = []
+    for label, key, _ in DRY_RUN_MESH_CELLS:
+        rec, ranks = records[label], MESH_RANKS[key]
+        r0 = next(r for r in ranks if all(c == 0 for c in r["coords"]))
+        mem, coll = rec["memory"], rec["collectives"]
+        want_bytes = {k: float(v) for k, v in r0["sums"]["bytes"].items()}
+        predicted_peak = mem["argument_bytes"] + mem["temp_bytes"]
+        measured_peak = r0["peak_gib"] * 2**30
+        print(f"(a) {label}: parameter bytes a rank predicted {mem['param_bytes']:,}, measured "
+              f"{[r['params_bytes'] for r in ranks]} (rank (0, 0) {r0['params_bytes']:,}); collectives "
+              f"predicted {coll['calls_by_kind']} calls, { {k: int(v) for k, v in coll['by_kind'].items()} } bytes; "
+              f"measured {r0['sums']['calls']} calls, {r0['sums']['bytes']} bytes; peak predicted "
+              f"{predicted_peak / 2**30:.3f} GiB (arguments {mem['argument_bytes'] / 2**30:.3f} + temporaries "
+              f"{mem['temp_bytes'] / 2**30:.3f}), measured {r0['peak_gib']:.3f} GiB, predicted / measured "
+              f"{predicted_peak / measured_peak:.3f}  [{card}]")
+        if mem["param_bytes"] != r0["params_bytes"]:
+            bad.append(f"{label}: parameter bytes {mem['param_bytes']} != {r0['params_bytes']}")
+        if coll["calls_by_kind"] != r0["sums"]["calls"] or coll["by_kind"] != want_bytes:
+            bad.append(f"{label}: collectives {coll['calls_by_kind']} {coll['by_kind']} != "
+                       f"{r0['sums']['calls']} {want_bytes}")
+    if bad:
+        raise AssertionError("dry run (a): " + "; ".join(bad))
+
+    jsonl = os.path.join(tmp.name, "pod.jsonl")
+    with open(jsonl, "w") as f:
+        for label, _ in DRY_RUN_POD_CELLS:
+            f.write(json.dumps(records[label]) + "\n")
+    for label, _ in DRY_RUN_POD_CELLS:
+        rec = records[label]
+        mem = rec["memory"]
+        print(f"(b) {label}: {rec['flops_per_device']:.4e} FLOPs, {rec['bytes_per_device']:.4e} bytes, "
+              f"{rec['collectives']['total_bytes']:.4e} collective bytes a device; arguments "
+              f"{mem['argument_bytes'] / 2**30:.3f} GiB + temporaries {mem['temp_bytes'] / 2**30:.3f} GiB a rank; "
+              f"roofline {rec['roofline']}; kernel ops {rec['kernel_ops']}")
+    cells_ = make_tables.load(jsonl)
+    print(make_tables.roofline_table(cells_, "16x16"))
+    print(make_tables.roofline_table(cells_, "2x16x16"))
+    print(make_tables.dryrun_table(cells_))
+    tmp.cleanup()
 
 
 def main() -> int:
@@ -3323,6 +3518,12 @@ def main() -> int:
 
     with phase("train mesh"):
         train_meshes = train_mesh(args.seed, card)
+
+    with phase("analysis"):
+        analysis_phase(card)
+
+    with phase("dry run"):
+        dry_run_phase(card)
 
     with phase("timing"):
         B, m, d = xs_d.shape

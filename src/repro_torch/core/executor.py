@@ -36,6 +36,7 @@ from typing import Any, Callable, Sequence, Union
 import numpy as np
 import torch
 
+from ..analysis import compiled_path
 from ..device import resolve_device
 from ..obs import trace_span
 from .aggregation import resilient_sum
@@ -158,6 +159,22 @@ class LocalExecutor(Executor):
         with trace_span("executor.combine", executor=self.name):
             return self._weighted(fn, node_args, broadcast_args, b_full)
 
+    @compiled_path("local.masked_reduce", kind="factory")
+    def _masked_step_raw(self, fn: Callable, n_node: int, iters: int):
+        """The fused step, solve → select → combine, as a callable
+        ``step(A, alive, use_override, b_override, *node_args,
+        *broadcast_args) -> (combined, b_full)``: what
+        :meth:`resilient_reduce_masked` runs, and what the Layer-2 sync
+        audit runs (the reference's ``_masked_step_raw``)."""
+
+        def step(A, alive, use_override, b_override, *args):
+            solved = device_recovery_masked(A, alive, iters=iters, device=A.device)
+            # The override is data, not a branch (override_flag).
+            b_full = torch.where(use_override, b_override, solved)
+            return self._weighted(fn, args[:n_node], args[n_node:], b_full), b_full
+
+        return step
+
     def resilient_reduce_masked(
         self, fn, node_args, broadcast_args, A, alive, *, iters: int = 300,
         b_override=None,
@@ -172,9 +189,8 @@ class LocalExecutor(Executor):
             "executor.masked_reduce", executor=self.name,
             nodes=int(s), override=b_override is not None,
         ):
-            solved = device_recovery_masked(A, alive, iters=iters, device=device)
-            b_full = torch.where(use_ov, b_ov, solved)
-            return self._weighted(fn, node_args, broadcast_args, b_full), b_full
+            step = self._masked_step_raw(fn, len(node_args), iters)
+            return step(A, alive, use_ov, b_ov, *node_args, *broadcast_args)
 
     def replicated_compute(self, fn, args):
         with trace_span("executor.replicated", executor=self.name):

@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..analysis import compiled_path
 from ..kernels.pairwise_dist.ops import assign_min
 from ..kernels.weighted_segsum.ops import weighted_segsum
 from .nodes import node_rand
@@ -186,6 +187,7 @@ def clustering_cost(
     return cost[0] if single else cost
 
 
+@compiled_path("kmeans.local_cost", kind="factory")
 def _local_cost_fn(median: bool, impl: str):
     """Per-node shard cost against a broadcast center set (Lemma-3 ``f``),
     batched over the node axis: ``(xs (s, m, d), ws (s, m), centers (k, d))

@@ -61,6 +61,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..analysis import compiled_path
 from ..obs import default_registry, trace_span
 from .assignment import (
     Assignment,
@@ -153,6 +154,7 @@ def round_miss_probability(matrix: np.ndarray, health) -> float:
     return float(min(1.0, -np.expm1(total)))
 
 
+@compiled_path("placement.expected_completion_time", kind="host")
 def expected_completion_time(
     assignment: Assignment, health, capacity=None
 ) -> float:
@@ -286,6 +288,7 @@ def _satisfies_constraints(
 # --------------------------------------------------------- public entry points
 
 
+@compiled_path("placement.choose_ell", kind="host")
 def choose_ell(
     n: int,
     s: int,
@@ -317,6 +320,7 @@ def choose_ell(
     return cap
 
 
+@compiled_path("placement.health_assignment", kind="host")
 def health_assignment(
     n: int,
     s: int,
@@ -435,6 +439,7 @@ class PlacementOptimizer:
     unhealthy: Optional[float] = None
     target_miss: Optional[float] = None
 
+    @compiled_path("placement.optimize_live", kind="host")
     def optimize(
         self, n: int, s: int, health, *, exclude: Optional[np.ndarray] = None
     ) -> Assignment:

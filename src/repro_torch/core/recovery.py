@@ -21,7 +21,9 @@ The on-device solvers are the reference's ``jax_recovery`` and
 * :func:`device_recovery_masked` — the fixed-shape form: the full ``(s, n)``
   matrix and an ``(s,)`` alive mask, so every straggler pattern is data.
 
-Both run eagerly on the tensors' device with no host synchronisation:
+They carry the reference's ``@compiled_path`` names, ``recovery.jax`` and
+``recovery.jax_masked`` (kind ``step``).  Both run eagerly on the tensors'
+device with no host synchronisation:
 every step is a fixed number of launches and no value comes back to the
 host.  Their products are f32 matrix-vector products (``torch.mv``, a
 non-tensor-core routine, so TF32 never enters them).
@@ -38,6 +40,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..analysis import compiled_path
 from ..device import resolve_device
 from .assignment import Assignment
 
@@ -198,6 +201,7 @@ def _power_sigma_sq(A_c: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(torch.linalg.vector_norm(torch.mv(A_c, v)) ** 2, 1e-6)
 
 
+@compiled_path("recovery.jax", kind="step")
 def device_recovery(A_R, *, iters: int = 500, lr: float = 1.0, device=None) -> torch.Tensor:
     """On-device projected-gradient recovery over the alive rows ``A_R``
     (r, n): PGD on the NNLS objective ``½‖bᵀA_R − 𝟙‖²`` with step
@@ -220,6 +224,7 @@ def device_recovery(A_R, *, iters: int = 500, lr: float = 1.0, device=None) -> t
     return torch.where(amin > 1e-12, b / amin, b)
 
 
+@compiled_path("recovery.jax_masked", kind="step")
 def device_recovery_masked(
     A, alive, *, iters: int = 300, lr: float = 1.0, device=None
 ) -> torch.Tensor:

@@ -54,6 +54,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from ..analysis import compiled_path
 from ..device import resolve_device
 from ..obs import StatsView, default_registry, trace_span
 from .assignment import Assignment, cyclic_assignment
@@ -367,6 +368,7 @@ class ResilienceSession:
         self.stats.device_copies += 1
         return self._resident
 
+    @compiled_path("session.step_cost", kind="host")
     def step_cost(
         self,
         points,
@@ -405,7 +407,7 @@ class ResilienceSession:
             )
             self.stats.device_solves += 1
             # The scalar estimate is this call's one device-to-host sync.
-            return float(est)
+            return float(est)  # repro-lint: disable=JS105
 
     def device_recovery_weights(self, alive) -> np.ndarray:
         """(s,) b_full from the on-device solver (no host LP).  Standalone
@@ -518,6 +520,7 @@ class ResilienceSession:
                 event.update(patched=True, at_risk=at_risk.tolist(), moved_nodes=moved)
         return event
 
+    @compiled_path("session.node_health", kind="host")
     def node_health(self) -> np.ndarray:
         """Observed-straggle EWMA over the LIVE node set: 0.0 = always
         alive, 1.0 = always straggling, learned online from :meth:`observe`

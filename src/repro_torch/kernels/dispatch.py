@@ -10,7 +10,9 @@ that takes every sliding-window call, on every device (the kernel has no
 window, as the reference's Pallas kernel has none).
 
 ``impl="auto"`` follows the tensors: a CUDA tensor gets the kernel, a CPU
-tensor the plain version.  There is no fallback: a CUDA tensor either
+tensor the plain version, and so does a ``meta`` tensor (``launch.dryrun``
+runs the plain version for its shapes; ``impl="cuda"`` on one raises).
+There is no fallback: a CUDA tensor either
 launches the kernel or raises.  ``impl="torch_ref"`` on a CUDA tensor is for
 explicit comparison against the kernel only.  Measured selection
 (autotuning) is not ported yet.
@@ -110,7 +112,7 @@ def resolve(op: str, impl: str, *tensors: torch.Tensor) -> tuple[str, Callable]:
     if len(devices) != 1:
         raise ValueError(f"{op}: all tensors must lie on one device, got {sorted(map(str, devices))}")
     (device,) = devices
-    if device.type not in ("cuda", "cpu"):
+    if device.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"{op}: unsupported device {device}")
     if impl == "auto":
         name = "cuda" if device.type == "cuda" else "torch_ref"

@@ -40,6 +40,11 @@ so the ranks' control flow stays in lockstep, as one program.
   over the ranks in place, one ``all_reduce`` per leaf in the tree's
   order.
 
+**Steps.**  A rank's step is made by a factory, as the reference's jitted
+program is: ``MeshExecutor._block_step`` carries the reference's
+``@compiled_path`` name ``mesh.map_reduce`` (its ``_compiled``), and
+``MeshExecutor._masked_step_raw`` ``mesh.masked_reduce``.
+
 **Backends.**  NCCL needs one card per rank and carries only CUDA tensors;
 gloo carries CPU tensors, and CUDA tensors for ``all_reduce`` and
 ``broadcast``.  On one card the mesh runs as a world of one over NCCL or as
@@ -78,6 +83,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from ..analysis import compiled_path
 from ..core.aggregation import _tree_map, resilient_psum, resilient_sum
 from ..core.executor import Executor, override_flag, takes_weights
 from ..core.nodes import NodeBlock, block_bounds, drawing_block
@@ -308,18 +314,49 @@ class MeshExecutor(Executor):
         with self._timed("collectives", b_blk.device):
             return resilient_psum(local, 1.0, self.mesh.group)
 
+    @compiled_path("mesh.map_reduce", kind="factory")
+    def _block_step(self, fn: Callable, n_node: int, s: int, reduce_: bool):
+        """This rank's step over its ``n_node`` node blocks of ``s`` nodes:
+        ``step(b_blk, *blocks, *broadcast_args)``, the Lemma-3 combine
+        summed over the ranks, when ``reduce_``; else ``step(*blocks,
+        *broadcast_args)``, the gathered node-stacked output (the
+        reference's ``_compiled``)."""
+
+        def reduce_step(b_blk, *args):
+            return self._combine(fn, args[:n_node], args[n_node:], s, b_blk)
+
+        def map_step(*args):
+            return self._gather(self._run_block(fn, args[:n_node], args[n_node:], s), s)
+
+        return reduce_step if reduce_ else map_step
+
+    @compiled_path("mesh.masked_reduce", kind="factory")
+    def _masked_step_raw(self, fn: Callable, n_node: int, s: int, iters: int):
+        """The fused step on this rank, ``step(A, alive, use_override,
+        b_override, *blocks, *broadcast_args) -> (combined, b_full)``: every
+        rank solves the same (s, n) problem on its device and keeps the
+        weights of its own block (the reference's ``_masked_step_raw``)."""
+
+        def step(A, alive, use_override, b_override, *args):
+            solved = device_recovery_masked(A, alive, iters=iters, device=A.device)
+            b_full = torch.where(use_override, b_override, solved)
+            (b_blk,), _ = self._pad_nodes((b_full,))
+            return self._combine(fn, args[:n_node], args[n_node:], s, b_blk), b_full
+
+        return step
+
     # -------------------------------------------------------------- seam API
 
     def map_nodes(self, fn, node_args, broadcast_args=()):
         blocks, s = self._pad_nodes(tuple(node_args))
-        return self._gather(self._run_block(fn, blocks, broadcast_args, s), s)
+        return self._block_step(fn, len(blocks), s, False)(*blocks, *broadcast_args)
 
     def resilient_reduce(self, fn, node_args, broadcast_args, b_full):
         blocks, s = self._pad_nodes(tuple(node_args))
         b = torch.as_tensor(b_full, dtype=torch.float32)
         (b_blk,), _ = self._pad_nodes((b.to(blocks[0].device),))
         with trace_span("executor.combine", executor=self.name, devices=self.num_devices):
-            return self._combine(fn, blocks, broadcast_args, s, b_blk)
+            return self._block_step(fn, len(blocks), s, True)(b_blk, *blocks, *broadcast_args)
 
     def resilient_reduce_masked(
         self, fn, node_args, broadcast_args, A, alive, *, iters: int = 300,
@@ -334,12 +371,8 @@ class MeshExecutor(Executor):
             "executor.masked_reduce", executor=self.name, nodes=int(s),
             devices=self.num_devices, override=b_override is not None,
         ):
-            # Every rank solves the same (s, n) problem on its device and
-            # keeps the weights of its own block.
-            solved = device_recovery_masked(A, alive, iters=iters, device=device)
-            b_full = torch.where(use_ov, b_ov, solved)
-            (b_blk,), _ = self._pad_nodes((b_full,))
-            return self._combine(fn, blocks, broadcast_args, s, b_blk), b_full
+            step = self._masked_step_raw(fn, len(blocks), s, iters)
+            return step(A, alive, use_ov, b_ov, *blocks, *broadcast_args)
 
     def replicated_compute(self, fn, args):
         """Every rank computes ``fn(*args)`` on its own inputs, which the

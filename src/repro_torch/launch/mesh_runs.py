@@ -39,7 +39,10 @@ The workloads are those of the reference's multi-device tests:
 * :func:`ckpt_mesh_rank` — phase "train mesh" (e) and the checkpoint
   tests of ``tests/test_torch_lm_mesh_ckpt.py``: a compressed ``Trainer``
   on the mesh checkpointed, resumed, and restored from meshless, mesh and
-  reference files.
+  reference files;
+* :func:`dryrun_twin_rank` — the real run of a ``launch.dryrun`` cell on
+  the mesh (``tests/test_torch_dryrun.py``): drawn values, real
+  collectives, counted by ``launch.op_analysis``.
 """
 
 from __future__ import annotations
@@ -72,7 +75,7 @@ __all__ = [
     "eight_rank_twins", "update_rows_rank", "alg1_problem", "alg1_rank", "full_width_rank",
     "train", "train_rank", "lm_rank", "lm_job", "decode_taps", "first_difference", "moe_mesh_oracle",
     "moe_serve_rank", "train_lm_rank", "train_mesh_batches", "train_mesh_rank", "compression_check",
-    "block_digests", "ckpt_mesh_rank", "narrowed_digests",
+    "block_digests", "ckpt_mesh_rank", "narrowed_digests", "dryrun_twin_rank",
 ]
 
 
@@ -733,6 +736,7 @@ def moe_serve_rank(seed: int, shape, oracle_dir: str, decode_steps: int, greedy:
     sync()
     draw_s = time.perf_counter() - t0
     held = sum(p.numel() for p in model.parameters())
+    held_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     weights_gib = torch.cuda.memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
     tokens = torch.randint(0, cfg.vocab, (4, seq_len), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(seed))
@@ -810,7 +814,7 @@ def moe_serve_rank(seed: int, shape, oracle_dir: str, decode_steps: int, greedy:
     report["ranks"] = [None] * dist.get_world_size()
     dist.all_gather_object(report["ranks"], {
         "coords": mesh.coords, "heads": (h0, h1), "kv_heads": (k0, k1), "tensor_parallel": tp,
-        "params_held": held, "weights_gib": weights_gib, "draw_s": draw_s, "prefill_s": prefill_s,
+        "params_held": held, "params_bytes": held_bytes, "weights_gib": weights_gib, "draw_s": draw_s, "prefill_s": prefill_s,
         "launches": launches, "k_cache_shape": k_shape, "sums": sums, "flip": flip,
         "replay_gap": replay_gap, "peak_gib": _peak(dev),
         **{k: v for k, v in report.items() if k != "ranks"}})
@@ -1206,6 +1210,7 @@ def train_mesh_rank(seed: int, shape, oracle_path: str, remat: str = "full",
     draw_s = time.perf_counter() - t0
     params = dict(state.params.named_parameters())
     held = sum(p.numel() for p in params.values())
+    held_bytes = sum(p.numel() * p.element_size() for p in params.values())
     check = None
     if compress:
         specs = {n: getattr(p, "mesh_spec", None) for n, p in params.items()}
@@ -1249,7 +1254,8 @@ def train_mesh_rank(seed: int, shape, oracle_path: str, remat: str = "full",
     moments_ok = all(tuple(opt.m[n].shape) == tuple(opt.v[n].shape) == blocks[n] for n in params)
     ef_ok = None if not compress else all(tuple(state.ef[n].shape) == blocks[n] for n in params)
     mine = {"compression": check, "ef_ok": ef_ok,
-            "coords": mesh.coords, "params_held": held, "draw_s": draw_s, "grad_s": grad_s,
+            "coords": mesh.coords, "params_held": held, "params_bytes": held_bytes, "draw_s": draw_s,
+            "grad_s": grad_s,
             "update_s": update_s, "step_s": grad_s + update_s, "peak_gib": peak, "launches": launches,
             "flash_shape": flash_shape, "sums": sums, "grad_gap": worst, "grad_gap_at": where,
             "loss": float(loss), "grad_norm": float(om["grad_norm"]), "tokens": float(metrics["tokens"]),
@@ -1364,6 +1370,54 @@ def ckpt_mesh_rank(seed: int, shape, ckpt_dir: str, restore_dirs: dict, cfg_over
                            "digests": block_digests(state)}
         del state, template
     mine = {"coords": mesh.coords, "runs": runs, "restored": restored, "specs": specs, "peak_gib": _peak(dev)}
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, mine)
+    return {"ranks": ranks}
+
+
+# ------------------------------------------------------ the dry run's twin
+
+
+def dryrun_twin_rank(arch: str, kind: str, shape, batch: int, seq_len: int, cfg_overrides: dict,
+                     remat: str = "full", num_groups: Optional[int] = None, compress: bool = False,
+                     seed: int = 0) -> dict:
+    """The real run of a ``launch.dryrun`` cell on a ``shape`` mesh of the
+    current ranks, as the card's mesh phases run it: the rank's blocks
+    drawn from ``seed``, its rows of a ``batch`` x ``seq_len`` batch of
+    random tokens, and the step (``kind`` ``"train"``, its gradients
+    compressed when ``compress``, or ``"prefill"``, its routing recorded)
+    run once under ``launch.op_analysis``.  Returns every rank's parameter
+    bytes, FLOPs and collectives by kind."""
+    import torch.distributed as dist
+
+    from ..models import moe as M
+    from ..models import transformer as T
+    from ..models.registry import get_config
+    from ..train.compression import CompressionConfig
+    from ..train.optimizer import AdamWConfig
+    from ..train.train_step import init_train_state, make_train_step
+    from .mesh import make_test_mesh
+    from .op_analysis import analyze
+    from .sharding import init_sharded, local_rows, make_context
+
+    cfg = get_config(arch, **cfg_overrides)
+    mesh = make_test_mesh(tuple(shape))
+    ctx = make_context(mesh, remat=remat)
+    gen = torch.Generator().manual_seed(seed)
+    model = init_sharded(cfg, generator=gen, mesh=mesh)
+    tokens = local_rows(torch.randint(0, cfg.vocab, (batch, seq_len), generator=gen), mesh)
+    if kind == "train":
+        groups = num_groups or mesh.shape.get("data", 1)
+        ccfg = CompressionConfig() if compress else None
+        state = init_train_state(cfg, generator=gen, model=model, mesh=mesh, compression=ccfg)
+        step = make_train_step(cfg, ctx, AdamWConfig(), compression=ccfg, num_groups=groups)
+        got = analyze(step, state, {"tokens": tokens, "group_weights": torch.ones((groups,))})
+    else:
+        with M.recorded_routing():
+            got = analyze(T.prefill, model, {"tokens": tokens}, cfg, ctx)
+    mine = {"coords": mesh.coords, "param_bytes": sum(p.numel() * p.element_size() for p in model.parameters()),
+            "flops": got["flops"], "by_kind": got["collectives_by_kind"],
+            "calls_by_kind": got["collective_calls_by_kind"], "kernel_ops": got["kernel_ops"]}
     ranks = [None] * dist.get_world_size()
     dist.all_gather_object(ranks, mine)
     return {"ranks": ranks}

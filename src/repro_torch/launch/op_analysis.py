@@ -12,8 +12,9 @@ HLO text of a jitted call).
   by a ``TorchDispatchMode`` (views and allocations touch none): XLA's
   "bytes accessed" model without fusion, so an upper bound on the HBM
   traffic of the call, which fused kernels would cut.
-* ``collective_bytes``, ``collectives_by_kind``, ``collective_ops``: the
-  change in ``launch.collectives.STATS`` over the call.
+* ``collective_bytes``, ``collectives_by_kind``, ``collective_ops``,
+  ``collective_calls_by_kind``: the change in ``launch.collectives.STATS``
+  over the call.
 * ``dot_ops``: the matmul calls and the kernel ops below.
 
 A call through ``kernels/dispatch.py`` (seen by its ``observed`` hook) is
@@ -43,7 +44,7 @@ from torch.utils._python_dispatch import TorchDispatchMode, _disable_current_mod
 from torch.utils._pytree import tree_flatten
 from torch.utils.flop_counter import FlopCounterMode
 
-__all__ = ["KERNEL_FLOPS", "analyze"]
+__all__ = ["KERNEL_FLOPS", "analyze", "tensors_of"]
 
 
 def _flash_flops(q, k, v, *_, **__) -> float:
@@ -72,6 +73,20 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in leaves if isinstance(t, torch.Tensor))
 
 
+def tensors_of(tree) -> list:
+    """The tensors of an argument tree, a module's parameters and buffers
+    and a NamedTuple's fields among them (a train state holds the model)."""
+    out = []
+    for leaf in tree_flatten(tree)[0]:
+        if isinstance(leaf, torch.Tensor):
+            out.append(leaf)
+        elif isinstance(leaf, torch.nn.Module):
+            out += list(leaf.parameters()) + list(leaf.buffers())
+        elif isinstance(leaf, tuple) and hasattr(leaf, "_fields"):  # a NamedTuple pytree does not open
+            out += tensors_of(list(leaf))
+    return out
+
+
 class _Traffic(TorchDispatchMode):
     """Adds the bytes of each aten op's tensor inputs and outputs, and
     counts the matmul calls."""
@@ -94,7 +109,7 @@ class _Traffic(TorchDispatchMode):
 def analyze(fn, *args, **kwargs) -> dict:
     """Run ``fn(*args, **kwargs)`` once and return its op-level costs
     (module docstring): ``flops``, ``bytes``, ``collective_bytes``,
-    ``collectives_by_kind``, ``collective_ops``, ``dot_ops``, and
+    ``collectives_by_kind``, ``collective_ops``, ``collective_calls_by_kind``, ``dot_ops``, and
     ``kernel_ops`` and ``flops_by_op``."""
     from ..kernels import dispatch
     from . import collectives as C
@@ -117,6 +132,7 @@ def analyze(fn, *args, **kwargs) -> dict:
     with dispatch.observed(count), flop_mode, traffic:
         fn(*args, **kwargs)
     by_kind = {k: float(v - bytes0.get(k, 0)) for k, v in C.STATS.bytes.items() if v != bytes0.get(k, 0)}
+    calls_by_kind = {k: v - calls0.get(k, 0) for k, v in C.STATS.calls.items() if v != calls0.get(k, 0)}
     flops_by_op = {str(op): float(n) for op, n in flop_mode.get_flop_counts().get("Global", {}).items()}
     flops_by_op.update({f"kernel:{op}": f for op, f in kernel_flops.items()})
     return {
@@ -125,6 +141,7 @@ def analyze(fn, *args, **kwargs) -> dict:
         "collective_bytes": float(sum(by_kind.values())),
         "collectives_by_kind": by_kind,
         "collective_ops": sum(C.STATS.calls.values()) - sum(calls0.values()),
+        "collective_calls_by_kind": calls_by_kind,
         "dot_ops": traffic.dots + sum(kernel_ops.values()),
         "kernel_ops": kernel_ops,
         "flops_by_op": flops_by_op,

@@ -338,21 +338,23 @@ def shard_model(model: nn.Module, mesh, *, layout: str = "fsdp_tp") -> nn.Module
     return model
 
 
-def init_sharded(cfg: ModelConfig, *, generator: torch.Generator, mesh, layout: str = "fsdp_tp",
-                 matmul_dtype=None) -> T.Transformer:
+def init_sharded(cfg: ModelConfig, *, generator: Optional[torch.Generator], mesh, layout: str = "fsdp_tp",
+                 matmul_dtype=None, device=None) -> T.Transformer:
     """:func:`~repro_torch.models.transformer.init_params` narrowed to this
     rank's blocks as it draws: every rank draws every tensor from
     ``generator`` (seeded alike on every rank, so the values are the
     meshless model's), and keeps its blocks of the embedding and of each
-    layer before it draws the next layer."""
+    layer before it draws the next layer.  ``generator=None`` draws on
+    ``device`` without one: on ``meta``, the blocks' shapes alone (the dry
+    run, ``launch.dryrun``)."""
     if layout not in _LAYOUTS:
         raise ValueError(f"init_sharded: unknown layout {layout!r}; one of {sorted(_LAYOUTS)}")
 
     def keep(prefix, module):
         _narrow_module(prefix, module, mesh=mesh, layout=layout)
 
-    return T.Transformer(cfg, device=generator.device, generator=generator, matmul_dtype=matmul_dtype,
-                         keep=keep)
+    return T.Transformer(cfg, device=generator.device if generator is not None else torch.device(device),
+                         generator=generator, matmul_dtype=matmul_dtype, keep=keep)
 
 
 # ------------------------------------------------------------------ rows

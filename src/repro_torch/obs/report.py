@@ -9,6 +9,7 @@ from __future__ import annotations
 import os
 from typing import List, Optional, Tuple
 
+from ..analysis import compiled_path
 from .metrics import MetricsRegistry, default_registry
 from .trace import TraceBuffer, default_buffer
 
@@ -102,6 +103,7 @@ def summary_lines(
     return lines
 
 
+@compiled_path("obs.report", kind="host")
 def write_report(
     out_dir: str,
     registry: Optional[MetricsRegistry] = None,

@@ -35,6 +35,7 @@ import threading
 import time
 from typing import Callable, List, Optional
 
+from ..analysis import compiled_path
 from .metrics import default_registry, log_bounds
 
 __all__ = [
@@ -228,6 +229,7 @@ def configure_buffer(capacity: Optional[int] = None) -> TraceBuffer:
     return _BUFFER
 
 
+@compiled_path("obs.export", kind="host")
 def export_jsonl(path: str, *, clear: bool = False) -> int:
     """Export the default buffer (see :meth:`TraceBuffer.export_jsonl`)."""
     return _BUFFER.export_jsonl(path, clear=clear)

@@ -47,6 +47,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..analysis import compiled_path
 from ..kernels import autotune
 from ..obs import default_registry, trace_span
 from ..stream.query import DeviceCenters, HostFetch, QueryResult, assign_rows, bucket_size
@@ -82,6 +83,18 @@ class AdmissionError(RuntimeError):
         super().__init__(message)
         self.tenant = tenant
         self.staleness = dict(staleness or {})
+
+
+@compiled_path("serve.batch_assign", kind="factory")
+def _batch_assign_run(impl: str):
+    """The frontend's micro-batch step, ``run(q, c) -> (idx, distance)``:
+    registered so both analyzer layers cover the serving dispatch as they
+    cover the per-session query path (the reference's ``_batch_assign_run``)."""
+
+    def run(q, c):
+        return assign_rows(q, c, impl)
+
+    return run
 
 
 @dataclasses.dataclass
@@ -139,6 +152,7 @@ class ServingFrontend:
             cache_size = _env_int("REPRO_SERVE_CACHE", 1024)
         self.clock = clock if clock is not None else SystemClock()
         self.impl = impl
+        self._run = _batch_assign_run(impl)
         self.batcher = MicroBatcher(window=window, max_batch=max_batch)
         self.cache = AssignmentCache(cache_size, quantize=quantize)
         self._tenants: Dict[str, TenantState] = {}
@@ -227,6 +241,7 @@ class ServingFrontend:
 
     # ------------------------------------------------------------- warm-up
 
+    @compiled_path("serve.warmup", kind="host")
     def warmup(self, tenant: Optional[str] = None) -> "autotune.WarmupReport":
         """Place the centers and run the shape buckets a tenant's traffic has
         used once — off the hot path (the first call of a kernel loads, and
@@ -253,7 +268,7 @@ class ServingFrontend:
 
             def entry(b, _state=state, _c=centers, _v=version, _d=d):
                 c_dev = _state.device_centers(_c, _v)
-                return assign_rows(torch.zeros((b, _d), device=c_dev.device), c_dev, self.impl)
+                return self._run(torch.zeros((b, _d), device=c_dev.device), c_dev)
 
             plan = [
                 (f"{name}[{b}x{d}]", functools.partial(entry, b))
@@ -344,6 +359,7 @@ class ServingFrontend:
 
     # ----------------------------------------------------------- dispatch
 
+    @compiled_path("serve.dispatch", kind="host")
     def _dispatch(self, batch: Batch) -> None:
         """One closed bucket → one ``assign_min`` launch → ONE device→host
         transfer.
@@ -377,7 +393,7 @@ class ServingFrontend:
             qp[:n] = q  # zero padding rows are sliced off below
             state.observed_buckets.add((bucket, d))
             c_dev = state.device_centers(centers, session.version)
-            idx, dist = assign_rows(torch.from_numpy(qp).to(c_dev.device), c_dev, self.impl)
+            idx, dist = self._run(torch.from_numpy(qp).to(c_dev.device), c_dev)
             # Fetch the FULL padded arrays and slice on the host, as the
             # reference does: the padding is a few KB.
             idx_h, dist_h = self._fetch(idx, dist)

@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..analysis import compiled_path
 from ..device import resolve_device
 from ..kernels import autotune
 from ..kernels.pairwise_dist import ops as pd
@@ -56,6 +57,18 @@ def assign_rows(q: torch.Tensor, c: torch.Tensor, impl: str = "auto"):
     assignment, as the reference's jitted assigner returns it."""
     idx, d2 = pd.assign_min(q, c, impl=impl)
     return idx, torch.sqrt(torch.clamp_min(d2, 0.0))
+
+
+@compiled_path("query.assign_min", kind="factory")
+def _assign_run(impl: str):
+    """The engine's step, ``run(q, c) -> (idx, distance)``: the callable
+    the Layer-2 sync audit runs (the reference's ``_assign_run``, the raw
+    form of its jitted assigner)."""
+
+    def run(q, c):
+        return assign_rows(q, c, impl)
+
+    return run
 
 
 class DeviceCenters:
@@ -135,6 +148,7 @@ class QueryEngine:
         )
         self._device_centers = DeviceCenters(self.device)
         self._fetch = HostFetch()
+        self._run = _assign_run(impl)
 
     @property
     def compiled_buckets(self) -> int:
@@ -148,6 +162,7 @@ class QueryEngine:
     def warmups(self) -> int:
         return int(self._c_warmups.value)
 
+    @compiled_path("query.warmup", kind="host")
     def warmup(self, centers, version: int = 0) -> autotune.WarmupReport:
         """Place the new centers and run every bucket this engine has served
         once, off the hot path: the first query after a model refresh pays
@@ -158,7 +173,7 @@ class QueryEngine:
         buckets = sorted({b for (b, bd, bk) in self._buckets if bd == d and bk == k}) or [_MIN_BATCH]
         plan = [
             (f"query[{b}x{d}]k{k}",
-             lambda b=b: assign_rows(torch.zeros((b, d), device=c_dev.device), c_dev, self.impl))
+             lambda b=b: self._run(torch.zeros((b, d), device=c_dev.device), c_dev))
             for b in buckets
         ]
         report = autotune.warmup(plan)
@@ -167,6 +182,7 @@ class QueryEngine:
         self._c_warmups.inc()
         return report
 
+    @compiled_path("query.assign", kind="host")
     def assign(
         self,
         queries,
@@ -193,7 +209,7 @@ class QueryEngine:
         with trace_span("query.assign", rows=n, bucket=bucket):
             qp = np.zeros((bucket, d), np.float32)
             qp[:n] = q  # zero padding rows are sliced off on the host
-            idx, dist = assign_rows(torch.from_numpy(qp).to(c_dev.device), c_dev, self.impl)
+            idx, dist = self._run(torch.from_numpy(qp).to(c_dev.device), c_dev)
             idx_h, dist_h = self._fetch(idx, dist)
         self._buckets.add((bucket, d, int(c_dev.shape[0])))
         self._c_served.inc(n)

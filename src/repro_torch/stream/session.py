@@ -32,6 +32,7 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from ..analysis import compiled_path
 from ..core import kmeans
 from ..core.assignment import make_assignment
 from ..core.executor import Executor
@@ -259,6 +260,7 @@ class StreamingSession:
             "version": self._version,
         }
 
+    @compiled_path("stream.query", kind="host")
     def query(self, queries) -> QueryResult:
         """Nearest-center answers with a staleness bound; solves once
         automatically if no model exists yet."""

@@ -31,6 +31,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from ..analysis import compiled_path
 from ..models import moe as M
 from ..models import transformer as T
 from ..models.registry import ModelConfig
@@ -153,6 +154,7 @@ def make_grad_fn(cfg: ModelConfig, ctx: T.ModelContext):
     return grad_of
 
 
+@compiled_path("train.train_step", kind="factory")
 def make_train_step(
     cfg: ModelConfig,
     ctx: T.ModelContext,
@@ -237,6 +239,7 @@ def _grads(total, names, params) -> dict:
     return {n: torch.zeros_like(p) if g is None else g for n, p, g in zip(names, params, grads)}
 
 
+@compiled_path("train.group_grad", kind="factory")
 def make_group_grad_fn(cfg: ModelConfig, ctx: T.ModelContext):
     """Per-group statistics function for ``Executor.resilient_reduce_masked``
     — the mesh-native resilient train step (Lemma 3 on gradients).
@@ -321,6 +324,7 @@ def make_group_grad_fn(cfg: ModelConfig, ctx: T.ModelContext):
     return group_stats
 
 
+@compiled_path("train.recovered_apply", kind="factory")
 def make_recovered_apply_fn(
     opt_cfg: AdamWConfig,
     num_shards: int,
@@ -356,6 +360,7 @@ def make_recovered_apply_fn(
     return apply
 
 
+@compiled_path("train.eval_step", kind="factory")
 def make_eval_step(cfg: ModelConfig, ctx: T.ModelContext):
     @torch.no_grad()
     def eval_step(model, batch):

@@ -52,6 +52,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..analysis import compiled_path
 from ..core.resilience import ElasticPolicy
 from ..core.stragglers import StragglerScenario, make_scenario
 from ..data.pipeline import RedundantDataPipeline
@@ -275,6 +276,7 @@ class Trainer:
             iters=sess.device_iters, b_override=b_override,
         )
 
+    @compiled_path("trainer.device_recovery_step", kind="host")
     def _device_recovery_step(
         self, state: TrainState, step: int, alive_t: np.ndarray
     ) -> tuple[TrainState, Optional[dict]]:

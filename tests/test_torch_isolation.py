@@ -45,7 +45,11 @@ def test_every_port_module_imports_with_jax_and_the_reference_blocked():
     assert {"repro_torch.train.trainer", "repro_torch.train.checkpoint", "repro_torch.data.pipeline",
             "repro_torch.launch.train", "repro_torch.configs.musicgen_large", "repro_torch.train_resilient_lm",
             "repro_torch.launch.mesh_runs", "repro_torch.launch.mesh", "repro_torch.launch.sharding",
-            "repro_torch.launch.specs", "repro_torch.launch.collectives"} <= set(modules)
+            "repro_torch.launch.specs", "repro_torch.launch.collectives", "repro_torch.launch.dryrun",
+            "repro_torch.launch.make_tables", "repro_torch.analysis", "repro_torch.analysis.registry",
+            "repro_torch.analysis.callgraph", "repro_torch.analysis.ast_lint", "repro_torch.analysis.baseline",
+            "repro_torch.analysis.hotpaths", "repro_torch.analysis.sync_audit",
+            "repro_torch.analysis.__main__"} <= set(modules)
     script = (
         "import sys, importlib\n"
         f"for name in {FORBIDDEN!r}:\n"

@@ -7,6 +7,8 @@ tolerances) are shared with ``test_torch_gpu.py``, which holds the CUDA
 kernels against the plain versions on the card.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -148,8 +150,11 @@ def test_dispatch_cpu_tensor_gets_plain_version(op):
         dispatch.resolve(op, "cuda", t)
     with pytest.raises(ValueError, match="unknown impl"):
         dispatch.resolve(op, "pallas", t)
+    # A meta tensor takes the plain version (the dry run's route); a device
+    # with no route still raises (a stand-in: resolve reads ``.device`` only).
+    assert dispatch.resolve(op, "auto", torch.zeros(3, 2, device="meta"))[0] == "torch_ref"
     with pytest.raises(ValueError, match="unsupported device"):
-        dispatch.resolve(op, "auto", torch.zeros(3, 2, device="meta"))
+        dispatch.resolve(op, "auto", types.SimpleNamespace(device=torch.device("xpu")))
 
 
 def test_plain_runs_on_cpu_do_not_count_as_launches():
