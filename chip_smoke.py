@@ -81,9 +81,9 @@ Phases:
                  spawned, 5 nodes each: (b) the same cell within 1e-5, the
                  ranks' b, packed shards and centers identical by hash,
                  each rank's peak memory, shard bytes and seconds (host
-                 prelude, local solves, collectives); (c) 8 rounds of
-                 observe + step_cost on phase 8's covered cell, each within
-                 1e-5 of phase 8 (b)'s round, 0 host solves, rows written
+                 prelude, local solves, collectives); (c) the first 4
+                 rounds of observe + step_cost on phase 8's covered cell,
+                 each within 1e-5 of phase 8 (b)'s round, 0 host solves, rows written
                  only by the owning rank; (d) the stream cell of phase 10
                  cut to 16 batches: both ranks' frontiers bit for bit, within
                  1e-5 of a local session fed the same batches; each rank's
@@ -262,21 +262,27 @@ Phases:
                  flip rule and with its routing replayed, and decodes
                  teacher-forced in the oracle's cache slots with the routing
                  replayed: bit for bit, or the first op whose output
-                 differs (launch.mesh_runs.decode_taps) is printed
-  20b. train mesh  qwen3-1.7b at full width and depth on LM meshes: (a) a
-                 world of one over NCCL, 2 steps bit for bit the meshless
-                 ones; (b) (1, 2) and (c) (2, 2) gloo ranks, remat full, one
-                 compressed step a rank, every gradient block within 2e-2
-                 of the meshless oracle's; (d) in those runs the oracle's
-                 gradient compressed through the mesh path bit for bit the
-                 meshless compression, lm_head's straddling block printed,
-                 the error-feedback buffers on state_shardings' blocks;
-                 (e) at 4 layers on (2, 2) with FSDP, TP and compression,
-                 Trainer(ctx=..., ckpt_dir=...): 3 steps with a checkpoint
-                 after the second, a resume bit for bit, the file restored
-                 meshless equal to the ranks' saved blocks, a meshless file
-                 restored onto the ranks; the file's bytes, the write and
-                 read seconds and the free disk
+                 differs (launch.mesh_runs.decode_taps) is printed; then
+                 the sequence-parallel decode (cache_layout="seq": all KV
+                 heads of a rank's block of the slots, the softmax's
+                 statistics summed over model): 8 steps on (1, 1) bit for
+                 bit, and on (b)'s ranks the full oracle's 48 steps in its
+                 48 slots, 24 a rank, each within 2e-2 of the oracle
+  20b. train mesh  qwen3-1.7b at full width, 8 of its 28 layers, on LM
+                 meshes: (a) a world of one over NCCL, 2 steps bit for bit
+                 the meshless ones; (b) (1, 2) and (c) (2, 2) gloo ranks,
+                 remat full, one compressed step a rank, every gradient
+                 block within 2e-2 of the meshless oracle's; (d) in those
+                 runs the oracle's gradient compressed through the mesh
+                 path bit for bit the meshless compression, lm_head's
+                 straddling block printed, the error-feedback buffers on
+                 state_shardings' blocks; (e) at 2 layers on (c)'s ranks
+                 with FSDP, TP and compression, Trainer(ctx=...,
+                 ckpt_dir=...): 2 steps with a checkpoint after the first,
+                 a resume bit for bit, the file restored meshless equal to
+                 the ranks' saved blocks, a meshless file restored onto the
+                 ranks; the file's bytes, the write and read seconds and
+                 the free disk
   20c. analysis  the port's host-sync analysis (repro_torch.analysis):
                  layer 1, the AST lint over src/repro_torch, clean modulo
                  the port's baseline; layer 2, the four registered hot
@@ -289,19 +295,23 @@ Phases:
                  the kernel launches by path (flash_attention in the train
                  step, assign_min in the other three)
   20d. dry run   python -m repro_torch.launch.dryrun, one process a cell,
-                 all at once, on the host (rank 0 of a fake process group,
-                 meta tensors): (a) deepseek-moe-16b's prefill of 4 x 2048
-                 and qwen3-1.7b's compressed step at 8 x 512 under remat
+                 all started at nice 19 before phase "serve xlstm", on the
+                 host beside the card's phases (rank 0 of a fake process
+                 group, meta tensors): (a) deepseek-moe-16b's prefill of
+                 4 x 2048 and qwen3-1.7b's compressed step at 8 x 512 under remat
                  full, each on (1, 2) and (2, 2): rank (0, 0)'s predicted
                  parameter bytes and collectives (calls and bytes by kind)
                  equal to what phases 20a and 20b measured on that gloo
                  rank, the predicted peak beside max_memory_allocated,
-                 their ratio printed; (b) qwen3-1.7b train_4k on (16, 16),
+                 their ratio printed; the (1, 2) decode of 20a under each
+                 cache layout, its seq-minus-feature collectives equal to
+                 what that rank counted; (b) qwen3-1.7b train_4k on (16, 16),
                  deepseek-moe-16b prefill at 32 x 8192 on (16, 16) (the
                  prefill_32k cell's length cut: on meta tensors its
                  32768-token chunked attention takes about 100 s of host
-                 time) and qwen3-4b decode_32k on (2, 16, 16), rendered by
-                 launch.make_tables; an error record fails the phase
+                 time) and qwen3-4b decode_32k on (2, 16, 16) under each
+                 cache layout, rendered by launch.make_tables; an error
+                 record fails the phase
                  Phases "serve" (13) and "train full width" (18) also run
                  one untimed prefill / step under launch.op_analysis and
                  print the roofline (launch.roofline on H100 terms):
@@ -401,14 +411,28 @@ def timed_steps(module, names, sync, log: list):
             setattr(module, name, fn)
 
 
+def device_activity(prof) -> list:
+    """The device's activity of a finished ``torch.profiler`` run, summed by
+    name: [(name, microseconds, count)], longest first.  It reads the raw
+    Kineto events: ``key_averages()`` first parses every event into a tree
+    on the host, which took 57 s over the script's 17 traces on an H100
+    host (133-157 s while the host's op events were recorded too)."""
+    from torch.autograd import DeviceType
+
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            row = by_name.setdefault(e.name(), [0, 0])
+            row[0] += e.duration_ns() / 1e3
+            row[1] += 1
+    return sorted(((name, us, n) for name, (us, n) in by_name.items()), key=lambda r: r[1], reverse=True)
+
+
 def profiled(tag, fn, top=12):
     """Run fn under torch.profiler; print kernel time by name.  Returns
     the seconds of kernel time (device busy).  It records the CUDA activity
-    alone: the kernels are all it reads, and with the host's op events a
-    trace took up to 26 s to read (133-157 s over the script's 17 traces on
-    an H100 host), against the script's time limit."""
+    alone: the kernels are all it reads (:func:`device_activity`)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -418,21 +442,14 @@ def profiled(tag, fn, top=12):
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    # Kernels only: an aten op's entry repeats the time of its kernels.
     t0 = time.perf_counter()
-    kernels = sorted(
-        (e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-        key=dev_us, reverse=True,
-    )
-    busy = sum(dev_us(e) for e in kernels) / 1e6
+    kernels = device_activity(prof)
+    busy = sum(us for _, us, _ in kernels) / 1e6
     print(f"{tag} under the profiler: wall {wall:.3f} s, kernels {busy:.3f} s "
           f"({100 * busy / wall:.1f}% of the profiled wall, which the profiler inflates); the trace read in "
           f"{time.perf_counter() - t0:.3f} s on the host")
-    for e in kernels[:top]:
-        print(f"  {dev_us(e) / 1e3:10.1f} ms  {e.count:7d} launches  {e.key[:90]}")
+    for name, us, n in kernels[:top]:
+        print(f"  {us / 1e3:10.1f} ms  {n:7d} launches  {name[:90]}")
     return busy
 
 
@@ -1291,7 +1308,6 @@ def train_device_recovery(seed: int, card: str, host_step_s: float) -> dict:
     import numpy as np
     import torch
     import torch.distributed as dist
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import device_recovery_masked
@@ -1342,7 +1358,7 @@ def train_device_recovery(seed: int, card: str, host_step_s: float) -> dict:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         device_recovery_masked(A32, torch.from_numpy(rows[1]).to(dev), iters=300, device=dev)
         sync()
-    solve_launches = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    solve_launches = sum(n for _, _, n in device_activity(prof))
     solve_ms = [cuda_ms(lambda r=r: device_recovery_masked(A32, torch.from_numpy(r).to(dev), iters=300,
                                                            device=dev), 5) for r in rows]
 
@@ -1512,17 +1528,17 @@ TRAIN_MESH_BAND = 2e-2  # the bf16 band of phase "train device recovery"'s delta
 
 
 def train_mesh(seed: int, card: str) -> dict:
-    """Phase "train mesh": qwen3-1.7b at full width and depth (f32
-    parameters, bf16 compute, 8 x 512 tokens over 4 groups) trained on LM
-    meshes.  The meshless oracle first: the first batch's gradient (written
+    """Phase "train mesh": qwen3-1.7b at full width, depth cut to
+    ``TRAIN_MESH_LAYERS`` (f32 parameters, bf16 compute, 8 x 512 tokens
+    over 4 groups), trained on LM meshes.  The meshless oracle first: the first batch's gradient (written
     to a temporary directory with its loss and norm), then 2 meshless steps
     with a hash of every parameter and moment after each.  (a) A world of
     one over NCCL, mesh (1, 1), remat none: the same 2 steps through the
-    mesh step, bit for bit (loss and hash), 28 flash launches a step, no
+    mesh step, bit for bit (loss and hash), a flash launch a layer a step, no
     collective that moves data.  The card is then freed and (b) two gloo
     ranks on it, mesh (1, 2), and (c) four, mesh (2, 2) with FSDP over
     ``data``, each run one step under remat full
-    (``launch.mesh_runs.train_mesh_rank``): 56 flash launches a rank,
+    (``launch.mesh_runs.train_mesh_rank``): two flash launches a layer,
     every gradient block within ``TRAIN_MESH_BAND`` of its parameter's
     meshless scale, the loss within 1e-5 and the grad norm within 1e-3
     relative, the moments on ``state_shardings``' blocks.  (d) In the same
@@ -1531,7 +1547,9 @@ def train_mesh(seed: int, card: str) -> dict:
     mesh path, bit for bit the meshless compression of the whole tensors
     narrowed alike (``lm_head``'s straddling block and its scale printed),
     and its step compresses (``CompressionConfig()``), the buffers on
-    ``state_shardings``' blocks.  (e) :func:`train_mesh_ckpt`.  Returns the
+    ``state_shardings``' blocks.  (e) :func:`train_mesh_ckpt_prepare`
+    before the ranks start, (c)'s ranks run ``ckpt_mesh_rank`` after their
+    step, and :func:`train_mesh_ckpt_check` holds them.  Returns the
     flash launches a rank a step of each run and their shapes."""
     import os
     import tempfile
@@ -1552,7 +1570,8 @@ def train_mesh(seed: int, card: str) -> dict:
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
-    cfg = get_config("qwen3-1.7b")
+    cut = {"n_layers": TRAIN_MESH_LAYERS}
+    cfg = get_config("qwen3-1.7b", **cut)
     n = dense_param_count(cfg)
     batches = mesh_runs.train_mesh_batches(cfg, seed, dev, 2, data_vocab=DATA_VOCAB)
     ocfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=8)
@@ -1616,15 +1635,23 @@ def train_mesh(seed: int, card: str) -> dict:
     torch.cuda.empty_cache()
     print(f"the card freed: {torch.cuda.memory_allocated() / 2**30:.3f} GiB held by this process")
 
-    # (b), (c): gloo ranks sharing the card, remat full
-    for label, shape in (("(b)", (1, 2)), ("(c)", (2, 2))):
+    # (e)'s meshless checkpoint, then (b), (c): gloo ranks sharing the card,
+    # remat full; (c)'s ranks then run (e).
+    ckpt_tmp = tempfile.TemporaryDirectory(prefix="repro-train-mesh-ckpt-")
+    prep = train_mesh_ckpt_prepare(seed, card, ckpt_tmp.name)
+    for label, shape in (("(b)", (1, 2)), ("(c)", CKPT_SHAPE)):
         world = shape[0] * shape[1]
+        jobs = [("card", shape, dict(seed=seed, oracle_path=oracle_path, remat="full", cfg_overrides=cut,
+                                     seq_len=512, compress=True))]
+        if shape == CKPT_SHAPE:
+            jobs.append(("ckpt", shape, prep["job"]))
         t0 = time.perf_counter()
-        rep = mesh_dist.run_ranks(mesh_runs.train_mesh_rank, world, backend="gloo", device="cuda", timeout=800,
-                                  args=(seed, shape, oracle_path, "full", None, 512, True))
+        out = mesh_dist.run_ranks(mesh_runs.train_lm_rank, world, backend="gloo", device="cuda", timeout=1200,
+                                  args=(jobs,))
         wall = time.perf_counter() - t0
+        rep = out[0]
         print(f"{label} mesh {shape}, {world} gloo ranks on the card, remat full: {wall:.3f} s from spawn to exit"
-              f"  [{card}]")
+              + (", (e) on the same ranks after the step" if len(jobs) > 1 else "") + f"  [{card}]")
         MESH_RANKS[("train", shape)] = rep["ranks"]
         for r in rep["ranks"]:
             sums = r["sums"]
@@ -1674,114 +1701,138 @@ def train_mesh(seed: int, card: str) -> dict:
         counts[f"{shape} gloo, a rank"] = rep["ranks"][0]["launches"]["flash_attention"]
         shapes[f"{shape} gloo, a rank"] = rep["ranks"][0]["flash_shape"]
     tmp.cleanup()
-    train_mesh_ckpt(seed, card)
+    train_mesh_ckpt_check(seed, card, ckpt_tmp.name, prep, out[1])
+    ckpt_tmp.cleanup()
     return {"counts": counts, "shapes": shapes}
 
 
-CKPT_LAYERS = 4  # phase "train mesh" (e): qwen3-1.7b's depth cut for the disk and the phase's time
+TRAIN_MESH_LAYERS = 8  # phase "train mesh" (a)-(d): qwen3-1.7b's 28 layers cut for the script's time
+CKPT_LAYERS = 2  # phase "train mesh" (e): qwen3-1.7b's depth cut for the disk and the phase's time
+CKPT_STEPS = 2  # phase "train mesh" (e): the uninterrupted run's steps, the checkpoint a step before its end
+CKPT_SHAPE = (2, 2)  # phase "train mesh" (e) runs on (c)'s ranks
 
 
-def train_mesh_ckpt(seed: int, card: str) -> None:
-    """Phase "train mesh" (e): qwen3-1.7b at full width, depth cut to
-    ``CKPT_LAYERS``, on (2, 2) gloo ranks with FSDP, TP and compression,
-    through ``Trainer(ctx=..., ckpt_dir=...)`` in a temporary directory
-    (``launch.mesh_runs.ckpt_mesh_rank``): 3 steps uninterrupted; 2 steps
-    with a checkpoint, then a new trainer resumed from it runs the third:
-    its losses and the digest of every block of params, m, v and ef bit for
-    bit the uninterrupted run's.  The checkpoint restored
-    meshless here, narrowed to each rank's blocks, must be the state the
-    ranks saved; a meshless checkpoint written here first, restored by the
-    ranks, must give its narrowed blocks.  Prints the file's bytes, the
-    write and read seconds and the free disk, and fails if the disk
-    cannot hold the two files."""
+def train_mesh_ckpt_prepare(seed: int, card: str, tmp: str) -> dict:
+    """Phase "train mesh" (e), before its ranks start: qwen3-1.7b at full
+    width, depth cut to ``CKPT_LAYERS``, a state with random moments and
+    buffers written meshless to ``tmp``/meshless (its bytes, seconds and
+    the free disk printed; the phase fails if the disk cannot hold two
+    such files).  Returns the keywords of the ranks'
+    ``launch.mesh_runs.ckpt_mesh_rank`` and what
+    :func:`train_mesh_ckpt_check` holds them to."""
     import os
     import shutil
-    import tempfile
 
     import torch
 
-    from repro_torch.launch import distributed as mesh_dist
     from repro_torch.launch import mesh_runs
     from repro_torch.launch.mesh import MeshShape
     from repro_torch.launch.sharding import param_shardings
     from repro_torch.models.registry import get_config
-    from repro_torch.train.checkpoint import checkpoint_bytes, restore_checkpoint, save_checkpoint
+    from repro_torch.train.checkpoint import checkpoint_bytes, save_checkpoint
+    from repro_torch.train.compression import CompressionConfig
+    from repro_torch.train.train_step import init_train_state
+
+    dev = torch.device("cuda")
+    cut = {"n_layers": CKPT_LAYERS}
+    cfg = get_config("qwen3-1.7b", **cut)
+    state = init_train_state(cfg, generator=torch.Generator(device=dev).manual_seed(seed + 2),
+                             compression=CompressionConfig())
+    g = torch.Generator(device=dev).manual_seed(seed + 3)
+    with torch.no_grad():
+        for t in list(state.opt.m.values()) + list(state.opt.v.values()) + list(state.ef.values()):
+            t.copy_(torch.rand(t.shape, generator=g, device=dev))
+    state = state._replace(opt=state.opt._replace(step=7))
+    nbytes, free = checkpoint_bytes(state), shutil.disk_usage(tmp).free
+    n = sum(p.numel() for p in state.params.parameters())
+    print(f"(e) qwen3-1.7b at {CKPT_LAYERS} layers: {n:,} parameters; a checkpoint of params, m, v and ef "
+          f"{nbytes / 1e9:.3f} GB; free disk under the temporary directory {free / 1e9:.3f} GB  [{card}]")
+    if free < 2.05 * nbytes:
+        raise AssertionError(f"train mesh (e): {free / 1e9:.3f} GB free, the two checkpoints need "
+                             f"{2 * nbytes / 1e9:.3f} GB")
+    specs = param_shardings(dict(state.params.named_parameters()), MeshShape(("data", "model"), CKPT_SHAPE))
+    wrote = mesh_runs.narrowed_digests(state, specs, CKPT_SHAPE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(os.path.join(tmp, "meshless"), 7, state)
+    print(f"(e) a meshless checkpoint written: {os.path.getsize(os.path.join(tmp, 'meshless', 'step_7.npz')):,} "
+          f"bytes in {time.perf_counter() - t0:.3f} s  [{card}]")
+    del state
+    torch.cuda.empty_cache()
+    job = dict(seed=seed, ckpt_dir=os.path.join(tmp, "mesh"), restore_dirs={"meshless": os.path.join(tmp, "meshless")},
+               cfg_overrides=cut, seq_len=512, data_vocab=DATA_VOCAB, steps=CKPT_STEPS)
+    return {"job": job, "cfg": cfg, "specs": specs, "wrote": wrote}
+
+
+def train_mesh_ckpt_check(seed: int, card: str, tmp: str, prep: dict, rep: dict) -> None:
+    """Phase "train mesh" (e), after its ranks: qwen3-1.7b at
+    ``CKPT_LAYERS`` layers on (2, 2) gloo ranks with FSDP, TP and
+    compression through ``Trainer(ctx=..., ckpt_dir=...)``
+    (``launch.mesh_runs.ckpt_mesh_rank``, run by (c)'s ranks after their
+    step): ``CKPT_STEPS`` steps uninterrupted; one fewer with a
+    checkpoint, then a new trainer resumed from it runs the last: its
+    losses and the digest of every block of params, m, v and ef bit for bit
+    the uninterrupted run's.  The checkpoint restored meshless here,
+    narrowed to each rank's blocks, must be the state the ranks saved; the
+    meshless checkpoint of :func:`train_mesh_ckpt_prepare`, restored by the
+    ranks, must give its narrowed blocks.  Prints the file's bytes and the
+    write and read seconds."""
+    import os
+
+    import torch
+
+    from repro_torch.launch import mesh_runs
+    from repro_torch.train.checkpoint import restore_checkpoint
     from repro_torch.train.compression import CompressionConfig
     from repro_torch.train.train_step import init_train_state
 
     dev = torch.device("cuda")
     sync = torch.cuda.synchronize
-    shape = (2, 2)
-    cut = {"n_layers": CKPT_LAYERS}
-    cfg = get_config("qwen3-1.7b", **cut)
-    with tempfile.TemporaryDirectory(prefix="repro-train-mesh-ckpt-") as tmp:
-        state = init_train_state(cfg, generator=torch.Generator(device=dev).manual_seed(seed + 2),
-                                 compression=CompressionConfig())
-        g = torch.Generator(device=dev).manual_seed(seed + 3)
-        with torch.no_grad():
-            for t in list(state.opt.m.values()) + list(state.opt.v.values()) + list(state.ef.values()):
-                t.copy_(torch.rand(t.shape, generator=g, device=dev))
-        state = state._replace(opt=state.opt._replace(step=7))
-        nbytes, free = checkpoint_bytes(state), shutil.disk_usage(tmp).free
-        n = sum(p.numel() for p in state.params.parameters())
-        print(f"(e) qwen3-1.7b at {CKPT_LAYERS} layers: {n:,} parameters; a checkpoint of params, m, v and ef "
-              f"{nbytes / 1e9:.3f} GB; free disk under the temporary directory {free / 1e9:.3f} GB  [{card}]")
-        if free < 2.05 * nbytes:
-            raise AssertionError(f"train mesh (e): {free / 1e9:.3f} GB free, the two checkpoints need "
-                                 f"{2 * nbytes / 1e9:.3f} GB")
-        specs = param_shardings(dict(state.params.named_parameters()), MeshShape(("data", "model"), shape))
-        wrote = mesh_runs.narrowed_digests(state, specs, shape)
-        sync()
-        t0 = time.perf_counter()
-        save_checkpoint(os.path.join(tmp, "meshless"), 7, state)
-        print(f"(e) a meshless checkpoint written: {os.path.getsize(os.path.join(tmp, 'meshless', 'step_7.npz')):,} "
-              f"bytes in {time.perf_counter() - t0:.3f} s  [{card}]")
-        del state
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        rep = mesh_dist.run_ranks(mesh_runs.ckpt_mesh_rank, 4, backend="gloo", device="cuda", timeout=900,
-                                  args=(seed, shape, os.path.join(tmp, "mesh"),
-                                        {"meshless": os.path.join(tmp, "meshless")}, cut, 512, DATA_VOCAB))
-        print(f"(e) mesh {shape}, 4 gloo ranks on the card, FSDP + TP + compression: {time.perf_counter() - t0:.3f} s "
-              f"from spawn to exit  [{card}]")
-        path = os.path.join(tmp, "mesh", "step_2.npz")
-        size = os.path.getsize(path)
-        template = init_train_state(cfg, generator=torch.Generator(device=dev).manual_seed(seed + 4),
-                                    compression=CompressionConfig())
-        sync()
-        t0 = time.perf_counter()
-        restored, step = restore_checkpoint(os.path.join(tmp, "mesh"), template)
-        sync()
-        read_s = time.perf_counter() - t0
-        read = mesh_runs.narrowed_digests(restored, specs, shape)
-        del restored, template
-        torch.cuda.empty_cache()
-        bad = []
-        for r in rep["ranks"]:
-            runs, c = r["runs"], tuple(r["coords"])
-            whole, first, resumed = runs["whole"], runs["first"], runs["resumed"]
-            losses = {k: [h["loss"] for h in run["history"]] for k, run in runs.items()}
-            resume_ok = resumed["start"] == 2 and losses["resumed"] == losses["whole"][2:] and (
-                losses["first"] == losses["whole"][:2] and resumed["digests"] == whole["digests"])
-            saved_ok = first["digests"] == read[c]
-            meshless = r["restored"]["meshless"]
-            meshless_ok = meshless["digests"] == wrote[c] and meshless["step"] == 7
-            print(f"(e) rank {c}: losses {losses['whole']} in {whole['seconds']:.3f} s; 2 steps and a checkpoint in "
-                  f"{first['seconds']:.3f} s, resumed at step {resumed['start']}: loss {losses['resumed']}, losses "
-                  f"and every block of params, m, v and ef bit for bit the uninterrupted run's {resume_ok}; "
-                  f"step_2.npz ({size:,} bytes) written in {first['history'][-1]['ckpt_write_s']:.3f} s, read back "
-                  f"in {resumed['read_s']:.3f} s; restored meshless here in {read_s:.3f} s: the blocks the rank "
-                  f"saved {saved_ok}; the meshless checkpoint read onto the mesh in {meshless['read_s']:.3f} s: its "
-                  f"narrowed blocks {meshless_ok}; peak {r['peak_gib']:.3f} GiB  [{card}]")
-            if r["specs"] != {k: tuple(v) for k, v in specs.items()}:
-                bad.append(f"rank {c}: specs differ from the parent's")
-            if not (resume_ok and saved_ok and meshless_ok and step == 2):
-                bad.append(f"rank {c}: resume {resume_ok}, saved {saved_ok}, meshless {meshless_ok}, step {step}")
-        if bad:
-            raise AssertionError("train mesh (e): " + "; ".join(bad))
+    specs, wrote = prep["specs"], prep["wrote"]
+    first = CKPT_STEPS - 1
+    size = os.path.getsize(os.path.join(tmp, "mesh", f"step_{first}.npz"))
+    template = init_train_state(prep["cfg"], generator=torch.Generator(device=dev).manual_seed(seed + 4),
+                                compression=CompressionConfig())
+    sync()
+    t0 = time.perf_counter()
+    restored, step = restore_checkpoint(os.path.join(tmp, "mesh"), template)
+    sync()
+    read_s = time.perf_counter() - t0
+    read = mesh_runs.narrowed_digests(restored, specs, CKPT_SHAPE)
+    del restored, template
+    torch.cuda.empty_cache()
+    bad = []
+    for r in rep["ranks"]:
+        runs, c = r["runs"], tuple(r["coords"])
+        whole, part, resumed = runs["whole"], runs["first"], runs["resumed"]
+        losses = {k: [h["loss"] for h in run["history"]] for k, run in runs.items()}
+        resume_ok = resumed["start"] == first and losses["resumed"] == losses["whole"][first:] and (
+            losses["first"] == losses["whole"][:first] and resumed["digests"] == whole["digests"])
+        saved_ok = part["digests"] == read[c]
+        meshless = r["restored"]["meshless"]
+        meshless_ok = meshless["digests"] == wrote[c] and meshless["step"] == 7
+        print(f"(e) rank {c}: losses {losses['whole']} in {whole['seconds']:.3f} s; {first} steps and a checkpoint "
+              f"in {part['seconds']:.3f} s, resumed at step {resumed['start']}: loss {losses['resumed']}, losses "
+              f"and every block of params, m, v and ef bit for bit the uninterrupted run's {resume_ok}; "
+              f"step_{first}.npz ({size:,} bytes) written in {part['history'][-1]['ckpt_write_s']:.3f} s, read "
+              f"back in {resumed['read_s']:.3f} s; restored meshless here in {read_s:.3f} s: the blocks the rank "
+              f"saved {saved_ok}; the meshless checkpoint read onto the mesh in {meshless['read_s']:.3f} s: its "
+              f"narrowed blocks {meshless_ok}; peak {r['peak_gib']:.3f} GiB  [{card}]")
+        if r["specs"] != {k: tuple(v) for k, v in specs.items()}:
+            bad.append(f"rank {c}: specs differ from the parent's")
+        if not (resume_ok and saved_ok and meshless_ok and step == first):
+            bad.append(f"rank {c}: resume {resume_ok}, saved {saved_ok}, meshless {meshless_ok}, step {step}")
+    if bad:
+        raise AssertionError("train mesh (e): " + "; ".join(bad))
 
 
 MESH_BAND = 2e-2  # the bf16 band of phase "serve moe"'s kernel-against-plain prefills
+SEQ_DECODE_STEPS = 48  # phase "serve mesh" (b) under cache layout seq: the full oracle's decode, 24 slots a rank
+# Phase "serve mesh" (b)'s feature decode: its teacher-forced steps and the
+# greedy decode's generated steps (of the oracle's 32), cut for the
+# script's time limit.
+MESH_DECODE_STEPS = 8
+GREEDY_MESH_STEPS = 4
 
 
 def serve_mesh(seed: int, card: str, holder: dict, kept: dict) -> dict:
@@ -1797,12 +1848,18 @@ def serve_mesh(seed: int, card: str, holder: dict, kept: dict) -> dict:
     only its blocks (``launch.sharding.init_sharded``), prefills its rows of
     4 x 2048 (exactly 28 flash launches), is held by the flip rule and with
     the oracle's routing replayed (``MESH_BAND`` of the logits' scale), and
-    decodes teacher-forced with the routing replayed (16 steps on (1, 2), 1
+    decodes teacher-forced with the routing replayed (``MESH_DECODE_STEPS``
+    on (1, 2), 1
     on (2, 2), whose every step gathers each layer's experts over ``data``)
     in a cache of the oracle's slots: bit for bit the oracle's logits, or
     the first op that differs is printed and the phase fails; (b) also
-    decodes greedily 4 x (16 + 32).  Returns the flash launches a rank
-    of each run."""
+    decodes greedily 4 x (16 + ``GREEDY_MESH_STEPS``), and then, under ``cache_layout="seq"``,
+    the full oracle's 48 teacher-forced steps in its 48 slots, 24 a rank
+    (all 16 KV heads of the rank's slots, the softmax's statistics summed
+    over ``model``; steps 24-47 write rank 1's slots), each step within
+    ``MESH_BAND`` of the oracle's logits, else the first op over the band
+    is printed and the phase fails; (a) also holds 8 seq-layout steps on
+    (1, 1) bit for bit.  Returns the flash launches a rank of each run."""
     import tempfile
 
     import torch
@@ -1845,18 +1902,19 @@ def serve_mesh(seed: int, card: str, holder: dict, kept: dict) -> dict:
         del cache0, cache1
         seq = kept["prompt"][:, :8].to(dev)
         steps = []
-        for c in (plain, ctx):
+        for c in (plain, ctx, make_context(mesh, cache_layout="seq")):
             cache, out = T.init_cache(cfg, 4, 8, device=dev, model=served, ctx=c), []
             for t in range(8):
                 lg, cache = T.decode_step(served, cache, seq[:, t:t + 1], t, cfg, c)
                 out.append(lg)
             steps.append(torch.stack(out))
         dec_same = torch.equal(steps[0], steps[1])
+        seq_same = torch.equal(steps[0], steps[2])
         print(f"(a) mesh (1, 1), a world of one over NCCL: prefill 4 x 2048 {one_s:.3f} s, launches "
               f"{counts['(1, 1) nccl']} flash, collectives that moved data {coll.STATS.calls}; logits, routing "
               f"and K/V caches bit for bit the meshless prefill's {same}; 8 decode steps' logits bit for bit "
-              f"{dec_same}  [{card}]")
-        if not (same and dec_same and counts["(1, 1) nccl"] == cfg.n_layers and not coll.STATS.calls):
+              f"{dec_same}, under cache layout seq {seq_same}  [{card}]")
+        if not (same and dec_same and seq_same and counts["(1, 1) nccl"] == cfg.n_layers and not coll.STATS.calls):
             raise AssertionError("serve mesh (a): mesh (1, 1) is not the meshless model bit for bit")
     finally:
         dist.destroy_process_group()
@@ -1870,12 +1928,14 @@ def serve_mesh(seed: int, card: str, holder: dict, kept: dict) -> dict:
         del served
         torch.cuda.empty_cache()
         print(f"the meshless model freed: {torch.cuda.memory_allocated() / 2**30:.3f} GiB held by this process")
-        for label, shape, decode_steps, greedy, warm_up in (
-                ("(b)", (1, 2), 16, True, True), ("(c)", (2, 2), 1, False, False)):
+        for label, shape, decode_steps, greedy, warm_up, seq_steps in (
+                ("(b)", (1, 2), MESH_DECODE_STEPS, True, True, SEQ_DECODE_STEPS),
+                ("(c)", (2, 2), 1, False, False, 0)):
             world = shape[0] * shape[1]
             t0 = time.perf_counter()
             rep = mesh_dist.run_ranks(mesh_runs.moe_serve_rank, world, backend="gloo", device="cuda",
-                                      timeout=600, args=(seed, shape, tmp, decode_steps, greedy, warm_up))
+                                      timeout=600, args=(seed, shape, tmp, decode_steps, greedy, warm_up, None,
+                                                         2048, None, seq_steps, MESH_BAND, GREEDY_MESH_STEPS))
             wall = time.perf_counter() - t0
             ranks = rep["ranks"]
             print(f"{label} mesh {shape}, {world} gloo ranks on the card: {wall:.3f} s from spawn to exit; "
@@ -1902,8 +1962,9 @@ def serve_mesh(seed: int, card: str, holder: dict, kept: dict) -> dict:
                       + ("bit for bit" if r["decode_first_difference"] is None else
                          "the first op that differs: {} by {:.3e}".format(*r["decode_first_difference"]))
                       + f"), {r['decode_ms_per_step']:.2f} ms/step"
-                      + (f"; greedy 4 x (16 + 32) {r['greedy_ms_per_step']:.2f} ms/step, ids agree with the "
-                         f"oracle's {r['greedy_agree']:.4f}" if "greedy_agree" in r else "")
+                      + (f"; greedy 4 x (16 + {r['greedy_steps']}) {r['greedy_ms_per_step']:.2f} ms/step, ids "
+                         f"agree with the oracle's first {r['greedy_steps']} {r['greedy_agree']:.4f}"
+                         if "greedy_agree" in r else "")
                       + f"  [{card}]")
                 bad = []
                 if r["launches"]["flash_attention"] != cfg.n_layers or sum(r["launches"].values()) != cfg.n_layers:
@@ -1919,6 +1980,28 @@ def serve_mesh(seed: int, card: str, holder: dict, kept: dict) -> dict:
                 if r["decode_first_difference"] is not None or r["decode_gap"] != 0.0:
                     bad.append(f"the replayed decode is not the meshless one bit for bit: {r['decode_gap']:.3e}, "
                                f"first at {r['decode_first_difference']}")
+                if seq_steps:
+                    print(f"{label} rank {r['coords']}: cache layout seq, the oracle's {r['seq_steps']} "
+                          f"teacher-forced steps in its {r['decode_slots']} slots, K cache a layer "
+                          f"{r['seq_k_cache_shape']} (feature {(b_loc, r['decode_slots'], kv, dh)}), "
+                          f"cache {r['seq_cache_bytes']:,} bytes a rank (feature {r['feature_cache_bytes']:,}); "
+                          f"{r['seq_exact']} steps bit for bit (the first that parts: "
+                          f"{next((t for t, g in enumerate(r['seq_gaps']) if g), None)}), median max|a-b|/max|b| "
+                          f"{sorted(r['seq_gaps'])[len(r['seq_gaps']) // 2]:.3e}, worst {r['seq_gap']:.3e} at step "
+                          f"{r['seq_gaps'].index(r['seq_gap'])}, "
+                          f"over steps >= {r['seq_k_cache_shape'][1]} "
+                          f"(rank 1's slots) {r['seq_gap_late']:.3e}"
+                          + ("" if r["seq_first_difference"] is None else
+                             "; the first op over the band: {} by {:.3e}".format(*r["seq_first_difference"]))
+                          + f"; {r['seq_ms_per_step']:.2f} ms/step, {r['seq_ms_per_step'] * r['seq_steps'] / 1e3:.3f} s "
+                          f"(feature {r['decode_ms_per_step']:.2f} ms/step on these "
+                          f"ranks); one step's collectives {r['seq_step']['calls']} calls, {r['seq_step']['bytes']} "
+                          f"bytes (feature {r['feature_step']['calls']}, {r['feature_step']['bytes']})  [{card}]")
+                    want_k = (4, r["decode_slots"] // shape[1], cfg.n_kv_heads, cfg.head_dim)
+                    if (r["seq_steps"] != seq_steps or r["seq_gap"] > MESH_BAND or r["seq_first_difference"] is not None
+                            or r["seq_k_cache_shape"] != want_k):
+                        bad.append(f"cache layout seq: {r['seq_steps']} steps, worst gap {r['seq_gap']:.3e}, first "
+                                   f"over the band {r['seq_first_difference']}, K cache {r['seq_k_cache_shape']}")
                 if bad:
                     raise AssertionError(f"serve mesh {label} rank {r['coords']}: " + "; ".join(bad))
             if not rep["lockstep"]:
@@ -1988,10 +2071,10 @@ DRY_RUN_MESH_CELLS = (
                                          "--override", "param_dtype=bfloat16"]),
     ("train (1, 2)", ("train", (1, 2)), ["--arch", "qwen3-1.7b", "--shape", "train_4k", "--batch", "8",
                                          "--seq-len", "512", "--num-groups", "4", "--compress", "--mesh-shape",
-                                         "1x2", "--remat", "full"]),
+                                         "1x2", "--remat", "full", "--override", f"n_layers={TRAIN_MESH_LAYERS}"]),
     ("train (2, 2)", ("train", (2, 2)), ["--arch", "qwen3-1.7b", "--shape", "train_4k", "--batch", "8",
                                          "--seq-len", "512", "--num-groups", "4", "--compress", "--mesh-shape",
-                                         "2x2", "--remat", "full"]),
+                                         "2x2", "--remat", "full", "--override", f"n_layers={TRAIN_MESH_LAYERS}"]),
 )
 # deepseek-moe-16b's prefill_32k cell is cut to 32 x 8192: on meta tensors
 # its 32768-token chunked attention takes about 100 s of host time.
@@ -2001,35 +2084,92 @@ DRY_RUN_POD_CELLS = (
                                                      "--seq-len", "8192"]),
     ("qwen3-4b decode_32k (2, 16, 16)", ["--arch", "qwen3-4b", "--shape", "decode_32k", "--multi-pod"]),
 )
+# The same decode cell under cache layout seq, rendered apart: make_tables
+# keys a cell by (arch, shape, mesh), so one file holds one layout's cell.
+DRY_RUN_SEQ_POD_CELLS = (
+    ("qwen3-4b decode_32k (2, 16, 16), cache layout seq", ["--arch", "qwen3-4b", "--shape", "decode_32k",
+                                                           "--multi-pod", "--cache-layout", "seq"]),
+)
+# Phase "serve mesh" (b)'s decode twin, one step under each cache layout at
+# batch 4 in its 48 slots: the predicted seq-minus-feature collectives are
+# held to what rank (0, 0) counted in one step of each.
+DRY_RUN_DECODE_CELLS = tuple(
+    (f"decode (1, 2), cache layout {layout}", ["--arch", "deepseek-moe-16b", "--shape", "decode_32k", "--batch", "4",
+                                               "--seq-len", "48", "--mesh-shape", "1x2", "--override",
+                                               "param_dtype=bfloat16", "--cache-layout", layout])
+    for layout in ("feature", "seq"))
+
+
+# Phase "mesh full width" (c): the session rounds its ranks replay, the
+# first of phase "session full width" (b)'s 8.
+MESH_SESSION_ROUNDS = 4
+
+
+# Phase "dry run"'s cells, started in the background before phase "serve
+# xlstm" (:func:`dry_run_start`) and read by :func:`dry_run_phase`.
+DRY_RUN: dict = {}
+
+
+def _dry_run_cells() -> list:
+    return ([(label, args) for label, _, args in DRY_RUN_MESH_CELLS] + list(DRY_RUN_DECODE_CELLS)
+            + list(DRY_RUN_POD_CELLS) + list(DRY_RUN_SEQ_POD_CELLS))
+
+
+def dry_run_start() -> None:
+    """Spawn ``python -m repro_torch.launch.dryrun`` once a cell of phase
+    "dry run", all at once and at the lowest priority (``nice`` 19), so
+    they run on the host's idle cores beside the phases that use the card
+    (each is one process: rank 0 of a fake process group on meta tensors,
+    nothing on the card).  :func:`dry_run_stop` ends any still running when
+    the script exits."""
+    import atexit
+    import os
+    import tempfile
+
+    tmp = tempfile.TemporaryDirectory(prefix="repro-dryrun-")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = []
+    DRY_RUN.update(tmp=tmp, procs=procs, t0=time.perf_counter(), wall0=time.time())
+    atexit.register(dry_run_stop)
+    for i, (label, args) in enumerate(_dry_run_cells()):
+        out = os.path.join(tmp.name, f"cell{i}.jsonl")
+        log = open(os.path.join(tmp.name, f"cell{i}.log"), "w")
+        procs.append((label, out, log, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out", out],
+            cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT, preexec_fn=lambda: os.nice(19))))
+
+
+def dry_run_stop() -> None:
+    """Kill the dry-run cells still running and remove their directory."""
+    for _, _, log, proc in DRY_RUN.pop("procs", []):
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    if "tmp" in DRY_RUN:
+        DRY_RUN.pop("tmp").cleanup()
 
 
 def dry_run_phase(card: str) -> None:
-    """Phase "dry run": ``python -m repro_torch.launch.dryrun`` spawned once
-    a cell, all cells at once (each is one process on the host's cores:
-    rank 0 of a fake process group, meta tensors, nothing on the card).
+    """Phase "dry run": the cells :func:`dry_run_start` spawned in the
+    background.
     (a) The meshes and shapes phases "serve mesh" and "train mesh" ran on
     the card's gloo ranks: the predicted parameter bytes and collectives
     (calls and bytes by kind) of rank (0, 0) equal to what that rank
     measured, the predicted peak (arguments + temporaries) beside its
     ``torch.cuda.max_memory_allocated``, their ratio printed, no limit.
-    (b) Three production cells, ``launch.make_tables``' rendering printed.
-    Any ``error`` record fails the phase."""
+    The decode twin of "serve mesh" (b) under each cache layout: the
+    predicted seq-minus-feature collectives (calls and bytes by kind) equal
+    to rank (0, 0)'s measured seq step minus its feature step.
+    (b) Three production cells, ``launch.make_tables``' rendering printed,
+    and qwen3-4b decode_32k on (2, 16, 16) under cache layout seq, rendered
+    apart.  Any ``error`` record fails the phase."""
     import os
-    import tempfile
 
     from repro_torch.launch import make_tables
 
-    tmp = tempfile.TemporaryDirectory(prefix="repro-dryrun-")
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-    cells = [(label, args) for label, _, args in DRY_RUN_MESH_CELLS] + list(DRY_RUN_POD_CELLS)
+    tmp, procs = DRY_RUN["tmp"], DRY_RUN["procs"]
     t0 = time.perf_counter()
-    procs = []
-    for i, (label, args) in enumerate(cells):
-        out = os.path.join(tmp.name, f"cell{i}.jsonl")
-        log = open(os.path.join(tmp.name, f"cell{i}.log"), "w")
-        procs.append((label, out, log, subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", *args, "--out", out],
-            cwd=str(ROOT), env=env, stdout=log, stderr=subprocess.STDOUT)))
     records = {}
     try:
         for label, out, log, proc in procs:
@@ -2042,13 +2182,13 @@ def dry_run_phase(card: str) -> None:
             if rc != 0 or "error" in rec or not rec:
                 raise AssertionError(f"dry run {label}: {rec.get('error')}\n{text[-3000:]}")
             records[label] = rec
-    finally:
-        for _, _, log, proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-    print(f"dry run: {len(cells)} cells in {time.perf_counter() - t0:.3f} s of wall time, on the host  [{card}]")
+    except BaseException:
+        dry_run_stop()
+        raise
+    done = max(os.path.getmtime(out) for _, out, _, _ in procs) - DRY_RUN["wall0"]
+    print(f"dry run: {len(procs)} cells on the host at nice 19, beside the phases from \"serve xlstm\" on: the "
+          f"last written {done:.3f} s after their start, read {time.perf_counter() - DRY_RUN['t0']:.3f} s after it, "
+          f"{time.perf_counter() - t0:.3f} s of it waited for here  [{card}]")
 
     bad = []
     for label, key, _ in DRY_RUN_MESH_CELLS:
@@ -2070,6 +2210,24 @@ def dry_run_phase(card: str) -> None:
         if coll["calls_by_kind"] != r0["sums"]["calls"] or coll["by_kind"] != want_bytes:
             bad.append(f"{label}: collectives {coll['calls_by_kind']} {coll['by_kind']} != "
                        f"{r0['sums']['calls']} {want_bytes}")
+    r0 = next(r for r in MESH_RANKS[("serve", (1, 2))] if all(c == 0 for c in r["coords"]))
+    (feature_label, _), (seq_label, _) = DRY_RUN_DECODE_CELLS
+
+    def minus(a: dict, b: dict) -> dict:
+        return {k: a.get(k, 0) - b.get(k, 0) for k in set(a) | set(b) if a.get(k, 0) != b.get(k, 0)}
+
+    predicted = [records[lab]["collectives"] for lab in (seq_label, feature_label)]
+    want_calls = minus(r0["seq_step"]["calls"], r0["feature_step"]["calls"])
+    want_bytes = {k: float(v) for k, v in minus(r0["seq_step"]["bytes"], r0["feature_step"]["bytes"]).items()}
+    got_calls = minus(predicted[0]["calls_by_kind"], predicted[1]["calls_by_kind"])
+    got_bytes = minus(predicted[0]["by_kind"], predicted[1]["by_kind"])
+    mem = [records[lab]["memory"] for lab in (seq_label, feature_label)]
+    print(f"(a) decode (1, 2), one step, seq minus feature: predicted {got_calls} calls, {got_bytes} bytes; "
+          f"measured on rank (0, 0) {want_calls} calls, {want_bytes} bytes; predicted arguments a rank "
+          f"{mem[0]['argument_bytes']:,} (seq) and {mem[1]['argument_bytes']:,} (feature) bytes  [{card}]")
+    if got_calls != want_calls or got_bytes != want_bytes:
+        bad.append(f"decode (1, 2): seq minus feature predicted {got_calls} {got_bytes}, measured {want_calls} "
+                   f"{want_bytes}")
     if bad:
         raise AssertionError("dry run (a): " + "; ".join(bad))
 
@@ -2077,7 +2235,11 @@ def dry_run_phase(card: str) -> None:
     with open(jsonl, "w") as f:
         for label, _ in DRY_RUN_POD_CELLS:
             f.write(json.dumps(records[label]) + "\n")
-    for label, _ in DRY_RUN_POD_CELLS:
+    seq_jsonl = os.path.join(tmp.name, "pod_seq.jsonl")
+    with open(seq_jsonl, "w") as f:
+        for label, _ in DRY_RUN_SEQ_POD_CELLS:
+            f.write(json.dumps(records[label]) + "\n")
+    for label, _ in DRY_RUN_POD_CELLS + DRY_RUN_SEQ_POD_CELLS:
         rec = records[label]
         mem = rec["memory"]
         print(f"(b) {label}: {rec['flops_per_device']:.4e} FLOPs, {rec['bytes_per_device']:.4e} bytes, "
@@ -2088,7 +2250,11 @@ def dry_run_phase(card: str) -> None:
     print(make_tables.roofline_table(cells_, "16x16"))
     print(make_tables.roofline_table(cells_, "2x16x16"))
     print(make_tables.dryrun_table(cells_))
-    tmp.cleanup()
+    seq_cells = make_tables.load(seq_jsonl)
+    print("cache layout seq:")
+    print(make_tables.roofline_table(seq_cells, "2x16x16"))
+    print(make_tables.dryrun_table(seq_cells))
+    dry_run_stop()
 
 
 def main() -> int:
@@ -2744,7 +2910,7 @@ def main() -> int:
         # (b)-(d): two ranks over gloo, both on this card.
         t0 = time.perf_counter()
         rep = mesh_dist.run_ranks(mesh_runs.full_width_rank, 2, backend="gloo", device="cuda", timeout=600,
-                                  args=(args.seed, session_rounds["centers"], 8, n_batch))
+                                  args=(args.seed, session_rounds["centers"], MESH_SESSION_ROUNDS, n_batch))
         print(f"{rep['describe']}: {time.perf_counter() - t0:.3f} s with the ranks' start; data (host) "
               f"{[round(v, 3) for v in rep['data_s']]} s per rank  [{card}]")
 
@@ -2766,7 +2932,7 @@ def main() -> int:
                 raise AssertionError(f"(b): a rank never launched a kernel of the path: {st['launches']}")
 
         ses = rep["session"]
-        want = session_rounds["estimates"]
+        want = session_rounds["estimates"][:MESH_SESSION_ROUNDS]
         worst = max(abs(e / w - 1.0) for e, w in zip(ses["estimates"], want))
         written = [st["rows_written"] for st in ses["ranks"]]
         print(f"(c) {len(ses['estimates'])} rounds of observe + step_cost: max rel vs the local session's rounds "
@@ -3498,6 +3664,7 @@ def main() -> int:
     with phase("serve mesh"), torch.no_grad():
         mesh_counts = serve_mesh(args.seed, card, moe_holder, moe_kept)
 
+    dry_run_start()
     with phase("serve xlstm"), torch.no_grad():
         serve_xlstm(args.seed, card)
 
@@ -3628,7 +3795,8 @@ def main() -> int:
                                  "train 100m step (forward)": train_small["flash_per_step"],
                                  "train device recovery qwen3-1.7b step (forward, a launch a group and "
                                  "layer)": train_device["flash_per_step"],
-                                 **{f"train mesh qwen3-1.7b step, mesh {k} at (B, T, S, H, KV, dh) = "
+                                 **{f"train mesh qwen3-1.7b step at {TRAIN_MESH_LAYERS} layers, mesh {k} at "
+                                    f"(B, T, S, H, KV, dh) = "
                                     f"{train_meshes['shapes'][k]} (forward"
                                     + (")" if k.startswith("(1, 1)") else " and its recompute, remat full)"): v
                                     for k, v in train_meshes["counts"].items()}},

@@ -43,9 +43,11 @@ One JSON line a cell, with the reference's keys.  ``memory``:
 (nothing is compiled), ``xla_cost_flops_loop_once`` (XLA's cost analysis)
 and ``memory.generated_code_bytes``; ``--keep-hlo`` has no twin either.
 
-``--cache-layout seq`` has a spec (``launch.sharding.cache_shardings``)
-but no compute path yet: a decode cell under it is a ``skipped`` record
-(ROADMAP item 14.7).  ``--batch``, ``--seq-len``, ``--num-groups``,
+``--cache-layout seq`` runs a decode cell's step under
+``make_context(mesh, cache_layout="seq")``: each attention layer's cache
+holds all KV heads of the rank's block of the slots, and ``collectives``
+counts the softmax statistics' three all-reduces a layer and the gathers
+of q, k and v.  ``--batch``, ``--seq-len``, ``--num-groups``,
 ``--compress`` and ``--override key=value`` (a config field) run a cell
 at other sizes, as a mesh run on the card runs it, so that a prediction
 can be held against what the card measured.
@@ -86,8 +88,6 @@ from .specs import SHAPES, cell_is_applicable, input_specs
 __all__ = ["lower_cell", "main"]
 
 META = torch.device("meta")
-SEQ_LAYOUT_SKIP = ("cache layout 'seq' has a spec but no compute path in the port: a sequence-parallel decode "
-                   "that combines partial softmax statistics over 'model' (ROADMAP item 14.7)")
 
 
 def _num_groups(mesh) -> int:
@@ -188,8 +188,6 @@ def lower_cell(
     ok, why = cell_is_applicable(cfg, shape)
     if not ok:
         return {"arch": arch, "shape": shape_name, "skipped": why}
-    if cache_layout == "seq" and shape.kind == "decode":
-        return {"arch": arch, "shape": shape_name, "skipped": SEQ_LAYOUT_SKIP}
     sizes = tuple(mesh_shape) if mesh_shape else ((2, 16, 16) if multi_pod else (16, 16))
     mesh_name = "x".join(map(str, sizes))
     chips = 1
@@ -197,14 +195,19 @@ def lower_cell(
         chips *= s
     _fake_world(chips)
     mesh = make_production_mesh(multi_pod=multi_pod, shape=mesh_shape)
-    ctx = make_context(mesh, attn_impl="torch_chunked", remat=remat, moe_routing=moe_routing)
+    ctx = make_context(mesh, attn_impl="torch_chunked", remat=remat, moe_routing=moe_routing,
+                       cache_layout=cache_layout)
     groups = num_groups or _num_groups(mesh)
 
     t0 = time.perf_counter()
     model = init_sharded(cfg, generator=None, mesh=mesh, layout=layout, device=META)
     param_bytes = _storage_bytes(model)
     specs = input_specs(cfg, shape, num_groups=groups)
-    rows = {k: local_rows(v, mesh) if v.dim() and k != "group_weights" else v for k, v in specs.items()}
+    # A batch that the data shards do not divide (long_500k's one row) stays
+    # whole on every rank, as the reference's batch_shardings replicates it.
+    nb = _num_groups(mesh)
+    rows = {k: local_rows(v, mesh) if v.dim() and k != "group_weights" and v.shape[0] % nb == 0 else v
+            for k, v in specs.items()}
     if shape.kind == "train":
         ccfg = CompressionConfig() if compress else None
         state = init_train_state(cfg, generator=None, model=model, mesh=mesh, compression=ccfg)

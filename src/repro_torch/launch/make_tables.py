@@ -48,7 +48,7 @@ def roofline_table(cells, mesh_filter: str = "16x16") -> str:
         ("memory", "decode"): "batch growth or quantized KV cache (bytes/step ≈ cache read from HBM3)",
         ("collective", "train"): "overlap FSDP all-gathers with compute over NVLink; bf16 collectives",
         ("collective", "prefill"): "reshard logits head; reduce-scatter instead of all-reduce",
-        ("collective", "decode"): "seq-sharded KV cache (partial-softmax sum, ROADMAP 14.7) cuts the gathers",
+        ("collective", "decode"): "seq-sharded KV cache (partial-softmax psum) kills resharding copies",
         ("compute", "train"): "already tensor-core-bound: raise useful_ratio by trimming remat",
         ("compute", "prefill"): "already tensor-core-bound",
         ("compute", "decode"): "already tensor-core-bound",

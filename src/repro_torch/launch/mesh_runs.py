@@ -23,12 +23,14 @@ The workloads are those of the reference's multi-device tests:
   placed as blocks and patched on the owning rank);
 * :func:`full_width_rank` — the mesh phase of ``chip_smoke.py`` at the
   shape of SIFT1M;
-* :func:`lm_rank` — the LM mesh jobs of ``tests/test_torch_lm_mesh.py``
-  and ``tests/test_torch_moe_mesh.py`` (a model's prefill and
-  teacher-forced decode, one MoE layer, one sLSTM block), each on a mesh
-  of the world's size, their outputs gathered whole on every rank;
+* :func:`lm_rank` — the LM mesh jobs of ``tests/test_torch_lm_mesh.py``,
+  ``tests/test_torch_moe_mesh.py`` and ``tests/test_torch_seq_decode.py``
+  (a model's prefill and teacher-forced decode, one MoE layer, one sLSTM
+  block, a teacher-forced decode under a cache layout), each on a mesh of
+  the world's size, their outputs gathered whole on every rank;
 * :func:`moe_serve_rank` — phase "serve mesh" of ``chip_smoke.py``:
-  deepseek-moe-16b at full width, each rank drawing only its blocks;
+  deepseek-moe-16b at full width, each rank drawing only its blocks, its
+  decode under both cache layouts;
 * :func:`train_lm_rank` — the LM mesh training jobs of
   ``tests/test_torch_lm_mesh_train.py`` (each collective's backward, the
   train step, the trainer), each on a mesh of the world's size;
@@ -558,7 +560,54 @@ def _slstm_job(mesh, cfg, sd, x):
     return {"out": _whole(y, mesh), "lockstep": _same_in_shards(mesh, y)}
 
 
-_LM_JOBS = {"serve": _serve_job, "moe": _moe_job, "slstm": _slstm_job}
+def _decode_collectives(model, cfg, rows: int, slots: int, ctx, device) -> dict:
+    """The collectives of one decode step (at slot 0 of a fresh cache)
+    under ``ctx``: calls and bytes by kind."""
+    from ..models import transformer as T
+    from . import collectives as C
+
+    cache = T.init_cache(cfg, rows, slots, device=device, model=model, ctx=ctx)
+    tok = torch.zeros((rows, 1), dtype=torch.long, device=device)
+    C.STATS.reset()
+    with torch.no_grad():
+        T.decode_step(model, cache, tok, 0, cfg, ctx)
+    return {"calls": dict(C.STATS.calls), "bytes": dict(C.STATS.bytes)}
+
+
+def _seq_decode_job(mesh, cfg, sd, decode_tokens, cache_layout: str = "seq", count: bool = False):
+    """Teacher-forced decode of ``decode_tokens`` (B, n) from an empty
+    cache of n slots under ``cache_layout``, on the
+    rank's rows: the logits whole (B, n, V), the rank's cache shapes, each
+    rank's (coordinates, first attention layer's K block) and, with
+    ``count``, the collectives of one step under each layout."""
+    import torch.distributed as dist
+
+    from ..models import transformer as T
+    from .sharding import local_rows, make_context, shard_model
+
+    ctx = make_context(mesh, cache_layout=cache_layout)
+    model = shard_model(T.model_from_state_dict(cfg, sd), mesh)
+    dec = local_rows(decode_tokens, mesh)
+    slots = dec.shape[-1]
+    cache = T.init_cache(cfg, dec.shape[0], slots, device=dec.device, model=model, ctx=ctx)
+    steps = []
+    with torch.no_grad():
+        for t in range(dec.shape[-1]):
+            lg, cache = T.decode_step(model, cache, dec[:, t:t + 1], t, cfg, ctx)
+            steps.append(lg[:, 0])
+    first = next(c["k"] for c in cache if "k" in c)
+    blocks = [None] * dist.get_world_size()
+    dist.all_gather_object(blocks, (mesh.coords, first.float().cpu().numpy()))
+    out = {"decode": _whole(torch.stack(steps, 1), mesh), "lockstep": _same_in_shards(mesh, steps),
+           "k_shapes": [tuple(c["k"].shape) for c in cache if "k" in c], "k_blocks": blocks}
+    if count:
+        out["collectives"] = {layout: _decode_collectives(model, cfg, dec.shape[0], slots,
+                                                          make_context(mesh, cache_layout=layout), dec.device)
+                              for layout in ("feature", "seq")}
+    return out
+
+
+_LM_JOBS = {"serve": _serve_job, "moe": _moe_job, "slstm": _slstm_job, "seq_decode": _seq_decode_job}
 
 
 def lm_job(kind: str, shape, **kw) -> dict:
@@ -618,17 +667,20 @@ def decode_taps(ctx=None):
         yield log
 
 
-def first_difference(got: list, want: list) -> Optional[tuple]:
+def first_difference(got: list, want: list, band: float = 0.0) -> Optional[tuple]:
     """The first op of two :func:`decode_taps` records (over the steps
-    both ran) whose outputs are not the same bits: (its name,
-    max|a-b|/max|b|), or None when every op agrees to the bit."""
+    both ran) whose outputs are not the same bits, or with ``band`` > 0
+    whose outputs part by more than ``band``: (its name,
+    max|a-b|/max|b|), or None when every op agrees."""
     n = min(len(got), len(want))
     if [k for k, _ in got[:n]] != [k for k, _ in want[:n]]:
         raise ValueError(f"first_difference: records of {len(got)} and {len(want)} ops that do not line up")
     for (name, a), (_, b) in zip(got, want):
         if not torch.equal(a, b):
             a, b = a.float(), b.float()
-            return name, float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            gap = float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+            if not gap <= band:
+                return name, gap
     return None
 
 
@@ -679,7 +731,8 @@ def moe_mesh_oracle(served, cfg, tokens, kept: dict, out_dir: str, half_decode_s
 
 def moe_serve_rank(seed: int, shape, oracle_dir: str, decode_steps: int, greedy: bool, warm_up: bool,
                    cfg_overrides: Optional[dict] = None, seq_len: int = 2048,
-                   decode_slots: Optional[int] = None) -> dict:
+                   decode_slots: Optional[int] = None, seq_steps: int = 0, seq_band: float = 2e-2,
+                   greedy_steps: Optional[int] = None) -> dict:
     """Phase "serve mesh" of ``chip_smoke.py`` on one rank: deepseek-moe-16b
     at full width and depth in bf16 on a ``shape`` (data, model) mesh,
     drawn by :func:`~repro_torch.launch.sharding.init_sharded` from
@@ -689,13 +742,20 @@ def moe_serve_rank(seed: int, shape, oracle_dir: str, decode_steps: int, greedy:
     ``half<s>.pt``, their K caches ``<name>_k<layer>.pt``): by the flip
     rule, and with the oracle's routing replayed (a run that made none of
     its decisions differently is its own replay); then ``greedy`` decode
-    4 x (16 + 32), and ``decode_steps`` teacher-forced decode steps with the
+    4 x (16 + ``greedy_steps``) (the oracle's 32 by default; its ids are
+    compared with the oracle's first ones), and ``decode_steps`` teacher-forced decode steps with the
     oracle's routing replayed, against its logits, in a cache of
     ``decode_slots`` slots (the oracle's count by default: the softmax
     and the products over the slots round by their count, so another
     count is another computation); where a step's logits are not the
     oracle's bits, the steps again with each op's output held to the
-    oracle's (:func:`decode_taps`).  Returns every rank's
+    oracle's (:func:`decode_taps`).  With ``seq_steps``, the first
+    ``seq_steps`` of the oracle's teacher-forced steps again under
+    ``cache_layout="seq"`` (all KV heads of the rank's block of the
+    slots), the routing replayed, each step's logits held to the oracle's
+    within ``seq_band`` (where one parts by more, the steps again under
+    :func:`decode_taps` name the first op over the band); one step's
+    collectives under each layout are counted.  Returns every rank's
     figures (seconds, launches, sums and their seconds and bytes, peak
     memory) and the gaps.  ``cfg_overrides`` and ``seq_len`` cut the
     model and the prompt (a rehearsal at the smoke size on the CPU)."""
@@ -782,24 +842,38 @@ def moe_serve_rank(seed: int, shape, oracle_dir: str, decode_steps: int, greedy:
     if greedy:
         sync()
         t0 = time.perf_counter()
-        ids = SD.greedy_generate(model, cfg, prompt, steps=oracle["ids"].shape[1], ctx=ctx)
+        ids = SD.greedy_generate(model, cfg, prompt, steps=greedy_steps or oracle["ids"].shape[1], ctx=ctx)
         sync()
         report["greedy_ms_per_step"] = 1e3 * (time.perf_counter() - t0) / (prompt.shape[1] + ids.shape[1])
-        report["greedy_agree"] = float((ids.cpu() == oracle["ids"]).float().mean())
+        report["greedy_steps"] = ids.shape[1]
+        report["greedy_agree"] = float((ids.cpu() == oracle["ids"][:, :ids.shape[1]]).float().mean())
         lockstep = lockstep and _same_in_shards(mesh, ids)
     slots = decode_slots or oracle["decode_logits"].shape[1]
     seq = torch.cat([oracle["prompt"], oracle["ids"]], 1).to(dev)[:, :decode_steps]
+    def counted_step(t, c, dcache, dctx, counts):
+        """Decode step t with the oracle's routing replayed; step 0's
+        collectives recorded in ``counts``."""
+        if t == 0:
+            C.STATS.reset()
+        with M.recorded_routing(replay=mine(oracle["decode_routing"][t])):
+            lg, dcache = T.decode_step(model, dcache, c[:, t:t + 1], t, cfg, dctx)
+        if t == 0:
+            counts.update(calls=dict(C.STATS.calls), bytes=dict(C.STATS.bytes))
+        return lg, dcache
+
+    cache_bytes = lambda dc: sum(t.numel() * t.element_size() for c in dc for t in c.values())  # noqa: E731
     dcache = T.init_cache(cfg, seq.shape[0], slots, device=dev, model=model, ctx=ctx)
+    feature_step: dict = {}
     gaps = []
     sync()
     t0 = time.perf_counter()
     for t in range(seq.shape[1]):
-        with M.recorded_routing(replay=mine(oracle["decode_routing"][t])):
-            lg, dcache = T.decode_step(model, dcache, seq[:, t:t + 1], t, cfg, ctx)
+        lg, dcache = counted_step(t, seq, dcache, ctx, feature_step)
         gaps.append(gap(lg[:, 0], oracle["decode_logits"][:, t]))
     sync()
     report.update(decode_gap=max(gaps), decode_ms_per_step=1e3 * (time.perf_counter() - t0) / seq.shape[1],
-                  decode_steps=seq.shape[1], decode_gaps=gaps, decode_slots=slots)
+                  decode_steps=seq.shape[1], decode_gaps=gaps, decode_slots=slots, feature_step=feature_step,
+                  feature_cache_bytes=cache_bytes(dcache))
     del dcache
     first_diff = None
     if any(gaps):  # the same steps again, each op's output held to the oracle's
@@ -811,6 +885,34 @@ def moe_serve_rank(seed: int, shape, oracle_dir: str, decode_steps: int, greedy:
         first_diff = first_difference(taps, oracle["decode_taps"])
         del dcache, taps
     report["decode_first_difference"] = first_diff
+    if seq_steps:  # the oracle's decode again, the cache's slots split over the model axis
+        sctx = make_context(mesh, cache_layout="seq")
+        full = torch.cat([oracle["prompt"], oracle["ids"]], 1).to(dev)[:, :seq_steps]
+        dcache = T.init_cache(cfg, full.shape[0], slots, device=dev, model=model, ctx=sctx)
+        seq_step: dict = {}
+        seq_gaps = []
+        sync()
+        t0 = time.perf_counter()
+        for t in range(full.shape[1]):
+            lg, dcache = counted_step(t, full, dcache, sctx, seq_step)
+            seq_gaps.append(gap(lg[:, 0], oracle["decode_logits"][:, t]))
+        sync()
+        s_loc = dcache[0]["k"].shape[1]
+        report.update(seq_steps=full.shape[1], seq_gaps=seq_gaps, seq_gap=max(seq_gaps),
+                      seq_exact=sum(g == 0.0 for g in seq_gaps),
+                      seq_gap_late=max(seq_gaps[s_loc:], default=None), seq_step=seq_step,
+                      seq_ms_per_step=1e3 * (time.perf_counter() - t0) / full.shape[1],
+                      seq_k_cache_shape=tuple(dcache[0]["k"].shape), seq_cache_bytes=cache_bytes(dcache))
+        del dcache
+        seq_first = None
+        if max(seq_gaps) > seq_band:  # the steps again, each op's output held to the oracle's
+            dcache = T.init_cache(cfg, full.shape[0], slots, device=dev, model=model, ctx=sctx)
+            with decode_taps(sctx) as taps:
+                for t in range(full.shape[1]):
+                    _, dcache = counted_step(t, full, dcache, sctx, {})
+            seq_first = first_difference(taps, oracle["decode_taps"], band=seq_band)
+            del dcache, taps
+        report["seq_first_difference"] = seq_first
     report["ranks"] = [None] * dist.get_world_size()
     dist.all_gather_object(report["ranks"], {
         "coords": mesh.coords, "heads": (h0, h1), "kv_heads": (k0, k1), "tensor_parallel": tp,
@@ -1308,13 +1410,14 @@ def narrowed_digests(state, specs: dict, shape) -> dict:
 
 
 def ckpt_mesh_rank(seed: int, shape, ckpt_dir: str, restore_dirs: dict, cfg_overrides: Optional[dict] = None,
-                   seq_len: int = 512, data_vocab: int = 8192) -> dict:
+                   seq_len: int = 512, data_vocab: int = 8192, steps: int = 3) -> dict:
     """Phase "train mesh" (e) of ``chip_smoke.py`` on one rank:
     qwen3-1.7b (``cfg_overrides`` cut it) through
     ``Trainer(ctx=..., ckpt_dir=...)`` on a ``shape`` (data, model) mesh
-    with compression, drawn from ``seed``: 3 steps uninterrupted; 2 steps
-    with a checkpoint in ``ckpt_dir``; a new trainer that resumes from it
-    (its straggler stream advanced past the 2 steps) and runs the third.
+    with compression, drawn from ``seed``: ``steps`` steps uninterrupted;
+    ``steps - 1`` steps with a checkpoint in ``ckpt_dir``; a new trainer
+    that resumes from it (its straggler stream advanced past those steps)
+    and runs the last.
     Then each checkpoint of ``restore_dirs`` (label → directory) restored
     onto the mesh into a fresh state.  Returns every rank's figures: each
     run's history (its lockstep hashes aside) and the digests
@@ -1342,9 +1445,12 @@ def ckpt_mesh_rank(seed: int, shape, ckpt_dir: str, restore_dirs: dict, cfg_over
     ocfg = AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=8)
     runs, restored = {}, {}
     _reset_peak(dev)
-    for label, steps, ckpt, skip in (("whole", 3, None, 0), ("first", 2, ckpt_dir, 0), ("resumed", 3, ckpt_dir, 2)):
+    first = steps - 1
+    # The first run writes its checkpoint at its end; the resumed run writes none.
+    for label, n_steps, ckpt, skip, every in (("whole", steps, None, 0, first), ("first", first, ckpt_dir, 0, first),
+                                              ("resumed", steps, ckpt_dir, first, steps + 1)):
         tcfg = TrainerConfig(num_groups=4, num_shards=4, redundancy=2, scheme="cyclic", microbatch=1,
-                             seq_len=seq_len, steps=steps, ckpt_every=2, ckpt_dir=ckpt, ckpt_keep=1, seed=seed,
+                             seq_len=seq_len, steps=n_steps, ckpt_every=every, ckpt_dir=ckpt, ckpt_keep=1, seed=seed,
                              data_vocab=data_vocab, straggler_deadline=1.4, warm_start=False,
                              compression=CompressionConfig())
         t = Trainer(cfg, tcfg, ocfg, ctx, device=dev)

@@ -131,12 +131,16 @@ def _axes_of(mesh):
     return batch, model, fsdp
 
 
-def make_context(mesh, *, attn_impl: str = "auto", moe_routing: str = "pjit", remat: str = "none") -> T.ModelContext:
+def make_context(mesh, *, attn_impl: str = "auto", moe_routing: str = "pjit", remat: str = "none",
+                 cache_layout: str = "feature") -> T.ModelContext:
+    """The model's context on ``mesh`` (or meshless): its axes named, and
+    the decode cache's ``cache_layout``, ``feature`` or ``seq`` (the
+    layouts of :func:`cache_shardings`; ``models.transformer.ModelContext``)."""
     if mesh is None:
-        return T.ModelContext(attn_impl=attn_impl, moe_routing=moe_routing, remat=remat)
+        return T.ModelContext(attn_impl=attn_impl, moe_routing=moe_routing, remat=remat, cache_layout=cache_layout)
     batch, model, fsdp = _axes_of(mesh)
     return T.ModelContext(mesh=mesh, batch_axes=batch, model_axis=model, fsdp_axis=fsdp,
-                          attn_impl=attn_impl, moe_routing=moe_routing, remat=remat)
+                          attn_impl=attn_impl, moe_routing=moe_routing, remat=remat, cache_layout=cache_layout)
 
 
 def _path_str(path) -> str:
@@ -235,9 +239,13 @@ def cache_shardings(cache, mesh, batch_size: int, *, layout: str = "feature"):
     """Decode caches: the batch dim over (pod, data) when it divides.
 
     ``layout="feature"`` also splits the largest trailing feature dim over
-    ``model``; ``layout="seq"`` splits the K/V sequence dim instead, a
-    sequence-parallel decode whose compute the port does not run yet
-    (ROADMAP §2): the spec is computed, no path takes it."""
+    ``model``; ``layout="seq"`` splits the K/V sequence dim instead, the
+    cache of the sequence-parallel decode (``make_context(mesh,
+    cache_layout="seq")``: the softmax's partial statistics summed over
+    ``model``).  As in the reference, the seq split needs the batch dim
+    split over a data axis of size > 1; without one (a (1, m) mesh) the
+    spec is the feature one, where the port's seq decode still splits the
+    slots (``models.transformer.init_cache``)."""
     bs = _batch_entry(mesh)
     _, model, _ = _axes_of(mesh)
     sizes = axis_sizes(mesh)

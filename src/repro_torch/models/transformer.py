@@ -106,6 +106,7 @@ __all__ = [
 ]
 
 _REMAT = ("none", "full", "dots")
+_CACHE_LAYOUTS = ("feature", "seq")
 _BLOCKS = ("attn_mlp", "attn_moe", "lattn_mlp", "mlstm", "slstm", "rglru_mlp")  # every block type of the reference
 
 
@@ -123,7 +124,15 @@ class ModelContext:
     ``batch_axes``, ``model_axis`` and ``fsdp_axis`` name its axes
     (``launch.sharding.make_context`` fills them).  ``moe_routing`` is
     ``pjit`` or ``local`` (``models.moe``).  ``collective_dtype`` is
-    declared as the reference declares it, and read nowhere, as there."""
+    declared as the reference declares it, and read nowhere, as there.
+    ``cache_layout`` is the decode cache's layout under a mesh, the
+    layouts of the reference's ``cache_shardings``: ``feature`` (an
+    attention layer's cache holds the rank's KV heads of its rows) or
+    ``seq`` (all KV heads of the rank's contiguous block of the cache
+    slots, the softmax's statistics combined over the model axis:
+    ``models.attention``).  The reference names it by the shardings it
+    passes to ``jax.jit``; the port's collectives are explicit, so the
+    context names it."""
 
     attn_impl: str = "auto"
     mesh: Any = None
@@ -133,12 +142,15 @@ class ModelContext:
     moe_routing: str = "pjit"  # pjit | local
     collective_dtype: str = "default"
     remat: str = "none"  # none | full | dots
+    cache_layout: str = "feature"  # feature | seq
 
     def __post_init__(self):
         if self.mesh is not None and not isinstance(self.mesh, Mesh):
             raise TypeError(f"ModelContext: mesh must be a launch.mesh.Mesh, got {type(self.mesh).__name__}")
         if self.remat not in _REMAT:
             raise ValueError(f"ModelContext: remat {self.remat!r}, expected one of {_REMAT}")
+        if self.cache_layout not in _CACHE_LAYOUTS:
+            raise ValueError(f"ModelContext: cache_layout {self.cache_layout!r}, expected one of {_CACHE_LAYOUTS}")
 
     @property
     def batch_spec(self):
@@ -149,7 +161,17 @@ class ModelContext:
     def local(self) -> "ModelContext":
         """The meshless context with the same switches (a block that runs
         whole on the rank's rows)."""
-        return ModelContext(attn_impl=self.attn_impl, moe_routing=self.moe_routing, remat=self.remat)
+        return ModelContext(attn_impl=self.attn_impl, moe_routing=self.moe_routing, remat=self.remat,
+                            cache_layout=self.cache_layout)
+
+    def seq_split(self) -> Optional[tuple]:
+        """(m, r): the model axis's size and this rank's coordinate on it,
+        when the decode cache splits its slots over that axis
+        (``cache_layout="seq"`` on a model axis of size > 1), else None."""
+        if self.cache_layout != "seq" or self.mesh is None or self.model_axis is None:
+            return None
+        m = self.mesh.shape.get(self.model_axis, 1)
+        return (m, self.mesh.coord(self.model_axis)) if m > 1 else None
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -323,19 +345,23 @@ def _block_apply(p, x, cfg: ModelConfig, ctx: ModelContext, positions):
 
 
 def _block_decode(p, x_t, cache, cur_len: int, cfg: ModelConfig, ctx: ModelContext):
-    """One-token decode of one block.  Returns (x_t, cache)."""
-    p, ctx = _on_rank(p, ctx)
+    """One-token decode of one block.  Returns (x_t, cache).  A local
+    attention block runs meshless on the rank's rows (:func:`_on_rank`),
+    but under ``cache_layout="seq"`` its ring holds the rank's slots, so its
+    attention keeps the mesh to combine the softmax over the model axis
+    (its weights gathered, it runs all heads)."""
+    p, rctx = _on_rank(p, ctx)
     if p.block_type == "mlstm":
         return X.mlstm_decode_step(p, cache, x_t, cfg)
     if p.block_type == "slstm":
-        return X.slstm_decode_step(L.gathered(p, ctx), cache, x_t, cfg)
+        return X.slstm_decode_step(L.gathered(p, rctx), cache, x_t, cfg)
     if p.block_type == "rglru_mlp":
         return G.rglru_decode_step(p, cache, x_t, cfg)
     xn = L.rmsnorm(x_t, p.attn_norm, eps=cfg.rms_eps)
     a, ck, cv = A.attn_decode_step(p.attn, xn, cache["k"], cache["v"], cur_len, cfg, window=_window(p, cfg),
-                                   ctx=ctx)
+                                   ctx=ctx if ctx.seq_split() else rctx)
     x_t = x_t + a
-    f, _ = _ffn(p, L.rmsnorm(x_t, p.mlp_norm, eps=cfg.rms_eps), cfg, ctx)
+    f, _ = _ffn(p, L.rmsnorm(x_t, p.mlp_norm, eps=cfg.rms_eps), cfg, rctx)
     taps.tap("ffn", f)
     return x_t + f, {"k": ck, "v": cv}
 
@@ -550,7 +576,8 @@ def group_losses(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext,
 # ------------------------------------------------------------------ serve
 
 
-def _block_cache_init(bt: str, cfg: ModelConfig, B: int, max_len: int, device, kv_heads=None) -> dict:
+def _block_cache_init(bt: str, cfg: ModelConfig, B: int, max_len: int, device, kv_heads=None,
+                      seq_split=None) -> dict:
     if bt == "mlstm":
         return X.mlstm_init_state(cfg, B, device=device)
     if bt == "slstm":
@@ -559,6 +586,12 @@ def _block_cache_init(bt: str, cfg: ModelConfig, B: int, max_len: int, device, k
     if bt == "rglru_mlp":
         return G.rglru_init_state(cfg, B, device=device, dtype=cd)
     S = min(cfg.window or max_len, max_len) if bt == "lattn_mlp" else max_len
+    if seq_split is not None:  # all KV heads of the rank's block of the slots
+        m = seq_split[0]
+        if S % m:
+            raise ValueError(f"init_cache: cache_layout 'seq' splits the {S} slots of a {bt} layer over a "
+                             f"model axis of {m} ranks, which does not divide them")
+        S, kv_heads = S // m, cfg.n_kv_heads
     shape = (B, S, kv_heads or cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cd, device=device), "v": torch.zeros(shape, dtype=cd, device=device)}
 
@@ -578,14 +611,18 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, *, device, model=None,
     ``{C, n, m, conv}``, sLSTM ``{h, c, n, m}``), and for an RG-LRU one
     ``{h}`` in f32 and ``{conv}`` in compute dtype.  Under a mesh, B is
     the rank's rows and a tensor-parallel attention layer holds the rank's
-    KV heads (read from ``model``'s blocks)."""
+    KV heads (read from ``model``'s blocks); under ``ctx.cache_layout ==
+    "seq"`` on a model axis of m > 1 ranks every attention layer, global
+    or local, holds all KV heads of model rank r's slots [r·S/m,
+    (r + 1)·S/m) instead, and an S that m does not divide raises."""
     _check_supported(cfg)
     mesh = ctx is not None and ctx.mesh is not None
     if mesh and model is None:
         raise ValueError("init_cache: under a mesh, pass the model whose blocks the cache serves")
+    seq = ctx.seq_split() if mesh else None
     return [_block_cache_init(bt, cfg, B, max_len, device,
                               _kv_heads(model.blocks[i], cfg, ctx) if mesh and bt in ("attn_mlp", "attn_moe")
-                              else None)
+                              else None, seq)
             for i, bt in enumerate(cfg.block_types)]
 
 

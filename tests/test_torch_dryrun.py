@@ -136,8 +136,46 @@ def test_skip_reasons_equal_the_references():
                 skipped += 1
                 assert lower_cell(arch, name) == {"arch": arch, "shape": name, "skipped": why}
     assert skipped > 0
-    rec = lower_cell("qwen3-4b", "decode_32k", cache_layout="seq")
-    assert "14.7" in rec["skipped"]
+    # A decode under cache layout seq is a record (its fake group in a
+    # subprocess), at 4 of qwen3-4b's 36 layers: the cache is each layer's
+    # K and V of 8 rows x 2048 slots (32768 / 16 model ranks) x all 8 KV
+    # heads x 128 in bf16, and the softmax's statistics are summed over
+    # model (a pmax and two sums a layer, beside the embedding's sum).
+    code = ("import json; from repro_torch.launch.dryrun import lower_cell; print(json.dumps(lower_cell("
+            "'qwen3-4b', 'decode_32k', cache_layout='seq', cfg_overrides={'n_layers': 4})))")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    got = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=240, cwd=str(ROOT),
+                         env=env)
+    assert got.returncode == 0, got.stderr[-4000:]
+    rec = json.loads(got.stdout.strip().splitlines()[-1])
+    assert "skipped" not in rec and (rec["cache_layout"], rec["mesh"], rec["kind"]) == ("seq", "16x16", "decode")
+    tokens = 128 * 4  # the (128, 1) int32 global tokens_t, whose storage the rank's rows view
+    assert rec["memory"]["argument_bytes"] - rec["memory"]["param_bytes"] - tokens == 8 * 2048 * 8 * 128 * 2 * 2 * 4
+    calls = rec["collectives"]["calls_by_kind"]
+    assert calls["pmax"] == 4 and calls["sum"] == 2 * 4 + 1
+
+
+def test_long_500k_keeps_its_one_row_whole_and_splits_the_ring_under_seq():
+    """recurrentgemma-9b's long_500k cell (one row: the data shards do not
+    divide it, so every rank keeps it whole, as the reference's
+    ``batch_shardings`` replicates it) at 5 of its 38 layers, one local
+    attention layer among them, under both cache layouts: a record each,
+    the ring of 2048 slots split over the 16 model ranks under seq, and the
+    softmax's statistics summed over model (a pmax and two sums)."""
+    code = ("import json; from repro_torch.launch.dryrun import lower_cell; print(json.dumps({lay: lower_cell("
+            "'recurrentgemma-9b', 'long_500k', cache_layout=lay, cfg_overrides={'n_layers': 5}) "
+            "for lay in ('feature', 'seq')}))")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    got = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=240, cwd=str(ROOT),
+                         env=env)
+    assert got.returncode == 0, got.stderr[-4000:]
+    rec = json.loads(got.stdout.strip().splitlines()[-1])
+    for lay in ("feature", "seq"):
+        assert not {"skipped", "error"} & set(rec[lay]) and rec[lay]["cache_layout"] == lay
+    ring = 2048 * 1 * 256 * 2 * 2  # one row, 2048 slots, 1 KV head of 256, bf16, K and V
+    assert rec["feature"]["memory"]["argument_bytes"] - rec["seq"]["memory"]["argument_bytes"] == ring - ring // 16
+    calls = [rec[lay]["collectives"]["calls_by_kind"] for lay in ("feature", "seq")]
+    assert calls[1]["pmax"] == 1 and calls[1]["sum"] - calls[0]["sum"] == 2
 
 
 def _model_flops_cases():

@@ -315,3 +315,32 @@ def test_the_card_phase_rank_program_names_the_first_op_that_differs(tmp_path):
         assert r["decode_gaps"][0] == 0.0 and r["decode_gaps"][1] > 0 and r["decode_gaps"][2] == 0.0
         name, gap = r["decode_first_difference"]
         assert name == "step1/layer1/attention" and gap > 0
+
+
+def test_the_card_phase_rank_program_decodes_under_the_seq_layout(tmp_path):
+    """Phase "serve mesh" (b)'s seq-layout decode at the smoke widths in
+    bf16 on (1, 2): the oracle's 24 teacher-forced steps in its 24 slots,
+    12 a rank (steps 12–23 write rank 1's), the routing replayed, each
+    step within the phase's 2e-2 band of the meshless logits; one step
+    minus a feature-layout step is a ``pmax`` and two sums a layer (the
+    softmax's statistics), one gather of q, k and v replacing the
+    output's."""
+    over, cfg, model, tokens = _phase_model()
+    with torch.no_grad(), M.recorded_routing() as log:
+        logits, _ = T.prefill(model, {"tokens": tokens}, cfg, T.ModelContext())
+    prompt = tokens[:, :16].contiguous()
+    kept = {"logits": logits, "routing": log, "prompt": prompt,
+            "ids": SD.greedy_generate(model, cfg, prompt, steps=8)}
+    mesh_runs.moe_mesh_oracle(model, cfg, tokens, kept, str(tmp_path), half_decode_steps=2)
+    rep = D.run_ranks(mesh_runs.moe_serve_rank, 2, backend="gloo", device="cpu", timeout=DEADLINE,
+                      args=(0, (1, 2), str(tmp_path), 2, False, False, over, 64, None, 24))
+    assert rep["lockstep"]
+    L = cfg.n_layers
+    for r in rep["ranks"]:
+        assert r["seq_steps"] == 24 and len(r["seq_gaps"]) == 24
+        assert r["seq_gap"] < 2e-2 and r["seq_gap_late"] < 2e-2 and r["seq_first_difference"] is None
+        assert r["seq_k_cache_shape"] == (4, 12, cfg.n_kv_heads, cfg.head_dim)
+        assert r["seq_cache_bytes"] == r["feature_cache_bytes"]  # half the slots of all heads, half the heads
+        seq, feature = r["seq_step"]["calls"], r["feature_step"]["calls"]
+        diff = {k: seq.get(k, 0) - feature.get(k, 0) for k in set(seq) | set(feature)}
+        assert {k: n for k, n in diff.items() if n} == {"pmax": L, "sum": 2 * L}
