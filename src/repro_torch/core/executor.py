@@ -156,8 +156,7 @@ class LocalExecutor(Executor):
         return resilient_sum(self.map_nodes(fn, node_args, broadcast_args), b_full)
 
     def resilient_reduce(self, fn, node_args, broadcast_args, b_full):
-        with trace_span("executor.combine", executor=self.name):
-            return self._weighted(fn, node_args, broadcast_args, b_full)
+        return self._weighted(fn, node_args, broadcast_args, b_full)
 
     @compiled_path("local.masked_reduce", kind="factory")
     def _masked_step_raw(self, fn: Callable, n_node: int, iters: int):
@@ -168,7 +167,8 @@ class LocalExecutor(Executor):
         audit runs (the reference's ``_masked_step_raw``)."""
 
         def step(A, alive, use_override, b_override, *args):
-            solved = device_recovery_masked(A, alive, iters=iters, device=A.device)
+            with trace_span("recovery.device_solve", nodes=A.shape[0], iters=iters):
+                solved = device_recovery_masked(A, alive, iters=iters, device=A.device)
             # The override is data, not a branch (override_flag).
             b_full = torch.where(use_override, b_override, solved)
             return self._weighted(fn, args[:n_node], args[n_node:], b_full), b_full
@@ -193,8 +193,7 @@ class LocalExecutor(Executor):
             return step(A, alive, use_ov, b_ov, *node_args, *broadcast_args)
 
     def replicated_compute(self, fn, args):
-        with trace_span("executor.replicated", executor=self.name):
-            return fn(*args)
+        return fn(*args)
 
     def update_node_rows(self, arr, rows, new_rows):
         idx = torch.as_tensor(np.asarray(list(rows), dtype=np.int64), device=arr.device)

@@ -26,6 +26,7 @@ import torch
 from ..analysis import compiled_path
 from ..kernels.pairwise_dist.ops import assign_min
 from ..kernels.weighted_segsum.ops import weighted_segsum
+from ..obs import trace_span
 from .nodes import node_rand
 
 __all__ = [
@@ -107,7 +108,8 @@ def plusplus_init(
 ) -> torch.Tensor:
     """Weighted k-means++ (d²-sampling) / k-median++ (d-sampling) seeding."""
     xb, w, single = _batched(x, weights)
-    centers = _plusplus_batched(xb, w, k, median, _generator(xb.device, generator), impl)
+    with trace_span("kmeans.seed", B=xb.shape[0], n=xb.shape[1], k=k):
+        centers = _plusplus_batched(xb, w, k, median, _generator(xb.device, generator), impl)
     return centers[0] if single else centers
 
 
@@ -145,20 +147,22 @@ def lloyd(
     """
     xb, w, single = _batched(x, weights)
     if init_centers is None:
-        centers = _plusplus_batched(xb, w, k, median, _generator(xb.device, generator), impl)
+        with trace_span("kmeans.seed", B=xb.shape[0], n=xb.shape[1], k=k):
+            centers = _plusplus_batched(xb, w, k, median, _generator(xb.device, generator), impl)
     else:
         centers = init_centers.to(xb.device, torch.float32).reshape(xb.shape[0], k, -1).contiguous()
-    for _ in range(iters):
-        idx, _ = assign_min(xb, centers, impl=impl)
-        if median:
-            centers = _weiszfeld_update(xb, w, idx, centers, iters=weiszfeld_iters, impl=impl)
-        else:
-            sums, tot = weighted_segsum(xb, w, idx, k, impl=impl)
-            new = sums / torch.clamp_min(tot, _EPS).unsqueeze(-1)
-            centers = torch.where((tot > _EPS).unsqueeze(-1), new, centers)
-    idx, d2 = assign_min(xb, centers, impl=impl)
-    dist = torch.sqrt(torch.clamp_min(d2, 0.0)) if median else d2
-    cost = torch.sum(w * dist, dim=-1)
+    with trace_span("kmeans.iterate", iters=iters, median=median):
+        for _ in range(iters):
+            idx, _ = assign_min(xb, centers, impl=impl)
+            if median:
+                centers = _weiszfeld_update(xb, w, idx, centers, iters=weiszfeld_iters, impl=impl)
+            else:
+                sums, tot = weighted_segsum(xb, w, idx, k, impl=impl)
+                new = sums / torch.clamp_min(tot, _EPS).unsqueeze(-1)
+                centers = torch.where((tot > _EPS).unsqueeze(-1), new, centers)
+        idx, d2 = assign_min(xb, centers, impl=impl)
+        dist = torch.sqrt(torch.clamp_min(d2, 0.0)) if median else d2
+        cost = torch.sum(w * dist, dim=-1)
     if single:
         return ClusteringResult(centers[0], idx[0], cost[0])
     return ClusteringResult(centers, idx, cost)

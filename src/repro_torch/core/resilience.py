@@ -318,10 +318,11 @@ class ResilienceSession:
         """Cheap content hash: identity alone would serve stale packs after
         an in-place mutation of the caller's array (pts *= 0.5)."""
         a = np.ascontiguousarray(np.asarray(points))
-        h = hashlib.blake2b(digest_size=16)
-        h.update(str((a.shape, a.dtype.str)).encode())
-        h.update(a.tobytes())
-        return h.digest()
+        with trace_span("session.fingerprint", bytes=a.nbytes):
+            h = hashlib.blake2b(digest_size=16)
+            h.update(str((a.shape, a.dtype.str)).encode())
+            h.update(a.tobytes())
+            return h.digest()
 
     def _packed_shards(self, points, fp: Optional[bytes] = None):
         fp = self._fingerprint(points) if fp is None else fp

@@ -338,7 +338,8 @@ class MeshExecutor(Executor):
         weights of its own block (the reference's ``_masked_step_raw``)."""
 
         def step(A, alive, use_override, b_override, *args):
-            solved = device_recovery_masked(A, alive, iters=iters, device=A.device)
+            with trace_span("recovery.device_solve", nodes=A.shape[0], iters=iters):
+                solved = device_recovery_masked(A, alive, iters=iters, device=A.device)
             b_full = torch.where(use_override, b_override, solved)
             (b_blk,), _ = self._pad_nodes((b_full,))
             return self._combine(fn, args[:n_node], args[n_node:], s, b_blk), b_full
@@ -355,8 +356,7 @@ class MeshExecutor(Executor):
         blocks, s = self._pad_nodes(tuple(node_args))
         b = torch.as_tensor(b_full, dtype=torch.float32)
         (b_blk,), _ = self._pad_nodes((b.to(blocks[0].device),))
-        with trace_span("executor.combine", executor=self.name, devices=self.num_devices):
-            return self._block_step(fn, len(blocks), s, True)(b_blk, *blocks, *broadcast_args)
+        return self._block_step(fn, len(blocks), s, True)(b_blk, *blocks, *broadcast_args)
 
     def resilient_reduce_masked(
         self, fn, node_args, broadcast_args, A, alive, *, iters: int = 300,
@@ -378,8 +378,7 @@ class MeshExecutor(Executor):
         """Every rank computes ``fn(*args)`` on its own inputs, which the
         lockstep program makes the same on every rank: every rank holds the
         result (the streaming tree's compactions survive any rank)."""
-        with trace_span("executor.replicated", executor=self.name, devices=self.num_devices):
-            return fn(*args)
+        return fn(*args)
 
     # --------------------------------------------------- placement helpers
 

@@ -32,7 +32,6 @@ from .trace import (
     default_buffer,
     export_jsonl,
     obs_enabled,
-    profiler_enabled,
     set_clock,
     trace_span,
 )
@@ -53,7 +52,6 @@ __all__ = [
     "log_bounds",
     "obs_enabled",
     "percentile",
-    "profiler_enabled",
     "set_clock",
     "set_default_registry",
     "trace_span",

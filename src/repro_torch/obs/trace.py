@@ -6,9 +6,10 @@ start/end timestamps, a parent (spans nest through a ``contextvars`` stack,
 so the tree is correct under asyncio interleaving and threads), and a small
 attribute dict (``tenant=…, node=…, shard=…, pattern=…``).
 
-Spans wrap compiled-step *invocations* and never run inside them: all of
-this is plain host Python, recorded only where the repo already crosses the
-host↔device boundary.  Finished spans land in a process-wide fixed-capacity
+All of this is plain host Python: a span reads no device value and launches
+nothing, so it may sit inside an eager step (the layer boundaries of a solve
+and of a training step), where it times the host's launches and the device
+work is found by what was launched inside it.  Finished spans land in a process-wide fixed-capacity
 ring buffer (:class:`TraceBuffer`; ``REPRO_OBS_BUFFER`` rows, default 4096 —
 overflow evicts the oldest and is counted, never grows) and export as JSONL
 (:func:`export_jsonl`) for offline timeline assembly; each span also feeds
@@ -16,9 +17,9 @@ the ``obs_span_us{name=…}`` histogram in the default metrics registry so
 ``obs-report`` shows latency distributions without replaying the trace.
 
 Gating: ``REPRO_OBS=0`` disables span recording (counters stay on — they are
-the tiers' stats objects).  ``REPRO_OBS_PROFILER=1`` additionally brackets
-every span in a ``torch.profiler.record_function`` so spans line up with
-the device's kernels in a profiler trace.
+the tiers' stats objects).  A span's ``ts`` is on ``time.perf_counter``, so a
+profiler trace whose clock is tied to the host's places the device's kernels
+inside the spans that launched them.
 
 The clock is a module seam (:func:`set_clock`) mirroring the serving tier's
 ``VirtualClock`` pattern: the span-tree tests drive a fake monotonic clock
@@ -45,14 +46,12 @@ __all__ = [
     "default_buffer",
     "export_jsonl",
     "obs_enabled",
-    "profiler_enabled",
     "set_clock",
     "trace_span",
 ]
 
 OBS_ENV = "REPRO_OBS"                  # opt-out: 0/off disables span recording
 BUFFER_ENV = "REPRO_OBS_BUFFER"        # ring capacity (rows)
-PROFILER_ENV = "REPRO_OBS_PROFILER"    # opt-IN: torch.profiler annotations
 
 _OFF_VALUES = ("0", "off", "false", "no", "none")
 DEFAULT_BUFFER_ROWS = 4096
@@ -65,11 +64,6 @@ SPAN_BOUNDS = log_bounds(1.0, 1e8, 2.0)
 def obs_enabled() -> bool:
     """Span recording on?  Default ON; ``REPRO_OBS=0`` opts out."""
     return os.environ.get(OBS_ENV, "1").strip().lower() not in _OFF_VALUES
-
-
-def profiler_enabled() -> bool:
-    """torch.profiler trace annotations on?  Default OFF (opt-in)."""
-    return os.environ.get(PROFILER_ENV, "0").strip().lower() not in _OFF_VALUES
 
 
 def _buffer_rows() -> int:
@@ -101,7 +95,7 @@ class Span:
 
     __slots__ = (
         "name", "span_id", "parent_id", "t_start", "t_end", "attrs",
-        "_token", "_annotation",
+        "_token",
     )
 
     def __init__(self, name: str, parent_id: Optional[int], attrs: dict):
@@ -112,7 +106,6 @@ class Span:
         self.t_end: Optional[float] = None
         self.attrs = attrs
         self._token = None
-        self._annotation = None
 
     def set_attr(self, **kw) -> "Span":
         """Attach attributes discovered mid-span (e.g. rows dispatched)."""
@@ -235,17 +228,6 @@ def export_jsonl(path: str, *, clear: bool = False) -> int:
     return _BUFFER.export_jsonl(path, clear=clear)
 
 
-def _profiler_annotation(name: str):
-    """A ``torch.profiler.record_function`` range — or None if torch is
-    unavailable (obs must never be the reason a host tool can't import)."""
-    try:
-        import torch.profiler  # deferred: obs itself never requires torch
-
-        return torch.profiler.record_function(name)
-    except Exception:
-        return None
-
-
 class trace_span:
     """``with trace_span("serve.dispatch", tenant=t) as sp:`` — one span.
 
@@ -271,11 +253,6 @@ class trace_span:
             self._attrs,
         )
         span._token = _current.set(span)
-        if profiler_enabled():
-            ann = _profiler_annotation(self._name)
-            if ann is not None:
-                ann.__enter__()
-                span._annotation = ann
         self._span = span
         return span
 
@@ -283,8 +260,6 @@ class trace_span:
         span = self._span
         if span is _NULL_SPAN:
             return False
-        if span._annotation is not None:
-            span._annotation.__exit__(exc_type, exc, tb)
         _current.reset(span._token)
         span.t_end = _clock()
         if exc_type is not None:

@@ -35,6 +35,7 @@ from ..analysis import compiled_path
 from ..models import moe as M
 from ..models import transformer as T
 from ..models.registry import ModelConfig
+from ..obs import trace_span
 from .compression import CompressionConfig, compress_with_error_feedback, init_ef_state
 from .optimizer import AdamWConfig, OptState, adamw_update, init_opt_state
 
@@ -220,7 +221,8 @@ def make_train_step(
         ef = state.ef
         if compression is not None and compression.enabled:
             grads, ef = compress_with_error_feedback(compression, grads, ef, mesh=mesh, specs=specs)
-        _, opt, opt_metrics = adamw_update(opt_cfg, params, grads, state.opt, mesh, specs)
+        with trace_span("optimizer.adamw", tensors=len(params)):
+            _, opt, opt_metrics = adamw_update(opt_cfg, params, grads, state.opt, mesh, specs)
         metrics = dict(metrics)
         metrics.update(opt_metrics)
         metrics["loss"] = loss
@@ -301,20 +303,23 @@ def make_group_grad_fn(cfg: ModelConfig, ctx: T.ModelContext):
         valid = valid.float()
         per, out = [], None
         for g in range(valid.shape[0]):
-            loss, ce, tok = shard_sum(model, tokens[g], valid[g])
-            grads = _grads(loss, names, params)
+            with trace_span("train.forward", group=g):
+                loss, ce, tok = shard_sum(model, tokens[g], valid[g])
+            with trace_span("train.backward", group=g):
+                grads = _grads(loss, names, params)
             if b is None:
                 per.append((grads, loss.detach(), ce.detach(), tok))
                 continue
-            bg = b[g].to(device=valid.device, dtype=torch.float64)
-            if out is None:
-                out = {"grads": {n: torch.zeros_like(p, dtype=torch.float64) for n, p in zip(names, params)},
-                       "loss": 0.0, "ce": 0.0, "tok": 0.0}
-            for n in names:
-                out["grads"][n].addcmul_(grads[n], bg)
-            del grads
-            for key, v in (("loss", loss), ("ce", ce), ("tok", tok)):
-                out[key] = out[key] + bg * v.detach().double()
+            with trace_span("train.combine", group=g):
+                bg = b[g].to(device=valid.device, dtype=torch.float64)
+                if out is None:
+                    out = {"grads": {n: torch.zeros_like(p, dtype=torch.float64) for n, p in zip(names, params)},
+                           "loss": 0.0, "ce": 0.0, "tok": 0.0}
+                for n in names:
+                    out["grads"][n].addcmul_(grads[n], bg)
+                del grads
+                for key, v in (("loss", loss), ("ce", ce), ("tok", tok)):
+                    out[key] = out[key] + bg * v.detach().double()
         if b is not None:
             return out
         return {"grads": {n: torch.stack([st[0][n] for st in per]) for n in names},
@@ -347,11 +352,13 @@ def make_recovered_apply_fn(
 
     def apply(state: TrainState, stats):
         params = dict(state.params.named_parameters())
-        grads = {n: (g * scale).to(params[n].dtype) for n, g in stats["grads"].items()}
+        with trace_span("train.combine"):
+            grads = {n: (g * scale).to(params[n].dtype) for n, g in stats["grads"].items()}
         ef = state.ef
         if compression is not None and compression.enabled:
             grads, ef = compress_with_error_feedback(compression, grads, ef)
-        _, opt, opt_metrics = adamw_update(opt_cfg, params, grads, state.opt)
+        with trace_span("optimizer.adamw", tensors=len(params)):
+            _, opt, opt_metrics = adamw_update(opt_cfg, params, grads, state.opt)
         metrics = {"loss": (stats["loss"] * scale).float(), "ce": (stats["ce"] * scale).float(),
                    "tokens": stats["tok"].float()}
         metrics.update(opt_metrics)

@@ -51,7 +51,6 @@ class FakeClock:
 def fresh_obs(monkeypatch):
     """Fresh registry, fresh 64-row buffer, fake clock; all restored after."""
     monkeypatch.delenv("REPRO_OBS", raising=False)
-    monkeypatch.delenv("REPRO_OBS_PROFILER", raising=False)
     prev_reg = set_default_registry(MetricsRegistry())
     prev_buf = trace_mod._BUFFER
     buf = trace_mod.configure_buffer(64)
@@ -256,16 +255,12 @@ def test_spans_disabled_by_env(fresh_obs, monkeypatch):
 
 
 def test_env_flag_parsing(monkeypatch):
-    from repro_torch.obs import obs_enabled, profiler_enabled
+    from repro_torch.obs import obs_enabled
 
     monkeypatch.delenv("REPRO_OBS", raising=False)
     assert obs_enabled()                      # default on
     monkeypatch.setenv("REPRO_OBS", "off")
     assert not obs_enabled()
-    monkeypatch.delenv("REPRO_OBS_PROFILER", raising=False)
-    assert not profiler_enabled()             # default off (opt-in)
-    monkeypatch.setenv("REPRO_OBS_PROFILER", "1")
-    assert profiler_enabled()
 
 
 # --------------------------------------------------------------- ring buffer
