@@ -47,7 +47,11 @@ Phases:
                  and the raw wrapper must refuse inputs that require
                  grad; pairwise_sqdist at its edges
                  and at (1,000,000 x 128) x (256 x 128), the op's own path:
-                 launch counts are read just around that call
+                 launch counts are read just around that call;
+                 min_dist_update over three seeding steps on each side at
+                 d = 3 and 130 (the scalar path), at the local solves'
+                 (10, m, 128), at the benchmark solve's (10, 400000, 128)
+                 and at its coordinator's (1, 10240, 128) at k = 1024
   5. paper size  the twin of examples/quickstart.py; the p_a=0.2 run is
                  also held against the plain path; then the twin of
                  examples/distributed_pca.py (Algorithm 3)
@@ -320,7 +324,11 @@ Phases:
                  and the flash calls counted against the launch counter
   21. timing     each kernel, its plain version and one library call
                  (weighted_segsum also at the coordinator's (1, 2560, 256,
-                 128), with its launches in Algorithm 1 by shape); the
+                 128), with its launches in Algorithm 1 by shape;
+                 min_dist_update also at the benchmark solve's (10, 400000,
+                 128) and its coordinator's (1, 10240, 128),
+                 with its launches in Algorithm 1 by shape, its bound the
+                 bytes of one step); the
                  bound of rows assign_min and pairwise_sqdist is three TF32
                  passes (3xTF32, the least this card needs for fp32-accurate
                  distances; one fp32 CUDA-core pass beside it), the flash
@@ -2319,7 +2327,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     FIG1, PRODUCTION = paper_fig1(), production_scale()  # the paper's Figure-1 sizes, the coreset size
     errs: dict[str, float] = {
-        "assign_min": 0.0, "weighted_segsum": 0.0, "flash_attention": 0.0, "pairwise_sqdist": 0.0}
+        "assign_min": 0.0, "weighted_segsum": 0.0, "flash_attention": 0.0, "pairwise_sqdist": 0.0,
+        "min_dist_update": 0.0}
 
     with phase("device"):
         kind = torch.cuda.get_device_name(0)
@@ -2442,6 +2451,53 @@ def main() -> int:
         print(f"pairwise_sqdist {tag}: x {tuple(x.shape)} c {tuple(c.shape)} max_abs_err={worst:.3e} "
               f"max_err/(|x|^2+|c|^2)={rel:.2e}")
         return got
+
+    def check_min_dist(tag, x, w, steps=3, median=True, g=gen):
+        """``steps`` steps of the seeding through the kernel and through the
+        plain version, each side carrying its own running d2 from PAD_DIST
+        and the centers rows of x (a column of a (B, k, d) set, as the
+        seeding passes them), so each center's own row reads 0: d2 within
+        1e-6 relative, the logits within 1e-6 (1 + |logit|), the -inf rows
+        exactly those of weight 0 on both sides, one launch a step."""
+        B, n, d = x.shape
+        pick = torch.randint(0, n, (B, steps), generator=g, device=dev)
+        centers = torch.gather(x, 1, pick.unsqueeze(-1).expand(-1, -1, d)).contiguous()
+        d2_k = torch.full((B, n), pd_ref.PAD_DIST, device=dev)
+        d2_r = d2_k.clone()
+        worst, worst_rel, worst_logit = 0.0, 0.0, 0.0
+        for i in range(steps):
+            before = dispatch.launch_counts()["min_dist_update"]
+            got = pd_ops.min_dist_update(x, centers[:, i], d2_k, w, median=median)
+            launched = dispatch.launch_counts()["min_dist_update"] - before
+            want = pd_ops.min_dist_update(x, centers[:, i], d2_r, w, median=median, impl="torch_ref")
+            sync()
+            if launched != 1:
+                raise AssertionError(f"min_dist_update {tag}: {launched} launches for one step")
+            err = (d2_k - d2_r).abs()
+            bad = int((err > 1e-6 * d2_r).sum())
+            if bad:
+                raise AssertionError(f"min_dist_update {tag} step {i}: {bad} distances outside rtol 1e-6, "
+                                     f"max err {float(err.max()):.3e}")
+            inf_k, inf_r = torch.isneginf(got), torch.isneginf(want)
+            if not (torch.equal(inf_k, inf_r) and torch.equal(inf_r, w == 0)):
+                raise AssertionError(f"min_dist_update {tag} step {i}: the -inf rows differ from those of "
+                                     "weight 0")
+            real = ~inf_r
+            lerr = (got[real] - want[real]).abs()
+            bad = int((lerr > 1e-6 * (1.0 + want[real].abs())).sum()) + int((~torch.isfinite(got[real])).sum())
+            if bad:
+                raise AssertionError(f"min_dist_update {tag} step {i}: {bad} logits outside 1e-6 (1 + |logit|) "
+                                     f"or not finite, max err {float(lerr.max()):.3e}")
+            on_center = d2_k[torch.arange(B, device=dev), pick[:, i]]
+            if bool((on_center != 0).any()):
+                raise AssertionError(f"min_dist_update {tag} step {i}: a center's own row reads "
+                                     f"{float(on_center.abs().max()):.3e}, not 0")
+            worst, worst_logit = max(worst, float(err.max())), max(worst_logit, float(lerr.max()))
+            worst_rel = max(worst_rel, float((err / d2_r.clamp_min(1e-30)).max()))
+        errs["min_dist_update"] = max(errs["min_dist_update"], worst)
+        print(f"min_dist_update {tag}: x {tuple(x.shape)} steps={steps} median={median} "
+              f"max_abs_err={worst:.3e} max_rel_err={worst_rel:.2e} logits max_abs_err={worst_logit:.3e} "
+              f"weight-0 rows {int((w == 0).sum())}")
 
     def rows_of(x, k):
         """k random rows of each batch of x, as centers (B, k, d)."""
@@ -2581,6 +2637,32 @@ def main() -> int:
             raise AssertionError("pairwise_sqdist: two calls on the same inputs differ")
         del sq_out
 
+        # min_dist_update: the scalar path (d = 3, 130; ragged n; B = 1), then
+        # the seeding's shapes: the local solves' (s, m, 128), the benchmark
+        # solve's (s, 400000, 128) and its coordinator's (1, s * 1024, 128) at
+        # k = 1024.
+        # Inputs from a generator of their own, so later draws stay as they were.
+        g_md = torch.Generator(device=dev).manual_seed(args.seed + 7)
+
+        def md_rand(*shape):
+            return torch.rand(shape, generator=g_md, device=dev)
+
+        x = md_rand(3, 777, 3) - 0.5
+        check_min_dist("edge d=3 n=777", x, md_rand(3, 777) * (md_rand(3, 777) > 0.2), g=g_md)
+        check_min_dist("edge d=3 means", x, md_rand(3, 777), median=False, g=g_md)
+        x = md_rand(1, 1001, 130)
+        check_min_dist("edge B=1 d=130", x, md_rand(1, 1001) * (md_rand(1, 1001) > 0.2), g=g_md)
+        check_min_dist("full local", xs_d, ws_d * md_rand(*ws_d.shape), g=g_md)
+        bx = pts_d[torch.randint(0, pts_d.shape[0], (s, 400_000), generator=g_md, device=dev)]
+        check_min_dist("benchmark local (s, 400000, 128)", bx, md_rand(s, 400_000) * (md_rand(s, 400_000) > 0.1),
+                       g=g_md)
+        del bx
+        pick = torch.randint(0, xs_d.shape[1], (s, 1024), generator=g_md, device=dev)
+        fy = torch.gather(xs_d, 1, pick.unsqueeze(-1).expand(-1, -1, d_full)).reshape(1, s * 1024, d_full)
+        check_min_dist("full coordinator k=1024", fy, md_rand(1, s * 1024) * (md_rand(1, s * 1024) > 0.3),
+                       g=g_md)
+        del x, fy, pick
+
     with phase("paper size"):
         dispatch.reset_launch_counts()
         ratios = quickstart.run(dev)
@@ -2633,7 +2715,8 @@ def main() -> int:
         central_counts = dispatch.launch_counts()
         dispatch.reset_launch_counts()
         t1 = time.perf_counter()
-        with launches_by_shape("weighted_segsum", {}) as seg_shapes:
+        with (launches_by_shape("weighted_segsum", {}) as seg_shapes,
+              launches_by_shape("min_dist_update", {}) as md_shapes):
             out = run_alg1()
             sync()
         t2 = time.perf_counter()
@@ -2651,8 +2734,9 @@ def main() -> int:
         print(f"launches: centralized {central_counts}  Algorithm 1 {counts}  "
               f"session {session.stats.as_dict()}")
         print(f"Algorithm 1 weighted_segsum launches by x shape: {seg_shapes}")
+        print(f"Algorithm 1 min_dist_update launches by x shape: {md_shapes}")
         for tag, got in (("centralized", central_counts), ("Algorithm 1", counts)):
-            if not all(got.get(name, 0) > 0 for name in ("assign_min", "weighted_segsum")):
+            if not all(got.get(name, 0) > 0 for name in ("assign_min", "weighted_segsum", "min_dist_update")):
                 raise AssertionError(f"{tag}: a kernel of the path was never launched: {got}")
         if out.centers.shape != (k_full, d_full) or not np.isfinite(out.centers).all():
             raise AssertionError("Algorithm 1 centers are not finite (k, d)")
@@ -3877,6 +3961,63 @@ def main() -> int:
             "shape": [n_q, k_q, d_full],
             "fp32_bound_ms": 1e3 * max(q_flops / PEAK_FP32_FLOPS, q_bytes / PEAK_BYTES),
         }
+        # min_dist_update at the local solves' shape, one step of the seeding:
+        # x read once, the center once, d2 read and written, w read, the
+        # logits written; a difference and an FMA an element, in fp32.
+        g_md = torch.Generator(device=dev).manual_seed(args.seed + 8)
+
+        def md_step(x, n_centers):
+            """Inputs of one step at x's shape: a center column of a
+            (B, n_centers, d) set, a running d2 and weights."""
+            pick = torch.randint(0, x.shape[1], (x.shape[0], n_centers), generator=g_md, device=dev)
+            cs = torch.gather(x, 1, pick.unsqueeze(-1).expand(-1, -1, x.shape[2])).contiguous()
+            return (cs[:, 1], torch.full(x.shape[:2], pd_ref.PAD_DIST, device=dev),
+                    torch.rand(x.shape[:2], generator=g_md, device=dev))
+
+        def md_bound(B, n, d):
+            return bound(3.0 * B * n * d, 4.0 * (B * n * d + B * d + 4 * B * n))
+
+        mc, md2, mw = md_step(xs_d, 2)
+        m_bound, m_by = md_bound(B, m, d)
+        rows.append({
+            "name": "min_dist_update", "route": "cuda",
+            "source": "src/repro_torch/csrc/min_dist_update.cu",
+            "replaces": "none (the ++ seeding's one-center step; the reference's loop runs the "
+                        "nearest-center kernel over all k slots each step)",
+            "launches": counts["min_dist_update"], "max_abs_err": errs["min_dist_update"],
+            "ms": cuda_ms(lambda: pd_ops.min_dist_update(xs_d, mc, md2, mw, median=True), 20),
+            "plain_ms": cuda_ms(
+                lambda: pd_ops.min_dist_update(xs_d, mc, md2, mw, median=True, impl="torch_ref"), 5),
+            "bound_ms": m_bound, "bound_by": m_by,
+            "library_ms": cuda_ms(lambda: torch.cdist(xs_d, mc[:, None]), 5),
+            "library_call": "torch.cdist(x, c[:, None]) (the distances alone)",
+            "design": "fp32-stream-ldcs",
+        })
+        # ... and at the coordinator's shape of the benchmark's solve, k = 1024
+        cx = torch.gather(xs_d, 1, torch.randint(0, m, (B, 1024), generator=g_md, device=dev)
+                          .unsqueeze(-1).expand(-1, -1, d)).reshape(1, B * 1024, d)
+        cc, cd2, cw = md_step(cx, 2)
+        beside["min_dist_update"] = {
+            "shape": [B, m, d],
+            "launches_by_x_shape": {str(list(shape)): n for shape, n in md_shapes.items()},
+            "coordinator_shape": [1, B * 1024, d],
+            "coordinator_ms": cuda_ms(lambda: pd_ops.min_dist_update(cx, cc, cd2, cw, median=True), 50),
+            "coordinator_plain_ms": cuda_ms(
+                lambda: pd_ops.min_dist_update(cx, cc, cd2, cw, median=True, impl="torch_ref"), 20),
+            "coordinator_library_ms": cuda_ms(lambda: torch.cdist(cx, cc[:, None]), 50),
+            "coordinator_bound_ms": md_bound(1, B * 1024, d)[0],
+        }
+        # ... and at the benchmark solve's local shape, (B, 400000, d)
+        bx = pts_d[torch.randint(0, pts_d.shape[0], (B, 400_000), generator=g_md, device=dev)]
+        bc, bd2, bw = md_step(bx, 2)
+        beside["min_dist_update"].update({
+            "benchmark_shape": [B, 400_000, d],
+            "benchmark_ms": cuda_ms(lambda: pd_ops.min_dist_update(bx, bc, bd2, bw, median=True), 20),
+            "benchmark_plain_ms": cuda_ms(
+                lambda: pd_ops.min_dist_update(bx, bc, bd2, bw, median=True, impl="torch_ref"), 5),
+            "benchmark_library_ms": cuda_ms(lambda: torch.cdist(bx, bc[:, None]), 5),
+            "benchmark_bound_ms": md_bound(B, 400_000, d)[0],
+        })
         for r in rows:
             print(f"{r['name']} ({r['design']}): {r['ms']:.3f} ms  plain {r['plain_ms']:.3f} ms  "
                   f"library {r['library_ms']:.3f} ms  bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "

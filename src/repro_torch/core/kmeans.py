@@ -5,8 +5,11 @@ batch being the nodes of a distributed run: one kernel launch per step
 covers all of them (the reference vmaps the same code).  Padding rows carry
 weight 0, so they are inert in every statistic.  The assignment step uses
 :mod:`repro_torch.kernels.pairwise_dist`; the update step uses
-:mod:`repro_torch.kernels.weighted_segsum`.  The loops are Python loops with
-no host synchronisation inside them.
+:mod:`repro_torch.kernels.weighted_segsum`.  The seeding keeps each point's
+distance to its nearest chosen center and folds in one new center a step
+(``min_dist_update``), where the reference reassigns every point to all k
+center slots; the minimum is the same, only its rounding differs.  The
+loops are Python loops with no host synchronisation inside them.
 
 ``median=True`` switches the update step from weighted means to weighted
 geometric medians (Weiszfeld iterations) and the seeding/cost from d² to d —
@@ -24,7 +27,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..analysis import compiled_path
-from ..kernels.pairwise_dist.ops import assign_min
+from ..kernels.pairwise_dist.ops import assign_min, min_dist_update
+from ..kernels.pairwise_dist.ref import PAD_DIST, SCORE_FLOOR
 from ..kernels.weighted_segsum.ops import weighted_segsum
 from ..obs import trace_span
 from .nodes import node_rand
@@ -37,7 +41,9 @@ __all__ = [
     "resilient_cost",
 ]
 
-_EPS = 1e-12
+# The seeding logits' floor (shared with ``min_dist_update``) and the
+# Weiszfeld and mean divisions' guard.
+_EPS = SCORE_FLOOR
 
 
 class ClusteringResult(NamedTuple):
@@ -87,13 +93,15 @@ def _plusplus_batched(x, w, k, median, gen, impl):
     B, n, d = x.shape
     rows = torch.arange(B, device=x.device)
     first = _sample(_logits(w, torch.ones_like(w)), gen)
-    # All k rows start at the first chosen point, so unchosen slots coincide
-    # with a real center and cannot distort the sampling distances.
+    # Row 0 is the first chosen point; step i writes row i.
     centers = x[rows, first].unsqueeze(1).expand(B, k, d).contiguous()
+    # Each point's squared distance to its nearest chosen center, carried
+    # from step to step: a step folds in the one center the last one chose
+    # (one pass over x) and gives the logits of the next draw.
+    d2 = torch.full((B, n), PAD_DIST, dtype=torch.float32, device=x.device)
     for i in range(1, k):
-        _, d2 = assign_min(x, centers, impl=impl)
-        score = torch.sqrt(torch.clamp_min(d2, 0.0)) if median else d2
-        centers[:, i] = x[rows, _sample(_logits(w, score), gen)]
+        logits = min_dist_update(x, centers[:, i - 1], d2, w, median=median, impl=impl)
+        centers[:, i] = x[rows, _sample(logits, gen)]
     return centers
 
 

@@ -27,7 +27,7 @@ __all__ = ["SOURCES", "BuildReport", "build", "build_dir", "load", "nvcc_command
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
-SOURCES = ("assign_min", "weighted_segsum", "flash_attention", "pairwise_sqdist")
+SOURCES = ("assign_min", "weighted_segsum", "flash_attention", "pairwise_sqdist", "min_dist_update")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

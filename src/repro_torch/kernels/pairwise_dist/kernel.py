@@ -1,4 +1,4 @@
-"""Wrappers of the two CUDA pairwise-distance kernels.
+"""Wrappers of the three CUDA pairwise-distance kernels.
 
 * ``assign_min_cuda`` launches the nearest-center kernel
   (``csrc/assign_min.cu``), which replaces the Pallas TPU kernel
@@ -23,6 +23,13 @@
   (16-byte-aligned rows) or coalesced 4-byte stores, the stores of one tile
   draining while the next one multiplies.  Bound: the bytes of the (n, k)
   output (0.46 ms at 1M × 256), above the 3xTF32 operations (0.40 ms).
+* ``min_dist_update_cuda`` launches the seeding's one-center step
+  (``csrc/min_dist_update.cu``), which replaces no TPU kernel: each of the
+  k − 1 steps of the ++ seeding folds the one new center into a running
+  minimum, where the reference's loop runs ``assign_min`` over every center
+  slot.  Direct fp32 differences, 16-byte streamed loads of x, the min and
+  the logit fused.  Bound: the bytes, x read once (0.63 ms at the local
+  solve's (10, 400000, 128)).
 
 Each wrapper checks shapes, dtype, device and contiguity, allocates the
 outputs, launches on the current stream without synchronising, raises if
@@ -38,13 +45,22 @@ import torch
 from .. import _build
 from ..dispatch import LaunchCounter
 
-__all__ = ["assign_min_cuda", "counter", "pairwise_sqdist_cuda", "sqdist_counter"]
+__all__ = [
+    "assign_min_cuda", "counter", "min_dist_counter", "min_dist_update_cuda", "pairwise_sqdist_cuda",
+    "sqdist_counter",
+]
 
 counter = LaunchCounter("assign_min")
 sqdist_counter = LaunchCounter("pairwise_sqdist")
+min_dist_counter = LaunchCounter("min_dist_update")
+
+# The widest row whose center a block stages in its 48 KB of static-limit
+# shared memory.
+MIN_DIST_MAX_D = 12288
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 
 def _lib():
@@ -126,3 +142,51 @@ def pairwise_sqdist_cuda(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"pairwise_sqdist kernel launch failed: CUDA error {err}")
     sqdist_counter.count += 1
     return out
+
+
+def _min_dist_lib():
+    lib = _build.load("min_dist_update")
+    fn = lib.min_dist_update_launch
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _I, _P]
+    fn.restype = _I
+    return fn
+
+
+def min_dist_update_cuda(
+    x: torch.Tensor, c: torch.Tensor, d2: torch.Tensor, w: torch.Tensor, median: bool
+) -> torch.Tensor:
+    """x (B, n, d) contiguous, c (B, d) with unit column stride (a column
+    of the seeding's (B, k, d) centers), d2 and w (B, n) contiguous, all
+    fp32 on one CUDA device → logits (B, n) f32; d2 updated in place."""
+    tensors = (x, c, d2, w)
+    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
+        raise ValueError(f"min_dist_update_cuda: every tensor must lie on one CUDA device, got "
+                         f"{[str(t.device) for t in tensors]}")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"min_dist_update_cuda: expected float32, got {[t.dtype for t in tensors]}")
+    if x.dim() != 3 or c.shape != (x.shape[0], x.shape[2]) or d2.shape != x.shape[:2] or w.shape != x.shape[:2]:
+        raise ValueError(f"min_dist_update_cuda: bad shapes x {tuple(x.shape)}, c {tuple(c.shape)}, "
+                         f"d2 {tuple(d2.shape)}, w {tuple(w.shape)}")
+    if not (x.is_contiguous() and d2.is_contiguous() and w.is_contiguous()) or (c.numel() and c.stride(1) != 1):
+        raise ValueError("min_dist_update_cuda: x, d2 and w must be contiguous and c's rows unit-strided")
+    B, n, d = x.shape
+    if d == 0:
+        raise ValueError("min_dist_update_cuda: d must be positive")
+    if B > 65535 or n >= 2**31 or d > MIN_DIST_MAX_D:
+        raise ValueError(f"min_dist_update_cuda: shape {(B, n, d)} exceeds the launch limits "
+                         f"(B ≤ 65535, d ≤ {MIN_DIST_MAX_D})")
+    logits = torch.empty((B, n), dtype=torch.float32, device=x.device)
+    if B == 0 or n == 0:
+        return logits
+    # 16-byte loads where every row of x and c starts on a 16-byte boundary.
+    vec = d % 4 == 0 and x.data_ptr() % 16 == 0 and c.data_ptr() % 16 == 0 and (B == 1 or c.stride(0) % 4 == 0)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _min_dist_lib()(
+            x.data_ptr(), c.data_ptr(), d2.data_ptr(), w.data_ptr(), logits.data_ptr(),
+            B, n, d, c.stride(0), int(bool(median)), int(vec), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"min_dist_update kernel launch failed: CUDA error {err}")
+    min_dist_counter.count += 1
+    return logits

@@ -1,5 +1,6 @@
-"""Public pairwise-distance ops: ``assign_min`` (nearest center) and
-``pairwise_sqdist`` (the full squared-distance matrix).
+"""Public pairwise-distance ops: ``assign_min`` (nearest center),
+``pairwise_sqdist`` (the full squared-distance matrix) and
+``min_dist_update`` (one step of the ++ seeding's running minimum).
 
 Implementations (see :mod:`repro_torch.kernels.dispatch`): ``cuda``, the
 hand-written kernel, for CUDA tensors; ``torch_ref``, the plain version, for
@@ -16,12 +17,14 @@ from .. import dispatch
 from . import kernel as _kernel
 from . import ref as _ref
 
-__all__ = ["assign_min", "pairwise_sqdist"]
+__all__ = ["assign_min", "min_dist_update", "pairwise_sqdist"]
 
 dispatch.register_impl("assign_min", "cuda", _kernel.assign_min_cuda)
 dispatch.register_impl("assign_min", "torch_ref", _ref.assign_min_ref)
 dispatch.register_impl("pairwise_sqdist", "cuda", _kernel.pairwise_sqdist_cuda)
 dispatch.register_impl("pairwise_sqdist", "torch_ref", _ref.pairwise_sqdist_ref)
+dispatch.register_impl("min_dist_update", "cuda", _kernel.min_dist_update_cuda)
+dispatch.register_impl("min_dist_update", "torch_ref", _ref.min_dist_update_ref)
 
 
 def assign_min(
@@ -63,3 +66,25 @@ def pairwise_sqdist(x: torch.Tensor, c: torch.Tensor, *, impl: str = "auto") -> 
         raise TypeError(f"pairwise_sqdist: expected float32, got {x.dtype}, {c.dtype}")
     _, fn = dispatch.resolve("pairwise_sqdist", impl, x, c)
     return fn(x, c)
+
+
+def min_dist_update(
+    x: torch.Tensor, c: torch.Tensor, d2: torch.Tensor, w: torch.Tensor, *, median: bool, impl: str = "auto"
+) -> torch.Tensor:
+    """Fold one new center a batch into the running squared distances, in
+    place, and give the logits of the next ++ draw.
+
+    ``x`` (B, n, d), ``c`` (B, d), ``d2`` and ``w`` (B, n), all float32:
+    ``d2`` becomes min(d2, ‖x − c‖²) and the result (B, n) is
+    log(max(w·score, 1e-12)) with score √d2 (``median``) or d2, exactly
+    −inf where w = 0.  The distance is the direct difference, so a chosen
+    point reads exactly 0.
+    """
+    if x.dim() != 3 or c.shape != (x.shape[0], x.shape[2]) or d2.shape != x.shape[:2] or w.shape != x.shape[:2]:
+        raise ValueError(
+            f"min_dist_update: expected x (B, n, d), c (B, d), d2 and w (B, n), got {tuple(x.shape)}, "
+            f"{tuple(c.shape)}, {tuple(d2.shape)}, {tuple(w.shape)}")
+    if d2.dtype != torch.float32:
+        raise TypeError(f"min_dist_update: d2 must be float32, got {d2.dtype}")
+    _, fn = dispatch.resolve("min_dist_update", impl, x, c, d2, w)
+    return fn(x, c, d2, w, median)

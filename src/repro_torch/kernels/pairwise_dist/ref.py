@@ -1,8 +1,11 @@
-"""Plain PyTorch oracle for the nearest-center assignment kernel.
+"""Plain PyTorch oracles for the pairwise-distance kernels.
 
-Computed exactly as the reference package's ``pairwise_dist/ref.py``: the
-‖x‖² + ‖c‖² − 2·x·cᵀ decomposition, clamped at 0, then a first-occurrence
-argmin.  Both functions take (n, d) or batched (B, n, d) inputs.
+``pairwise_sqdist_ref`` and ``assign_min_ref`` are computed exactly as the
+reference package's ``pairwise_dist/ref.py``: the ‖x‖² + ‖c‖² − 2·x·cᵀ
+decomposition, clamped at 0, then a first-occurrence argmin.  Both take
+(n, d) or batched (B, n, d) inputs.  ``min_dist_update_ref`` is the oracle
+of the seeding's one-center step, which the reference package has no twin
+of: the direct difference, batched only.
 """
 
 from __future__ import annotations
@@ -11,11 +14,16 @@ from typing import Optional
 
 import torch
 
-__all__ = ["PAD_DIST", "pairwise_sqdist_ref", "assign_min_ref"]
+__all__ = ["PAD_DIST", "SCORE_FLOOR", "pairwise_sqdist_ref", "assign_min_ref", "min_dist_update_ref"]
 
 # Positive, finite "+inf"-like distance: the running minimum's start and the
 # value of masked center columns.  Finite, so no inf − inf can occur.
 PAD_DIST = 3.4e38
+
+# The least w·score whose log a real point's seeding logit takes, so a
+# point at distance 0 keeps a finite logit: ``core.kmeans._EPS`` is this
+# constant, and ``csrc/min_dist_update.cu``'s FLOOR its copy.
+SCORE_FLOOR = 1e-12
 
 
 def pairwise_sqdist_ref(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -49,3 +57,19 @@ def assign_min_ref(
         )
     dist, idx = torch.min(d2, dim=-1)
     return idx.to(torch.int32), dist
+
+
+def min_dist_update_ref(
+    x: torch.Tensor, c: torch.Tensor, d2: torch.Tensor, w: torch.Tensor, median: bool
+) -> torch.Tensor:
+    """One step of the ++ seeding for x (B, n, d), the new centers c (B, d),
+    the running squared distances d2 (B, n) and the weights w (B, n):
+    d2 ← min(d2, ‖x − c‖²) in place, and the logits (B, n) of drawing each
+    row, log(max(w·score, SCORE_FLOOR)) with score √d2 (``median``) or d2,
+    exactly −inf where w = 0."""
+    dist = torch.sum((x.float() - c.float().unsqueeze(-2)) ** 2, dim=-1)
+    torch.minimum(d2, dist, out=d2)
+    score = torch.sqrt(torch.clamp_min(d2, 0.0)) if median else d2
+    return torch.where(
+        w > 0, torch.log(torch.clamp_min(w * score, SCORE_FLOOR)), torch.full_like(w, -torch.inf)
+    )

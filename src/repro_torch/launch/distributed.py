@@ -578,7 +578,7 @@ def main(argv=None) -> None:
     if device.type == "cuda":
         from ..kernels import _build
 
-        _build.build(("assign_min", "weighted_segsum"))  # once, before the ranks load them
+        _build.build(("assign_min", "weighted_segsum", "min_dist_update"))  # once, before the ranks load them
     t0 = time.perf_counter()
     local = mesh_runs.fig1("local", str(device))
     t1 = time.perf_counter()

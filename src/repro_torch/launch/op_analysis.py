@@ -20,7 +20,8 @@ HLO text of a jitted call).
 A call through ``kernels/dispatch.py`` (seen by its ``observed`` hook) is
 counted as one op by its shapes
 (:data:`KERNEL_FLOPS`: flash attention 4·B·H·T·S·dh, the two dots of the
-reference's ``attention_ref``; the distance kernels 2·n·k·d; the segment
+reference's ``attention_ref``; the distance kernels 2·n·k·d; the seeding's
+one-center step 3·B·n·d, a difference and an FMA an element; the segment
 sum none), its inputs read once and its output written once, and nothing
 inside it is counted: the count is the same whether the hand-written
 kernel (launched through ``ctypes``, which no aten hook sees) or its plain
@@ -60,6 +61,7 @@ KERNEL_FLOPS = {
     "flash_attention": _flash_flops,
     "assign_min": _distance_flops,
     "pairwise_sqdist": _distance_flops,
+    "min_dist_update": lambda x, *_, **__: 3.0 * x.numel(),
     "weighted_segsum": lambda *_, **__: 0.0,
 }
 

@@ -51,7 +51,8 @@ def records(tmp_path_factory):
 # ------------------------------------------------------------ meta route
 
 
-@pytest.mark.parametrize("op", ["flash_attention", "assign_min", "pairwise_sqdist", "weighted_segsum"])
+@pytest.mark.parametrize("op", ["flash_attention", "assign_min", "pairwise_sqdist", "weighted_segsum",
+                                "min_dist_update"])
 def test_resolve_on_meta_gives_the_plain_version_never_cuda(op):
     import repro_torch.kernels.flash_attention.ops  # noqa: F401  registers the ops
     import repro_torch.kernels.pairwise_dist.ops  # noqa: F401

@@ -15,6 +15,14 @@ agree except at near ties (the two nearest squared distances within 1e-5 of
 ‖x‖² + d²).  Segment sums differ only in summation order: 1e-5 relative to
 Σ|w·x|.  The segment sum must give the same bits on every run.
 
+The seeding's one-center step (``min_dist_update``): both sides sum the
+direct differences (x − c)² in fp32, in other orders, so the running
+squared distances agree at 1e-6 relative; the logits, log(max(w·score,
+1e-12)), within 1e-6 + 1e-6·|logit| (1e-6 relative on w·score and an ulp
+of the log); zero-weight rows are exactly −inf on both, and a point on the
+center reads exactly 0.  One ``plusplus_init`` at k launches it k − 1
+times and ``assign_min`` never.
+
 Full squared distances (``pairwise_sqdist``): both sides sum the same
 products of fp32 values in other orders, so an element may differ by a few
 ulps of ‖x_i‖² + ‖c_j‖²: |Δ| ≤ 1e-5·(‖x_i‖² + ‖c_j‖²) + 1e-6, and no output
@@ -110,6 +118,19 @@ SQDIST_CASES = [
     pytest.param(65, 1, 13, False, id="k1-d13"),
     pytest.param(33, 12, 2, True, id="duplicate-rows-d2"),
     pytest.param(40, 20, 64, True, id="duplicate-rows-d64"),
+]
+
+# (B, n, d): the local solve's shape and the coordinator's (16-byte loads),
+# d = 3 (4-byte loads, most lanes of the warp idle), d = 130 (4-byte loads,
+# a ragged last stride of the warp), d = 8 (two 16-byte units), n off any
+# block's row count, B = 1
+MIN_DIST_CASES = [
+    pytest.param(10, 400000, 128, id="local-solve"),
+    pytest.param(1, 10240, 128, id="coordinator"),
+    pytest.param(3, 1001, 3, id="d3"),
+    pytest.param(2, 777, 130, id="d130"),
+    pytest.param(4, 999, 8, id="d8"),
+    pytest.param(1, 33, 128, id="B1-n33"),
 ]
 
 # (n, k, d, batch)
@@ -321,6 +342,52 @@ def test_assign_min_tf32_batched_duplicates_on_card(cuda_device, k_valid):
     assert (idx < kv).all()
     for b in range(10):
         _check_assign(x[b], c[b], kv, idx[b], dist[b], want_idx[b].cpu(), want_dist[b].cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("median", [False, True], ids=["means", "median"])
+@pytest.mark.parametrize("B,n,d", MIN_DIST_CASES)
+def test_min_dist_update_kernel_matches_plain_on_card(cuda_device, B, n, d, median):
+    g = torch.Generator(device=cuda_device).manual_seed(B * 1000 + d)
+    x = torch.randn((B, n, d), generator=g, device=cuda_device) * 8.0
+    x += torch.rand((B, 1, d), generator=g, device=cuda_device) * 64.0
+    centers = x[:, :5].clone()  # c is a column of a (B, k, d) center set, as the seeding passes it
+    c = centers[:, 2]
+    x[:, n // 2] = c  # a point on the center: distance exactly 0
+    dist = ((x - c[:, None]) ** 2).sum(-1)
+    d2 = dist * (0.5 + torch.rand((B, n), generator=g, device=cuda_device))  # about half the rows keep theirs
+    w = torch.rand((B, n), generator=g, device=cuda_device) * 2.0
+    w[torch.rand((B, n), generator=g, device=cuda_device) < 0.2] = 0.0
+    w[:, n // 2] = 1.0
+    d2_k, d2_p = d2.clone(), d2.clone()
+    before = dispatch.launch_counts()["min_dist_update"]
+    got = pd_ops.min_dist_update(x, c, d2_k, w, median=median)
+    assert dispatch.launch_counts()["min_dist_update"] == before + 1
+    want = pd_ops.min_dist_update(x, c, d2_p, w, median=median, impl="torch_ref")
+    torch.cuda.synchronize()
+    torch.testing.assert_close(d2_k, d2_p, rtol=1e-6, atol=0)
+    assert bool((d2_k[:, n // 2] == 0).all())
+    zero = w == 0
+    assert bool(torch.isneginf(got[zero]).all()) and bool(torch.isfinite(got[~zero]).all())
+    torch.testing.assert_close(got[~zero], want[~zero], rtol=1e-6, atol=1e-6)
+    floor = torch.log(torch.tensor(pd_ref.SCORE_FLOOR, dtype=torch.float32))
+    assert bool((got[:, n // 2].cpu() == floor).all())
+
+
+@pytest.mark.gpu
+def test_plusplus_launches_min_dist_update_k_minus_1_times_on_card(cuda_device):
+    from repro_torch.core.kmeans import plusplus_init
+
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    x = torch.randn((3, 5000, 128), generator=g, device=cuda_device)
+    w = torch.rand((3, 5000), generator=g, device=cuda_device)
+    before = dispatch.launch_counts()
+    centers = plusplus_init(x, 64, weights=w, median=True, generator=torch.Generator(device=cuda_device).manual_seed(1))
+    after = dispatch.launch_counts()
+    assert after["min_dist_update"] - before["min_dist_update"] == 63
+    assert after["assign_min"] == before["assign_min"]
+    for b in range(3):  # every center is a row of its node's points
+        assert bool((centers[b][:, None] == x[b][None]).all(-1).any(-1).all())
 
 
 @pytest.mark.gpu
@@ -1003,7 +1070,7 @@ def test_mesh_on_card_matches_the_local_executor(cuda_device, world, backend):
     from repro_torch.launch import distributed as mesh_dist
     from repro_torch.launch import mesh_runs
 
-    _build.build(("assign_min", "weighted_segsum"))  # once, before the ranks load them
+    _build.build(("assign_min", "weighted_segsum", "min_dist_update"))  # once, before the ranks load them
     n, d, k, s, seed = 20000, 16, 8, 6, 0
     mesh = mesh_dist.run_ranks(mesh_runs.alg1_rank, world, backend=backend, device="cuda", timeout=300,
                                args=(n, d, k, s, seed))
