@@ -8,7 +8,11 @@ for CPU tensors and for explicit comparison;
 ``torch_chunked``, :func:`chunked_attention`, for every sliding-window call
 on every device, as the reference's selector routes windowed calls to its
 ``chunked_attention`` on the TPU too (the kernel has no window and no
-head_dim 256, RecurrentGemma's).
+head_dim 256, RecurrentGemma's).  A call whose v heads are narrower or
+wider than its q/k heads (latent attention's 192 and 128,
+``models.mla``) takes the plain route on every device, ``torch_ref``
+inside :class:`FlashAttentionFn`, so that its backward recomputes P from
+the saved q, k, v and o; the kernel takes one head width.
 
 ``decode_attention`` is plain PyTorch on every device, as it is plain jnp in
 the reference; a sliding window's ring cache is the caller's (the slot and
@@ -124,26 +128,36 @@ dispatch.register_impl("flash_attention", "torch_chunked", chunked_attention)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None, impl="auto"):
-    """Attention of q (B, T, H, dh) over k, v (B, S, KV, dh), H % KV == 0.
+    """Attention of q (B, T, H, dh) over k (B, S, KV, dh) and v (B, S, KV,
+    dv), H % KV == 0.
 
     Causal rows follow the decode alignment: query t attends to keys
     ≤ t + S − T, and with a ``window`` W to keys > t + S − T − W.  A
     windowed call runs :func:`chunked_attention` under ``auto`` on every
     device; ``impl="cuda"`` or ``"torch_ref"`` with a window raises (neither
-    has one).  Returns (B, T, H, dh) in q's dtype.
+    has one).  A call with dv != dh runs :func:`~.ref.attention_ref` inside
+    :class:`FlashAttentionFn` under ``auto`` or ``torch_ref`` on every
+    device (no window); ``impl="cuda"`` raises for it.  Returns (B, T, H,
+    dv) in q's dtype.
     """
     if window is not None:
         if impl not in ("auto", "torch_chunked"):
             raise ValueError(f"flash_attention: impl={impl!r} has no sliding window; windowed calls "
                              "run 'torch_chunked' (the default under 'auto')")
         impl = "torch_chunked"
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention: expected q (B,T,H,dh), k/v (B,S,KV,dh); got "
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"flash_attention: expected q (B,T,H,dh), k (B,S,KV,dh), v (B,S,KV,dv); got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     if k.shape[0] != q.shape[0] or k.shape[3] != q.shape[3] or q.shape[2] % k.shape[2]:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k/v {tuple(k.shape)} do not match")
     dh = q.shape[-1]
     scale = (dh ** -0.5) if scale is None else float(scale)
+    if v.shape[3] != dh:
+        if impl not in ("auto", "torch_ref"):
+            raise ValueError(f"flash_attention: impl={impl!r} takes one head width; q/k heads of {dh} and v "
+                             f"heads of {v.shape[3]} run 'torch_ref' (the default under 'auto')")
+        _, fn = dispatch.resolve("flash_attention", "torch_ref", q, k, v)
+        return FlashAttentionFn.apply(q, k, v, causal, scale, fn)
     name, fn = dispatch.resolve("flash_attention", impl, q, k, v)
     if name == "torch_chunked":
         return fn(q, k, v, causal=causal, window=window, scale=scale)

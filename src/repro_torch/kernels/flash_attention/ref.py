@@ -20,8 +20,8 @@ __all__ = ["attention_bwd_ref", "attention_ref"]
 
 
 def attention_ref(q, k, v, *, causal: bool = True, scale=None):
-    """q: (B, T, H, dh); k, v: (B, S, KV, dh) with H % KV == 0.
-    Returns (B, T, H, dh) in q.dtype."""
+    """q: (B, T, H, dh); k: (B, S, KV, dh); v: (B, S, KV, dv) with H % KV
+    == 0.  Returns (B, T, H, dv) in q.dtype."""
     torch.backends.cuda.matmul.allow_tf32 = False
     B, T, H, dh = q.shape
     S, KV = k.shape[1], k.shape[2]
@@ -46,9 +46,9 @@ def attention_bwd_ref(q, k, v, o, do, scale, *, causal: bool = True):
     output's gradient ``do``, recomputed from q and k in f32: P =
     softmax(scale·q·kᵀ) under the causal mask, then dV = Pᵀ·dO, dP =
     dO·Vᵀ, dS = P∘(dP − rowsum(dO∘O)), dQ = scale·dS·K and dK =
-    scale·dSᵀ·Q, with dK and dV summed over each GQA group.  q, o, do:
-    (B, T, H, dh); k, v: (B, S, KV, dh) with T == S (training and prefill;
-    raises otherwise).  Each gradient is returned in its input's dtype.
+    scale·dSᵀ·Q, with dK and dV summed over each GQA group.  q: (B, T, H,
+    dh); k: (B, S, KV, dh); v: (B, S, KV, dv); o, do: (B, T, H, dv); T == S
+    (training and prefill; raises otherwise).  Each gradient is returned in its input's dtype.
     TF32 is off for the products, as in :func:`attention_ref`."""
     torch.backends.cuda.matmul.allow_tf32 = False
     B, T, H, dh = q.shape
@@ -72,5 +72,5 @@ def attention_bwd_ref(q, k, v, o, do, scale, *, causal: bool = True):
     dq = torch.einsum("bhts,bshd->bthd", ds, kr) * scale
     dk = torch.einsum("bhts,bthd->bshd", ds, qf) * scale
     dk = dk.reshape(B, S, KV, g, dh).sum(3)
-    dv = dv.reshape(B, S, KV, g, dh).sum(3)
+    dv = dv.reshape(B, S, KV, g, v.shape[3]).sum(3)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -36,7 +36,11 @@ SHAPES = {
 
 def cell_is_applicable(cfg: ModelConfig, shape: ShapeCell) -> tuple[bool, str]:
     """long_500k requires sub-quadratic decode (SSM/hybrid); all ten assigned
-    archs are decoders, so decode shapes otherwise always apply."""
+    archs are decoders, so decode shapes otherwise always apply.  The
+    port's latent-attention arch (deepseek-v2-lite) trains meshless only,
+    so no cell of the multi-pod mesh applies to it."""
+    if cfg.mla is not None:
+        return False, "latent attention (MLA): the port has no mesh or decode path for it yet"
     if shape.name == "long_500k" and not cfg.subquadratic:
         return False, (
             "pure full-attention arch: a 524288-token dense KV pass is "

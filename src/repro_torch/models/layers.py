@@ -34,6 +34,8 @@ __all__ = [
     "rmsnorm_init",
     "rmsnorm",
     "rope_freqs",
+    "yarn_freqs",
+    "yarn_mscale",
     "apply_rope",
     "mlp_init",
     "mlp_apply",
@@ -69,10 +71,41 @@ def rope_freqs(head_dim: int, theta: float, device=None):
     return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim))
 
 
-def apply_rope(x, positions, theta: float):
-    """x: (B, T, H, dh); positions: (T,) or (B, T).  Split halves, f32 math."""
+def yarn_mscale(factor: float, mscale: float = 1.0) -> float:
+    """YaRN's attention temperature: 0.1·mscale·ln(factor) + 1 for a
+    context stretched by ``factor`` > 1, else 1."""
+    return 1.0 if factor <= 1.0 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_freqs(dim: int, theta: float, factor: float, original_max: int, beta_fast: float, beta_slow: float,
+               device=None):
+    """YaRN's rotary inverse frequencies (Peng et al. 2023, as DeepSeek-V2
+    uses them): each of the dim/2 frequencies θ^(−2i/dim) is kept where the
+    original context turns it more than ``beta_fast`` times, divided by
+    ``factor`` where it turns less than ``beta_slow`` times, and blended
+    linearly between: with d(r) = dim·ln(original_max / (2π·r)) / (2·ln θ),
+    the ramp runs from floor(d(beta_fast)) to ceil(d(beta_slow)), clipped
+    to [0, dim − 1].  The bounds are host arithmetic; the (dim/2,) f32
+    frequencies are made on ``device``."""
+
+    def turns_dim(r):
+        return dim * math.log(original_max / (r * 2.0 * math.pi)) / (2.0 * math.log(theta))
+
+    low = max(math.floor(turns_dim(beta_fast)), 0)
+    high = min(math.ceil(turns_dim(beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    extra = rope_freqs(dim, theta, device=device)
+    keep = 1.0 - torch.clamp((torch.arange(dim // 2, dtype=torch.float32, device=device) - low) / (high - low), 0, 1)
+    return extra / factor * (1.0 - keep) + extra * keep
+
+
+def apply_rope(x, positions, theta: float, freqs=None):
+    """x: (B, T, H, dh); positions: (T,) or (B, T).  Split halves, f32 math;
+    ``freqs`` (dh/2,) replaces the plain inverse frequencies of ``theta``."""
     dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, device=x.device)  # (dh/2,)
+    if freqs is None:
+        freqs = rope_freqs(dh, theta, device=x.device)  # (dh/2,)
     pos = positions.float()
     if pos.dim() == 1:
         pos = pos[None, :]  # (1, T)

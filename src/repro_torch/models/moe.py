@@ -16,6 +16,33 @@ equal values, the lower index (:func:`_topk`).  Ties are real: two equal
 token rows have equal combine weights, and when the capacity binds the
 order decides which one an expert drops.
 
+A layer told which experts it holds (``MoEConfig.experts_held`` = [lo,
+hi), expert parallelism's share of one chip) keeps their weights alone,
+(hi − lo, ·, ·), routes over all ``num_experts`` with the router whole,
+and computes only its own experts' part: the column block [lo, hi) of the
+combine weights enters the dispatch, the capacity is the whole layer's,
+and the shared experts see every token, as the model-axis branch below
+does on one rank, here without its exchange.  The capacity rule is the
+port's: each expert keeps the top C = int(n·top_k·capacity_factor / E) of
+the n tokens of one forward (one group's), where DeepSeek-V2 bounds each
+device's tokens instead.  The balance loss is the Switch loss over the
+batch, or under ``balance="seq"`` DeepSeek-V2's expert-level loss taken
+per sequence (:func:`_routing`).
+
+Under ``padding_routes=False`` the rows of padding slots (``rows_valid``
+0, the train step's headroom) take no part: their combine weights are 0,
+n counts the real tokens alone, and the balance loss is the mean over the
+real sequences.  The selection keeps its shape, the top C of all rows,
+and a slot past the real tokens' C carries weight 0 (C is a count on the
+device: no host sync).  Otherwise padding rows route like any row, as in
+the reference's vmap.
+
+The meshless forward's stages are the spans ``moe.route``,
+``moe.experts`` (routed and shared) and ``moe.combine``; with spans on
+(``obs.obs_enabled``) the counters ``moe.routed`` (routed (token,
+expert) pairs at the held experts) and ``moe.dropped`` (those the
+capacity dropped) add up on the device (``obs.default_counters``).
+
 Every selection goes through :func:`_topk`, and :func:`recorded_routing`
 records them (each layer's experts of each token, then each expert's kept
 tokens) or makes a run take an earlier run's selections, so that two runs
@@ -61,6 +88,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..launch import collectives as C
+from ..obs import default_counters, obs_enabled, trace_span
 from . import layers as L
 from . import taps
 from .registry import ModelConfig, MoEConfig
@@ -70,18 +98,20 @@ __all__ = ["MoE", "capacity", "kept_tokens", "moe_apply", "recorded_routing", "r
 
 class MoE(nn.Module):
     """Parameters of one MoE layer: ``router`` (d, E), ``w_gate`` and
-    ``w_up`` (E, d, f), ``w_down`` (E, f, d), and ``shared``, the gated
-    MLP of the shared experts at width f·num_shared (``None`` without
-    them).  The reference's initialisation laws."""
+    ``w_up`` (E_held, d, f), ``w_down`` (E_held, f, d), E_held the experts
+    held (E unless ``experts_held`` says otherwise), and ``shared``, the
+    gated MLP of the shared experts at width f·num_shared (``None``
+    without them).  The reference's initialisation laws."""
 
     def __init__(self, cfg: ModelConfig, *, dtype, device, generator, f32_read_dtype=None):
         super().__init__()
         m = cfg.moe
         d, f, E = cfg.d_model, m.d_expert, m.num_experts
+        lo, hi = held(m)
         kw = dict(dtype=dtype, device=device, generator=generator)
 
         def experts(din, dout):
-            w = torch.randn((E, din, dout), **kw)
+            w = torch.randn((hi - lo, din, dout), **kw)
             return L._param(w.mul_(1.0 / math.sqrt(din)))
 
         self.router = L.dense_init(d, E, scale=0.02, dtype=f32_read_dtype or dtype, device=device,
@@ -100,9 +130,20 @@ def _topk(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def capacity(n: int, m: MoEConfig) -> int:
+def held(m: MoEConfig) -> tuple[int, int]:
+    """[lo, hi): the experts this layer holds."""
+    lo, hi = m.experts_held or (0, m.num_experts)
+    if not 0 <= lo < hi <= m.num_experts:
+        raise ValueError(f"experts_held {m.experts_held} of {m.num_experts} experts")
+    return lo, hi
+
+
+def capacity(n, m: MoEConfig):
     """The reference's expert capacity for n tokens:
-    max(1, int(n·top_k·capacity_factor / E))."""
+    max(1, int(n·top_k·capacity_factor / E)); for n a 0-dim tensor (a count
+    on the device), the same in float64 as a 0-dim tensor."""
+    if isinstance(n, torch.Tensor):
+        return torch.clamp_min(torch.floor(n.double() * m.top_k * m.capacity_factor / m.num_experts), 1)
     return max(1, int(n * m.top_k * m.capacity_factor / m.num_experts))
 
 
@@ -162,12 +203,32 @@ def routing_differences(log_a, log_b):
     return [per[i] + per[i + 1] for i in range(0, len(per), 2)]
 
 
-def _routing(router, x, m: MoEConfig, mesh=None, batch_axes=()):
-    """Router scores of x (B, T, d) → (sparse combine weights (N, E) f32,
-    Switch aux loss, a f32 scalar).  The router runs in f32.  Given a mesh
-    and batch axes over which the tokens are split, the aux loss is the
+def _seq_balance(picked, prob, seqs: int, m: MoEConfig, valid=None):
+    """DeepSeek-V2's expert-level balance loss per sequence, the mean over
+    the ``seqs`` sequences of Σ_e f_e·P_e, where f_e = E/(K·T)·(the
+    sequence's tokens routed to e) and P_e is the mean router probability
+    of e over its T tokens.  picked, prob: (seqs·T, E), sequence-major.
+    Given ``valid`` (seqs·T,), the mean over the real sequences alone."""
+    n, E = prob.shape
+    T = n // seqs
+    f = picked.reshape(seqs, T, E).sum(1) * (E / (m.top_k * T))
+    per = torch.sum(f * prob.reshape(seqs, T, E).mean(1), dim=-1)
+    if valid is None:
+        return torch.mean(per)
+    real = valid.reshape(seqs, T)[:, 0]
+    return torch.sum(per * real) / torch.clamp_min(torch.sum(real), 1.0)
+
+
+def _routing(router, x, m: MoEConfig, mesh=None, batch_axes=(), seqs: int = 1, valid=None):
+    """Router scores of x (N, d) → (sparse combine weights (N, E) f32,
+    balance loss, a f32 scalar).  The router runs in f32.  Given a mesh
+    and batch axes over which the tokens are split, the Switch loss is the
     global one: the token fractions and the probability mass are summed
-    over those axes first."""
+    over those axes first.  Under ``balance="seq"`` x holds ``seqs``
+    sequences, row-major, and the loss is :func:`_seq_balance` (the mean of
+    the shards' means under a mesh's batch axes).  Given ``valid`` (N,)
+    (1 a real token, 0 a padding one; meshless only), padding tokens
+    route nowhere and the loss is over the real tokens."""
     d = x.shape[-1]
     logits = x.reshape(-1, d).float() @ router.float()
     if m.router_score == "sigmoid":
@@ -182,16 +243,27 @@ def _routing(router, x, m: MoEConfig, mesh=None, batch_axes=()):
     # Switch-style load-balance aux: E · Σ_e (token fraction)·(prob mass);
     # the mass is the softmax of the logits under either score.
     picked = torch.zeros_like(scores).scatter_(1, idx, 1.0)
+    probs = torch.softmax(logits, dim=-1)
+    if valid is not None:
+        w_sparse, picked = w_sparse * valid[:, None], picked * valid[:, None]
     nd = 1
     for a in batch_axes:
         nd *= mesh.shape.get(a, 1) if mesh is not None else 1
-    if nd == 1:
+    if m.balance == "seq":
+        aux = _seq_balance(picked, probs, seqs, m, valid)
+        taps.tap("router", w_sparse)
+        return w_sparse, aux if nd == 1 else C.pmean(aux, mesh, batch_axes)
+    if valid is not None:
+        n = torch.clamp_min(valid.sum(), 1.0)
+        frac = picked.sum(0) / n / m.top_k
+        prob = (probs * valid[:, None]).sum(0) / n
+    elif nd == 1:
         frac = picked.mean(0) / m.top_k
-        prob = torch.softmax(logits, dim=-1).mean(0)
+        prob = probs.mean(0)
     else:
         n = logits.shape[0] * nd
         frac = C.psum(picked.sum(0), mesh, batch_axes) / n / m.top_k
-        prob = C.psum(torch.softmax(logits, dim=-1).sum(0), mesh, batch_axes) / n
+        prob = C.psum(probs.sum(0), mesh, batch_axes) / n
     taps.tap("router", w_sparse)
     return w_sparse, m.num_experts * torch.sum(frac * prob)
 
@@ -209,48 +281,46 @@ def _combine(out, idx, vals, n: int, k: int, start=None):
     is, so only the live slots (weight ≠ 0) count, and a token has at most
     k of them, one at each of its top-k experts.  Each token gathers its
     live slots in expert order (their flat positions e·C + c ascend with e)
-    and sums them in k rounded adds: one pass, no atomics.  Every step
-    is out of place, so autograd differentiates it (the gradient reaches
-    out and the router's weights vals).
+    and sums them in k rounded adds: one pass, no atomics.  A token's
+    places beyond its live slots read a zero row of its own, so that the
+    gather's backward meets no long run of one repeated row (a layer that
+    holds few of the experts leaves most places empty).  Every step is
+    out of place, so autograd differentiates it (the gradient reaches out
+    and the router's weights vals).
 
     idx, vals: (E, C) kept tokens and their combine weights (f32).  Returns
     (n, d) in out's dtype.  Given ``start`` (n, d), the sums continue from
     it: a model rank of a mesh continues the previous rank's sums over the
     experts before its own."""
     E, C, d = out.shape
-    none = E * C  # the position of a zero row: a slot no token has
-    rows = torch.cat([(out * vals[..., None].to(out.dtype)).reshape(none, d), out.new_zeros((1, d))])
+    none = E * C  # past the slots: token t's zero row is none + t
+    rows = torch.cat([(out * vals[..., None].to(out.dtype)).reshape(none, d), out.new_zeros((n, d))])
     slot = torch.arange(none, device=out.device).reshape(E, C).masked_fill_(vals == 0, none)
     pos = torch.full((E, n), none, dtype=torch.long, device=out.device).scatter_(1, idx, slot)  # (E, n)
     order = torch.topk(pos, k, dim=0, largest=False).values  # (k, n): each token's live slots, in order
+    order = torch.where(order == none, order + torch.arange(n, device=out.device), order)
     flat = torch.zeros((n, d), dtype=out.dtype, device=out.device) if start is None else start
     for part in rows[order]:  # (n, d) each
         flat = flat + part
     return flat
 
 
-def _expert_outputs(x_flat, w_cols, wg, wu, wd, cap: int, compute_dtype):
+def _expert_outputs(x_flat, w_cols, wg, wu, wd, cap: int, compute_dtype, live=None):
     """Top-C dispatch → batched expert FFN: (the outputs (E, C, d) in
-    ``compute_dtype``, the kept tokens idx (E, C), their weights (E, C))."""
+    ``compute_dtype``, the kept tokens idx (E, C), their weights (E, C)).
+    Given ``live`` (a 0-dim count ≤ C), the slots from ``live`` on keep
+    nothing: their weights are 0."""
     n, d = x_flat.shape
     e = w_cols.shape[1]
     c = min(cap, n)
     vals, idx = _topk(w_cols.T, c)  # (E, C) each
+    if live is not None:
+        vals = vals * (torch.arange(c, device=vals.device) < live)
     xe = x_flat[idx.reshape(-1)].reshape(e, c, d).to(compute_dtype)
     h = F.silu(torch.bmm(xe, wg.to(compute_dtype))) * torch.bmm(xe, wu.to(compute_dtype))
     out = torch.bmm(h, wd.to(compute_dtype))
     taps.tap("experts", out, 0)  # a model axis splits the experts
     return out, idx, vals
-
-
-def _expert_compute(x_flat, w_cols, wg, wu, wd, cap: int, compute_dtype, top_k: int):
-    """Top-C dispatch → batched expert FFN → weighted combine.
-
-    x_flat: (N, d); w_cols: (N, E) combine weights, at most ``top_k``
-    nonzero a row; wg/wu/wd: (E, d, f)/(E, d, f)/(E, f, d).  Returns (N, d)
-    in ``compute_dtype``."""
-    out, idx, vals = _expert_outputs(x_flat, w_cols, wg, wu, wd, cap, compute_dtype)
-    return _combine(out, idx, vals, x_flat.shape[0], top_k)
 
 
 def _data_shard(mesh, batch_axes) -> tuple[int, int]:
@@ -261,10 +331,12 @@ def _data_shard(mesh, batch_axes) -> tuple[int, int]:
     return n, shard
 
 
-def moe_apply(p: MoE, x, cfg: ModelConfig, ctx=None):
+def moe_apply(p: MoE, x, cfg: ModelConfig, ctx=None, rows_valid=None):
     """MoE block forward.  x: (B, T, d) → (out (B, T, d) in x's dtype, aux
     loss, a f32 scalar).  Meshless, at the capacity of N = B·T tokens;
-    under a mesh, the branches of the module docstring."""
+    under a mesh, the branches of the module docstring.  ``rows_valid``
+    (B,), 1 a real row and 0 a padding slot's, counts where
+    ``padding_routes`` is False (the module docstring)."""
     m = cfg.moe
     compute_dtype = getattr(torch, cfg.compute_dtype)
     B, T, d = x.shape
@@ -272,16 +344,34 @@ def moe_apply(p: MoE, x, cfg: ModelConfig, ctx=None):
     x_flat = x.reshape(n, d)
     mesh = None if ctx is None else ctx.mesh
     msize = mesh.shape.get(ctx.model_axis, 1) if (mesh is not None and ctx.model_axis) else 1
+    valid = None if rows_valid is None or m.padding_routes else rows_valid.float().repeat_interleave(T)
+    if valid is not None and mesh is not None:
+        raise ValueError(f"{cfg.name}: padding_routes=False has no mesh path")
     if msize == 1:
         nd, shard = _data_shard(mesh, ctx.batch_axes) if mesh is not None else (1, 0)
         xg = C.gather_axes(x_flat, mesh, ctx.batch_axes, 0) if nd > 1 else x_flat
-        w_sparse, aux = _routing(p.router, xg, m)
-        out = _expert_compute(xg, w_sparse, L.weight(p.w_gate, ctx), L.weight(p.w_up, ctx),
-                              L.weight(p.w_down, ctx), capacity(n * nd, m), compute_dtype, m.top_k)
-        if p.shared is not None:
-            out = out + L.mlp_apply(p.shared, xg, act=cfg.mlp_act, compute_dtype=compute_dtype, ctx=ctx)
+        lo, hi = held(m)
+        with trace_span("moe.route"):
+            w_sparse, aux = _routing(p.router, xg, m, seqs=B * nd, valid=valid)
+        with trace_span("moe.experts"):
+            eo, idx, vals = _expert_outputs(xg, w_sparse[:, lo:hi], L.weight(p.w_gate, ctx), L.weight(p.w_up, ctx),
+                                            L.weight(p.w_down, ctx), capacity(n * nd, m), compute_dtype,
+                                            None if valid is None else capacity(valid.sum(), m))
+            shared = (L.mlp_apply(p.shared, xg, act=cfg.mlp_act, compute_dtype=compute_dtype, ctx=ctx)
+                      if p.shared is not None else None)
+        with trace_span("moe.combine"):
+            out = _combine(eo, idx, vals, n * nd, min(m.top_k, hi - lo))
+            if shared is not None:
+                out = out + shared
+        if obs_enabled():
+            routed = torch.count_nonzero(w_sparse[:, lo:hi])
+            default_counters().add("moe.routed", routed)
+            default_counters().add("moe.dropped", routed - torch.count_nonzero(vals))
         return out[shard * n:(shard + 1) * n].reshape(B, T, d).to(x.dtype), aux
 
+    if m.experts_held is not None:
+        raise ValueError(f"{cfg.name}: experts_held {m.experts_held} is one chip's share of a model axis; "
+                         f"under a model axis of {msize} ranks each rank holds its own share")
     e_loc = m.num_experts // msize
     r = mesh.coord(ctx.model_axis)
     lo, hi = r * e_loc, (r + 1) * e_loc

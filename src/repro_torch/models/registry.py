@@ -2,11 +2,13 @@
 reference's ``models/registry.py``, which is pure Python but pulls in the
 reference's model stack when its configs are imported).
 
-The layer stack is ``scan_unit × scan_repeats + tail``.  The port runs
-every architecture of the reference: the dense ``attn_mlp``, the MoE
+The layer stack is ``lead + scan_unit × scan_repeats + tail``.  The port
+runs every architecture of the reference: the dense ``attn_mlp``, the MoE
 ``attn_moe``, the xLSTM ``mlstm``/``slstm`` and the RecurrentGemma
 ``rglru_mlp``/``lattn_mlp`` families, and the codebook and prefix
-frontends.
+frontends; and, beyond the reference, DeepSeek-V2's latent attention
+(``mla_mlp``/``mla_moe``, :class:`MLAConfig`), whose first layer is dense
+(``lead``).
 
 Block types:
   attn_mlp   — GQA attention + gated/plain MLP        (dense transformers)
@@ -15,6 +17,8 @@ Block types:
   slstm      — xLSTM scalar-memory block
   rglru_mlp  — RG-LRU recurrent block + MLP           (Griffin/RecurrentGemma)
   lattn_mlp  — local sliding-window attention + MLP   (RecurrentGemma)
+  mla_mlp    — latent attention (MLA) + gated MLP      (DeepSeek-V2's dense layers)
+  mla_moe    — latent attention (MLA) + routed MoE     (DeepSeek-V2)
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
-__all__ = ["MoEConfig", "ModelConfig", "register", "get_config", "list_archs"]
+__all__ = ["MLAConfig", "MoEConfig", "ModelConfig", "register", "get_config", "list_archs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -35,6 +39,40 @@ class MoEConfig:
     router_aux_weight: float = 0.001
     router_score: str = "softmax"  # or "sigmoid" (DeepSeek-V3/Moonlight style)
     renorm_topk: bool = False
+    # Expert parallelism's share: the experts [lo, hi) of num_experts that this
+    # chip holds (None: all).  The router still scores all num_experts; the
+    # layer computes only its own experts' part (models.moe).
+    experts_held: Optional[tuple] = None
+    # The balance loss: "switch" (over the batch's tokens, its weight spread
+    # over the layers) or "seq" (DeepSeek-V2's expert-level loss taken per
+    # sequence, router_aux_weight a layer, summed over the layers).
+    balance: str = "switch"
+    # The rows of a batch's padding slots (``rows_valid`` 0): True, they route,
+    # take capacity and count in the balance loss like any row (the
+    # reference's vmap); False, they take no part (models.moe).
+    padding_routes: bool = True
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-V2's multi-head latent attention (arXiv:2405.04434 §2.1),
+    without the query's low-rank path: q/k heads of qk_nope + qk_rope, v
+    heads of v_head_dim, keys and values made from a kv_lora_rank latent,
+    one qk_rope-wide rotary key shared by every head; rotary frequencies
+    by YaRN (factor, original context, beta_fast, beta_slow) and the
+    softmax scale times yarn_mscale(factor, mscale_all_dim)²
+    (``models.layers``)."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_factor: float = 40.0
+    rope_original_max: int = 4096
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 0.707
+    rope_mscale_all_dim: float = 0.707
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,12 +88,14 @@ class ModelConfig:
     head_dim: int = 128
     scan_unit: tuple = ("attn_mlp",)
     tail: tuple = ()
+    lead: tuple = ()  # block types before the scanned unit (DeepSeek-V2's dense first layer)
     qk_norm: bool = False
     qkv_bias: bool = False
     rope_theta: float = 1e6
     rms_eps: float = 1e-6
     mlp_act: str = "silu_glu"  # silu_glu | gelu_glu | gelu
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     window: Optional[int] = None  # sliding-window size for lattn blocks
     # xLSTM specifics
     mlstm_proj_factor: float = 2.0
@@ -75,7 +115,7 @@ class ModelConfig:
 
     @property
     def scan_repeats(self) -> int:
-        body = self.n_layers - len(self.tail)
+        body = self.n_layers - len(self.lead) - len(self.tail)
         assert body % len(self.scan_unit) == 0, (
             f"{self.name}: {body} body layers not divisible by unit {self.scan_unit}"
         )
@@ -83,7 +123,7 @@ class ModelConfig:
 
     @property
     def block_types(self) -> tuple:
-        return self.scan_unit * self.scan_repeats + self.tail
+        return self.lead + self.scan_unit * self.scan_repeats + self.tail
 
     def validate(self) -> "ModelConfig":
         assert self.n_layers == len(self.block_types)

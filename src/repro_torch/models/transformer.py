@@ -1,7 +1,9 @@
 """Decoder assembly for the ``attn_mlp``, ``attn_moe``, ``mlstm``,
 ``slstm``, ``rglru_mlp`` and ``lattn_mlp`` block types and the two
 modality frontends (the reference's ``models/transformer.py`` without its
-meshes).
+meshes), and for the port's latent-attention blocks ``mla_mlp`` and
+``mla_moe`` (:mod:`.mla`: training and prefill's forward, meshless; no
+decode yet).
 
 The model is an ``nn.Module`` tree: an embedding, one block per layer in a
 ``ModuleList`` (:class:`Block` for attention layers, global or local,
@@ -83,6 +85,7 @@ from ..launch import collectives as C
 from ..launch.mesh import Mesh
 from . import attention as A
 from . import layers as L
+from . import mla as MLA
 from . import moe as M
 from . import rglru as G
 from . import taps
@@ -93,6 +96,7 @@ __all__ = [
     "Block",
     "ModelContext",
     "Transformer",
+    "aux_layers",
     "cast_params",
     "decode_step",
     "forward_train",
@@ -108,6 +112,8 @@ __all__ = [
 _REMAT = ("none", "full", "dots")
 _CACHE_LAYOUTS = ("feature", "seq")
 _BLOCKS = ("attn_mlp", "attn_moe", "lattn_mlp", "mlstm", "slstm", "rglru_mlp")  # every block type of the reference
+_MLA = ("mla_mlp", "mla_moe")  # the port's own: latent attention
+_MOE = ("attn_moe", "mla_moe")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,10 +180,23 @@ class ModelContext:
         return (m, self.mesh.coord(self.model_axis)) if m > 1 else None
 
 
-def _check_supported(cfg: ModelConfig) -> None:
+def _check_supported(cfg: ModelConfig, *, serve: bool = False) -> None:
+    """Every block type known; with ``serve`` (prefill, the decode cache
+    and decode), none of latent attention, which has no decode path yet."""
     for bt in cfg.block_types:
-        if bt not in _BLOCKS:
+        if bt not in _BLOCKS + _MLA:
             raise ValueError(f"{cfg.name}: unknown block type {bt!r}")
+        if serve and bt in _MLA:
+            raise ValueError(f"{cfg.name}: {bt} blocks (latent attention, MLA) train but do not serve yet: "
+                             "prefill, the decode cache and decode_step have no MLA path")
+
+
+def aux_layers(cfg: ModelConfig) -> int:
+    """What the layers' summed balance loss times ``router_aux_weight`` is
+    divided by in the loss: the layer count (the Switch loss's weight
+    spread over the layers), or 1 under ``balance="seq"`` (DeepSeek-V2's α
+    a layer)."""
+    return 1 if cfg.moe is not None and cfg.moe.balance == "seq" else max(1, cfg.n_layers)
 
 
 def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
@@ -189,8 +208,9 @@ def _compute_dtype(cfg: ModelConfig) -> torch.dtype:
 
 class Block(nn.Module):
     """One layer: pre-norm GQA attention, global or over ``cfg.window``
-    (``lattn_mlp``), then a pre-norm MLP (``attn_mlp``, ``lattn_mlp``) or
-    routed experts (``attn_moe``, parameters ``moe``)."""
+    (``lattn_mlp``), or latent attention (``mla_*``, :func:`.mla.mla_init`),
+    then a pre-norm MLP (``attn_mlp``, ``lattn_mlp``, ``mla_mlp``) or
+    routed experts (``attn_moe``, ``mla_moe``, parameters ``moe``)."""
 
     def __init__(self, cfg: ModelConfig, block_type: str, *, dtype, device, generator, f32_read_dtype=None):
         super().__init__()
@@ -198,9 +218,10 @@ class Block(nn.Module):
         rd = f32_read_dtype or dtype
         self.block_type = block_type
         self.attn_norm = L.rmsnorm_init(cfg.d_model, dtype=rd, device=device)
-        self.attn = A.attn_init(cfg, f32_read_dtype=rd, **kw)
+        init = MLA.mla_init if block_type in _MLA else A.attn_init
+        self.attn = init(cfg, f32_read_dtype=rd, **kw)
         self.mlp_norm = L.rmsnorm_init(cfg.d_model, dtype=rd, device=device)
-        if block_type == "attn_moe":
+        if block_type in _MOE:
             self.moe = M.MoE(cfg, f32_read_dtype=rd, **kw)
         else:
             self.mlp = L.mlp_init(cfg.d_model, cfg.d_ff, gated=cfg.mlp_act != "gelu", **kw)
@@ -293,11 +314,11 @@ def cast_params(model: Transformer, cfg: ModelConfig) -> Transformer:
 # ------------------------------------------------------------------ blocks
 
 
-def _ffn(p: Block, xn2, cfg: ModelConfig, ctx: ModelContext):
+def _ffn(p: Block, xn2, cfg: ModelConfig, ctx: ModelContext, rows_valid=None):
     """The block's feed-forward on the normed residual.  Returns (out in
     xn2's dtype, MoE aux loss or None)."""
-    if p.block_type == "attn_moe":
-        return M.moe_apply(p.moe, xn2, cfg, ctx)
+    if p.block_type in _MOE:
+        return M.moe_apply(p.moe, xn2, cfg, ctx, rows_valid)
     out = L.mlp_apply(p.mlp, xn2, act=cfg.mlp_act, compute_dtype=_compute_dtype(cfg), ctx=ctx)
     return out.to(xn2.dtype), None
 
@@ -320,9 +341,11 @@ def _on_rank(p, ctx: ModelContext):
     return p, ctx
 
 
-def _block_apply(p, x, cfg: ModelConfig, ctx: ModelContext, positions):
+def _block_apply(p, x, cfg: ModelConfig, ctx: ModelContext, positions, rows_valid=None):
     """Training/prefill forward of one block.  Returns (x, aux or None,
-    cache: K/V for attention, ``{}`` for a recurrent block)."""
+    cache: K/V for attention, ``{}`` for a recurrent block).
+    ``rows_valid`` (B,) marks the real rows for an MoE layer
+    (``models.moe.moe_apply``)."""
     p, ctx = _on_rank(p, ctx)
     if p.block_type == "mlstm":
         return X.mlstm_apply(p, x, cfg), None, {}
@@ -330,11 +353,17 @@ def _block_apply(p, x, cfg: ModelConfig, ctx: ModelContext, positions):
         return X.slstm_apply(p, x, cfg, ctx=ctx), None, {}
     if p.block_type == "rglru_mlp":
         return G.rglru_apply(p, x, cfg), None, {}
-    window = _window(p, cfg)
     xn = L.rmsnorm(x, p.attn_norm, eps=cfg.rms_eps)
+    if p.block_type in _MLA:
+        if ctx.mesh is not None:
+            raise ValueError(f"{cfg.name}: {p.block_type} blocks (latent attention) have no mesh path yet")
+        x = x + MLA.mla_apply(p.attn, xn, cfg, positions=positions, impl=ctx.attn_impl)
+        f, aux = _ffn(p, L.rmsnorm(x, p.mlp_norm, eps=cfg.rms_eps), cfg, ctx, rows_valid)
+        return x + f, aux, {}
+    window = _window(p, cfg)
     a, (k, v) = A.attn_apply(p.attn, xn, cfg, positions=positions, window=window, impl=ctx.attn_impl, ctx=ctx)
     x = x + a
-    f, aux = _ffn(p, L.rmsnorm(x, p.mlp_norm, eps=cfg.rms_eps), cfg, ctx)
+    f, aux = _ffn(p, L.rmsnorm(x, p.mlp_norm, eps=cfg.rms_eps), cfg, ctx, rows_valid)
     if window is not None:
         # The reference keeps the last min(window, T) positions: position
         # T − W + i lands in slot i, where decode's ring puts it only when
@@ -443,7 +472,7 @@ def _saved_by_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _remat_apply(blk, x, cfg: ModelConfig, ctx: ModelContext, positions):
+def _remat_apply(blk, x, cfg: ModelConfig, ctx: ModelContext, positions, rows_valid=None):
     """One block under ``ctx.remat``: (x, aux or None).  The block's output
     is multiplied by a ones tensor made inside it, so the first node of
     the block that the backward reaches unpacks a saved tensor: every rank
@@ -451,7 +480,7 @@ def _remat_apply(blk, x, cfg: ModelConfig, ctx: ModelContext, positions):
     from torch.utils import checkpoint as ckpt
 
     def run(x):
-        y, a, _ = _block_apply(blk, x, cfg, ctx, positions)
+        y, a, _ = _block_apply(blk, x, cfg, ctx, positions, rows_valid)
         return y * torch.ones((), dtype=y.dtype, device=y.device), a
 
     kw = {}
@@ -464,8 +493,9 @@ def _remat_apply(blk, x, cfg: ModelConfig, ctx: ModelContext, positions):
 def forward_train(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
     """Full forward, differentiable.  ``batch``: ``tokens`` (B, T), or
     (B, K, T) for a codebook model, and for a prefix model optionally
-    ``prefix_embeds`` (B, P, d).  Returns (logits (B, P + T, V) or
-    (B, T, K, V), aux (the layers' MoE aux losses summed, f32; 0 without
+    ``prefix_embeds`` (B, P, d), and ``rows_valid`` (B,) (1 a real row,
+    0 a padding slot's, for an MoE layer: ``models.moe``).  Returns
+    (logits (B, P + T, V) or (B, T, K, V), aux (the layers' MoE aux losses summed, f32; 0 without
     MoE), label_mask (B, P + T)).  Under a mesh, the rank's rows; with
     grad mode on, the collectives' backward is ordered and the last token
     of the order is folded into aux with weight 0."""
@@ -475,11 +505,12 @@ def forward_train(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext
         x, mask = _embed(model, batch, cfg, ctx)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        rows_valid = batch.get("rows_valid")
         for blk in model.blocks:
             if grad and ctx.remat != "none":
-                x, a = _remat_apply(blk, x, cfg, ctx, positions)
+                x, a = _remat_apply(blk, x, cfg, ctx, positions, rows_valid)
             else:
-                x, a, _ = _block_apply(blk, x, cfg, ctx, positions)
+                x, a, _ = _block_apply(blk, x, cfg, ctx, positions, rows_valid)
             if a is not None:
                 aux = aux + a
         logits = _logits(model, x, cfg, ctx)
@@ -538,7 +569,7 @@ def loss_fn(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
     the per-group masked means L_g.  Without the key, plain uniform
     weighting.  A codebook model's CE is the mean over its K codebooks; a
     prefix model's labels start after the prefix.  The MoE aux term
-    ``router_aux_weight · aux / n_layers`` is added.  Returns (total,
+    ``router_aux_weight · aux / aux_layers(cfg)`` is added.  Returns (total,
     metrics {"ce", "aux", "tokens"}).  Under a mesh ``batch`` holds the
     rank's rows and the loss and metrics are the global batch's, the same
     on every rank (:func:`_group_sums`)."""
@@ -558,7 +589,7 @@ def loss_fn(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
         loss = torch.sum(gw * per_group) / torch.clamp_min(torch.sum(gw), 1e-6)
         tokens = torch.sum(m) if ctx.mesh is None else torch.sum(c)
     aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
-    total = loss + aux_w * aux / max(1, cfg.n_layers)
+    total = loss + aux_w * aux / aux_layers(cfg)
     return total, {"ce": loss, "aux": aux, "tokens": tokens}
 
 
@@ -615,7 +646,7 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int, *, device, model=None,
     "seq"`` on a model axis of m > 1 ranks every attention layer, global
     or local, holds all KV heads of model rank r's slots [r·S/m,
     (r + 1)·S/m) instead, and an S that m does not divide raises."""
-    _check_supported(cfg)
+    _check_supported(cfg, serve=True)
     mesh = ctx is not None and ctx.mesh is not None
     if mesh and model is None:
         raise ValueError("init_cache: under a mesh, pass the model whose blocks the cache serves")
@@ -633,6 +664,7 @@ def decode_step(model: Transformer, cache, tokens_t, cur_len: int, cfg: ModelCon
     attention layer's K/V in place and replaces a recurrent layer's state;
     returns (logits_t (B, 1, V) or (B, 1, K, V), cache).  Under a mesh,
     the rank's rows and the cache of :func:`init_cache` under the mesh."""
+    _check_supported(cfg, serve=True)
     x = _token_embed(model, tokens_t, cfg, ctx)
     taps.tap("embed", x)
     new_cache = []
@@ -652,6 +684,7 @@ def prefill(model: Transformer, batch, cfg: ModelConfig, ctx: ModelContext):
     positions for local attention) and ``{}`` for a recurrent layer.  Only
     the last position reaches the head.  Under a mesh, the rank's rows of
     the batch, and K/V of the rank's KV heads."""
+    _check_supported(cfg, serve=True)
     x, _ = _embed(model, batch, cfg, ctx)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     cache = []

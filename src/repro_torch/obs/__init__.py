@@ -1,7 +1,8 @@
 """repro_torch.obs — unified observability: metrics registry + tracing spans.
 
 A copy of the reference package's ``obs/`` (framework-free), kept in the
-port so that the port imports nothing of the reference.
+port so that the port imports nothing of the reference, and the port's
+counters kept on the device (:mod:`.device`).
 
 One process-wide :class:`MetricsRegistry` (counters / gauges / log-bucket
 histograms, Prometheus text dump) and one :func:`trace_span` API (nested
@@ -9,10 +10,12 @@ host-side spans, JSONL ring-buffer export).  Every tier — resilience
 sessions, executors, serving, streaming, training, autotune — records
 through here; :func:`repro_torch.obs.report.write_report` renders both.
 
-Everything in this package is host-side Python: no torch imports at module
-scope, nothing obs does ever runs on the device.
+Everything in this package is host-side Python with no torch imports at
+module scope; the device counters' adds are the only work it launches on
+the device.
 """
 
+from .device import DeviceCounters, default_counters
 from .metrics import (
     Counter,
     Gauge,
@@ -38,6 +41,7 @@ from .trace import (
 
 __all__ = [
     "Counter",
+    "DeviceCounters",
     "Gauge",
     "Histogram",
     "HistogramSnapshot",
@@ -47,6 +51,7 @@ __all__ = [
     "TraceBuffer",
     "configure_buffer",
     "default_buffer",
+    "default_counters",
     "default_registry",
     "export_jsonl",
     "log_bounds",

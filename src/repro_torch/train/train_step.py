@@ -262,8 +262,9 @@ def make_group_grad_fn(cfg: ModelConfig, ctx: T.ModelContext):
     A group's statistics are its **shard-sum** ``{"grads", "loss", "ce",
     "tok"}``: the per-shard token-normalised losses summed over the
     group's valid slots (plus, for an MoE model, the valid slot count
-    times the group's aux term), the gradient of that sum (a dict by
-    parameter name), and the group's label count.  Without ``b`` the
+    times the group's aux term, taken over the real rows alone where the
+    MoE leaves padding out: ``padding_routes``), the gradient of that sum
+    (a dict by parameter name), and the group's label count.  Without ``b`` the
     function returns them stacked over the groups, the reference's
     meaning (a gradient per group: G copies of the model).  With ``b``
     (``(G,)``, the block's recovery weights) it returns their Lemma-3
@@ -287,12 +288,17 @@ def make_group_grad_fn(cfg: ModelConfig, ctx: T.ModelContext):
     replicas of a shard hold the same rows).  :func:`make_recovered_apply_fn`
     divides by ``n``.
     """
-    aux_w = cfg.moe.router_aux_weight / max(1, cfg.n_layers) if cfg.moe else 0.0
+    aux_w = cfg.moe.router_aux_weight / T.aux_layers(cfg) if cfg.moe else 0.0
+    rows_valid = cfg.moe is not None and not cfg.moe.padding_routes
 
     def shard_sum(model, tokens, valid):
         """One group's forward: (its shard-sum loss, CE, label count) over
-        its rows ``tokens`` (C·mb, T) and slot validity ``valid`` (C,)."""
-        per_slot, tok, aux = T.group_losses(model, {"tokens": tokens.long()}, cfg, ctx, valid.shape[0])
+        its rows ``tokens`` (C·mb, T) and slot validity ``valid`` (C,),
+        which an MoE layer that leaves padding out is told by row."""
+        batch = {"tokens": tokens.long()}
+        if rows_valid:
+            batch["rows_valid"] = valid.repeat_interleave(tokens.shape[0] // valid.shape[0])
+        per_slot, tok, aux = T.group_losses(model, batch, cfg, ctx, valid.shape[0])
         ce = torch.sum(valid * per_slot)
         loss = ce + torch.sum(valid) * (aux_w * aux) if aux_w else ce
         return loss, ce, torch.sum(tok)

@@ -123,13 +123,13 @@ def test_skip_reasons_equal_the_references():
     from repro.launch import specs as ref_specs
     from repro.models.registry import get_config as ref_config
 
-    from repro_torch.configs import ARCHS
+    from repro_torch.configs import REFERENCE_ARCHS
     from repro_torch.launch import specs
     from repro_torch.launch.dryrun import lower_cell
     from repro_torch.models.registry import get_config
 
     skipped = 0
-    for arch in ARCHS:
+    for arch in REFERENCE_ARCHS:
         for name, shape in specs.SHAPES.items():
             ok, why = specs.cell_is_applicable(get_config(arch), shape)
             assert (ok, why) == ref_specs.cell_is_applicable(ref_config(arch), ref_specs.SHAPES[name])
@@ -180,10 +180,10 @@ def test_long_500k_keeps_its_one_row_whole_and_splits_the_ring_under_seq():
 
 
 def _model_flops_cases():
-    from repro_torch.configs import ARCHS
+    from repro_torch.configs import REFERENCE_ARCHS
     from repro_torch.launch.specs import SHAPES
 
-    return [(a, s) for a in ARCHS for s in SHAPES]
+    return [(a, s) for a in REFERENCE_ARCHS for s in SHAPES]
 
 
 @pytest.mark.parametrize("arch,shape", _model_flops_cases())

@@ -238,17 +238,25 @@ def test_cast_params_holds_the_per_call_cast():
 
 
 def test_dense_configs_registered_with_reference_shapes():
-    assert list_archs() == sorted(["qwen3-4b", "qwen3-8b", "qwen2.5-3b", "qwen3-1.7b",
-                                   "moonshot-v1-16b-a3b", "deepseek-moe-16b", "xlstm-1.3b",
-                                   "recurrentgemma-9b", "musicgen-large", "internvl2-1b"])
+    from repro_torch.configs import REFERENCE_ARCHS
+
+    assert sorted(REFERENCE_ARCHS) == sorted(["qwen3-4b", "qwen3-8b", "qwen2.5-3b", "qwen3-1.7b",
+                                              "moonshot-v1-16b-a3b", "deepseek-moe-16b", "xlstm-1.3b",
+                                              "recurrentgemma-9b", "musicgen-large", "internvl2-1b"])
+    assert list_archs() == sorted(REFERENCE_ARCHS + ["deepseek-v2-lite"])  # the port's own MLA arch
     from repro.models.registry import get_config as j_get_config
 
-    for arch in list_archs():
+    for arch in REFERENCE_ARCHS:
         got, want = get_config(arch), j_get_config(arch)
-        # The two packages' MoEConfig are different classes: compared field by field.
+        # The two packages' MoEConfig are different classes: compared field by field; the
+        # port's own fields (a held share, the per-sequence balance loss, padding that
+        # routes as in the reference) at their defaults.
         assert (got.moe is None) == (want.moe is None)
         if got.moe is not None:
-            assert dataclasses.asdict(got.moe) == dataclasses.asdict(want.moe)
+            ours = dataclasses.asdict(got.moe)
+            assert {k: ours.pop(k) for k in ("experts_held", "balance", "padding_routes")} == {
+                "experts_held": None, "balance": "switch", "padding_routes": True}
+            assert ours == dataclasses.asdict(want.moe)
         assert got == ModelConfig(**{**vars(want), "moe": got.moe})
     full = get_config("qwen3-4b")
     assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads, full.head_dim, full.d_ff,

@@ -268,8 +268,10 @@ def test_combine_adds_in_the_reference_serial_order_bit_for_bit():
 
 
 def test_expert_compute_is_the_reference_bit_for_bit_in_bf16():
-    """The whole ``_expert_compute`` in bf16, port against reference, at a
-    shape where several experts keep each token.  The inputs keep every
+    """The expert computation in bf16, the dispatch and experts
+    (``_expert_outputs``) then the combine (``_combine``) as ``moe_apply``
+    runs them, against the reference's ``_expert_compute``, at a shape
+    where several experts keep each token.  The inputs keep every
     step before the combine exact or singly rounded on both sides: integer
     tokens and weights put each gate pre-activation at 8 or more, where the
     silu of both packages returns its input, and the products sum exactly
@@ -282,7 +284,8 @@ def test_expert_compute_is_the_reference_bit_for_bit_in_bf16():
     x = rng.integers(1, 3, size=(n, d)).astype(np.float32)
     wg, wu = (rng.integers(1, 3, size=(E, d, f)).astype(np.float32) for _ in range(2))
     wd = rng.integers(-2, 3, size=(E, f, d)).astype(np.float32)
-    got = M._expert_compute(*(torch.from_numpy(a) for a in (x, w, wg, wu, wd)), cap, torch.bfloat16, k)
+    out, idx, vals = M._expert_outputs(*(torch.from_numpy(a) for a in (x, w, wg, wu, wd)), cap, torch.bfloat16)
+    got = M._combine(out, idx, vals, n, k)
     want = JM._expert_compute(*(jnp.asarray(a) for a in (x, w, wg, wu, wd)), cap, jnp.bfloat16)
     assert got.dtype == torch.bfloat16
     np.testing.assert_array_equal(got.float().numpy(), _np(want))
@@ -478,7 +481,11 @@ def test_moe_configs_registered_with_reference_shapes():
 
     for arch in ARCHS:
         got, want = get_config(arch), j_get_config(arch)
-        assert dataclasses.asdict(got.moe) == dataclasses.asdict(want.moe)
+        # the port's own fields (a held share, the balance loss, padding that routes) at their defaults
+        ours = dataclasses.asdict(got.moe)
+        assert {k: ours.pop(k) for k in ("experts_held", "balance", "padding_routes")} == {
+            "experts_held": None, "balance": "switch", "padding_routes": True}
+        assert ours == dataclasses.asdict(want.moe)
         assert got == ModelConfig(**{**vars(want), "moe": got.moe})
     full = get_config("deepseek-moe-16b")
     assert (full.n_layers, full.d_model, full.n_heads, full.n_kv_heads, full.head_dim, full.vocab) == (

@@ -147,8 +147,8 @@ def _shard_mean_aux(experts: list, nd: int):
     plain = M.moe_apply
     layer = [0]
 
-    def apply(p, x, cfg, ctx=None):
-        out, _ = plain(p, x, cfg, ctx)
+    def apply(p, x, cfg, ctx=None, rows_valid=None):
+        out, _ = plain(p, x, cfg, ctx, rows_valid)
         m = cfg.moe
         idx = experts[layer[0]]
         layer[0] += 1

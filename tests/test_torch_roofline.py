@@ -33,7 +33,7 @@ from repro.launch import specs as JS
 from repro.launch.hlo_analysis import analyze_hlo
 from repro.models import registry as JREG
 from repro.models import transformer as JT
-from repro_torch.configs import ARCHS, paper_kmedian
+from repro_torch.configs import REFERENCE_ARCHS, paper_kmedian
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import ops as fa
 from repro_torch.kernels.flash_attention import ref as fa_ref
@@ -44,7 +44,7 @@ from repro_torch.launch import specs as S
 from repro_torch.models import transformer as T
 from repro_torch.models.registry import get_config
 
-CELLS = [(arch, name) for arch in ARCHS for name in S.SHAPES]
+CELLS = [(arch, name) for arch in REFERENCE_ARCHS for name in S.SHAPES]
 
 
 @pytest.mark.parametrize("arch,shape", CELLS)
